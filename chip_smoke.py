@@ -8,23 +8,31 @@ no result line):
 
 1. the card's name and power limit (nvidia-smi); build every CUDA kernel
    of ``fasttalk_tpu_torch/csrc`` with nvcc, one process per source;
-2. each kernel against its plain PyTorch version on the card at the
-   shapes the Llama-3.2-1B decode step gives it, with the tolerance
-   stated, then timed with CUDA events beside its plain version, one
-   PyTorch library call computing the same function, and its bound;
+2. each kernel, and each tier of the attention kernel (dense or paged,
+   bf16 or int8 rows), against its plain PyTorch version on the card at
+   the shapes the Llama-3.2-1B decode step gives it, with the tolerance
+   stated, then timed with CUDA graphs beside its plain version, one
+   PyTorch library call computing the same function (where there is one),
+   and its bound;
 3. llama3.2:1b at full width (int8 random weights on the card): prefill
    plus decode steps through the kernels against the same forward through
-   the plain versions, by logits and greedy tokens;
+   the plain versions, by logits and greedy tokens, on the dense bf16 cache
+   and on the paged int8 pool;
 4. the trained tinychat checkpoint (read in place from
-   ``fasttalk_tpu/assets``) with int8 weights: the greedy answer to "what
-   color is the sky?";
+   ``fasttalk_tpu/assets``) with int8 weights, on the dense bf16 cache and
+   on the paged int8 pool: the greedy answer to "what color is the sky?";
 5. the WebSocket server in-process through ``build_engine`` (full-width
-   llama3.2:1b, int8, 16 slots, max_len 2048, prefill chunk 512) with 16
-   concurrent sessions. The kernels' launch counts are zeroed just before
-   this phase and read just after; every kernel must have launched.
+   llama3.2:1b, int8, 16 slots, max_len 2048, prefill chunk 512, dense
+   bf16 KV) with 16 concurrent sessions;
+6. the same server on the paged int8 pool (KV_LAYOUT=paged,
+   KV_QUANT=int8, max_len 8192, 16-token blocks, 2048 pool blocks: a
+   quarter of the dense layout's rows) with 16 concurrent sessions;
+7. the two other tiers served briefly (dense int8, paged bf16).
 
-The line before the last is one JSON object listing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.
+In phases 5-7 the kernels' launch counts are zeroed just before the
+sessions and read just after; every kernel of the served path must have
+launched. The line before the last is one JSON object listing the kernels;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -207,74 +215,142 @@ def check_int8_matmul_t(results: dict) -> None:
     results["int8_matmul_t"] = entry
 
 
-def check_decode_attend(results: dict) -> None:
-    from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
-                                                       decode_attend_plain)
+# Ragged slot lengths over a 2048-key context: block and tile edges
+# (15/16/17, 31-33, 127-129, 511-513), the full context and one key short.
+ATTEND_LENGTHS = [1, 15, 16, 17, 127, 128, 129, 2048, 1000, 511, 512, 513,
+                  300, 1500, 2047, 33]
+BLOCK = 16                      # KV_BLOCK_SIZE of the paged tier
+
+
+def _int8_kv(shape: tuple, granule: int, g: torch.Generator,
+             dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    from fasttalk_tpu_torch.ops.kv_quant import kv_quantize
+
+    return kv_quantize(torch.randn(shape, generator=g, device=dev), granule)
+
+
+def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
+                 seed: int) -> None:
+    """One tier of the attention kernel at the decode-step shapes: 16 slots,
+    lengths ``ATTEND_LENGTHS``; int8 at scale granule G = 1 and 8, T = 1
+    and 4; paged through shuffled tables over the pool. Each slot is held
+    to ATTEND_SLOT_TOL of its own largest output; the reported entry is one
+    decode step (16 layer calls) at T = 1 and G = 1 (the served default)."""
+    from fasttalk_tpu_torch.ops import cuda_attention as ca
+    from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-    base = [1, 127, 128, 129, 2048, 1000, 511, 512, 513, 64, 300, 1500, 2047,
-            33, 900, 1777]
-    kv_bytes = SLOTS * MAX_LEN * NKV * HEAD_DIM * 2
-    n_cp = copies_for(2 * kv_bytes)
-    ks = [torch.randn((SLOTS, MAX_LEN, NKV, HEAD_DIM), generator=g,
-                      device=dev).to(torch.bfloat16) for _ in range(n_cp)]
-    vs = [torch.randn((SLOTS, MAX_LEN, NKV, HEAD_DIM), generator=g,
-                      device=dev).to(torch.bfloat16) for _ in range(n_cp)]
-    worst = 0.0
-    entry = None
-    for t in (1, 4):
-        lens = [max(t, n) for n in base]
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        q = torch.randn((SLOTS, t, NQ, HEAD_DIM), generator=g,
-                        device=dev).to(torch.bfloat16)
-        got = decode_attend(q, ks[0], vs[0], lengths).float()
-        ref = decode_attend_plain(q, ks[0], vs[0], lengths).float()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        gaps = attend_slot_gaps(got, ref)
-        worst_slot = int(gaps.argmax())
-        log(f"decode_attend B={SLOTS} S={MAX_LEN} T={t} lengths={lens}: "
-            f"max_abs_err={err:.6g}; per slot max|err|/max|ref| "
-            f"{[round(g, 6) for g in gaps.tolist()]}, worst "
-            f"{gaps[worst_slot].item():.6g} at length {lens[worst_slot]} "
-            f"(tol {ATTEND_SLOT_TOL})")
-        if not bool((gaps <= ATTEND_SLOT_TOL).all()):
-            fail(f"decode_attend disagrees with its plain version at T={t}: "
-                 f"slot gaps {gaps.tolist()} > {ATTEND_SLOT_TOL}")
-        worst = max(worst, err)
-        ms = time_ms(lambda i: decode_attend(q, ks[i % n_cp], vs[i % n_cp],
-                                             lengths), 50)
-        plain = time_ms(lambda i: decode_attend_plain(
-            q, ks[i % n_cp], vs[i % n_cp], lengths), 5)
-        # Library yardstick: SDPA with GQA over [B, H, S, D] layouts and a
-        # boolean length mask (it reads the whole S; it cannot prune).
-        kt = [k.transpose(1, 2).contiguous() for k in ks[:2]]
-        vt = [v.transpose(1, 2).contiguous() for v in vs[:2]]
-        qt = q.transpose(1, 2)
-        horizon = (lengths[:, None] - (t - 1)
-                   + torch.arange(t, device=dev)[None])
-        mask = (torch.arange(MAX_LEN, device=dev)[None, None, None, :]
-                < horizon[:, None, :, None])
-        lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt[i % 2], vt[i % 2], attn_mask=mask, enable_gqa=True), 50)
-        del kt, vt
-        live = sum(lens)
-        nbytes = (2 * live * NKV * HEAD_DIM * 2 + 2 * q.numel() * 2
-                  + 4 * SLOTS)
-        ops = 4 * live * NQ * HEAD_DIM * t
-        b_ms, by = bound(nbytes, ops)
-        log(f"  ms={ms:.6g} plain_ms={plain:.6g} library_ms={lib:.6g} "
-            f"bound_ms={b_ms:.6g} ({by})")
-        if t == 1:
-            calls = LAYERS
-            entry = {"ms": calls * ms, "plain_ms": calls * plain,
-                     "bound_ms": calls * b_ms, "bound_by": by,
-                     "library_ms": calls * lib,
-                     "work": "one decode step at T=1: 16 calls, B=16, "
-                             f"lengths {lens}"}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = MAX_LEN // BLOCK
+    elt = 1 if int8 else 2
+    row_bytes = NKV * HEAD_DIM * elt
+    rows = SLOTS * MAX_LEN
+    n_cp = copies_for(2 * rows * row_bytes)
+    worst, entry = 0.0, None
+    for granule in ((1, NKV) if int8 else (0,)):
+        kv = []
+        for _ in range(n_cp):
+            if int8:
+                (k, ks), (v, vs) = (_int8_kv((rows, NKV, HEAD_DIM), granule,
+                                             g, dev),
+                                    _int8_kv((rows, NKV, HEAD_DIM), granule,
+                                             g, dev))
+            else:
+                k, v = (torch.randn((rows, NKV, HEAD_DIM), generator=g,
+                                    device=dev).to(torch.bfloat16)
+                        for _ in range(2))
+                ks = vs = None
+            kv.append((k, v, ks, vs))
+        # Paged: the pool holds every slot's blocks, shuffled; dense: the
+        # same rows viewed as [B, S, ...].
+        perm = torch.randperm(SLOTS * nb, generator=torch.Generator(
+            ).manual_seed(seed)).to(torch.int32).to(dev)
+        tables = perm.view(SLOTS, nb).contiguous()
+        idx = paged_gather_indices(tables, BLOCK).long()
+
+        def call(i: int, q, lengths, fn):
+            k, v, ks, vs = kv[i % n_cp]
+            if paged:
+                return (ca.decode_attend_paged if fn is None else fn)(
+                    q, k, v, lengths, tables, block_size=BLOCK,
+                    k_scale=ks, v_scale=vs)
+            shape = (SLOTS, MAX_LEN)
+            return (ca.decode_attend if fn is None else fn)(
+                q, k.view(*shape, NKV, HEAD_DIM),
+                v.view(*shape, NKV, HEAD_DIM), lengths,
+                k_scale=None if ks is None else ks.view(*shape, granule),
+                v_scale=None if vs is None else vs.view(*shape, granule))
+
+        plain_fn = (ca.decode_attend_paged_plain if paged
+                    else ca.decode_attend_plain)
+        for t in (1, 4):
+            lens = [max(t, n) for n in ATTEND_LENGTHS]
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = torch.randn((SLOTS, t, NQ, HEAD_DIM), generator=g,
+                            device=dev).to(torch.bfloat16)
+            got = call(0, q, lengths, None).float()
+            ref = call(0, q, lengths, plain_fn).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            gaps = attend_slot_gaps(got, ref)
+            ws = int(gaps.argmax())
+            label = f"{name} T={t}" + (f" G={granule}" if int8 else "")
+            log(f"{label} B={SLOTS} keys<={MAX_LEN}: max_abs_err={err:.6g}; "
+                f"per slot max|err|/max|ref| "
+                f"{[round(x, 6) for x in gaps.tolist()]}, worst "
+                f"{gaps[ws].item():.6g} at length {lens[ws]} "
+                f"(tol {ATTEND_SLOT_TOL})")
+            if not bool((gaps <= ATTEND_SLOT_TOL).all()):
+                fail(f"{label} disagrees with its plain version: slot gaps "
+                     f"{gaps.tolist()} > {ATTEND_SLOT_TOL}")
+            worst = max(worst, err)
+            ms = time_ms(lambda i: call(i, q, lengths, None), 50)
+            plain = time_ms(lambda i: call(i, q, lengths, plain_fn), 5)
+            lib = None
+            if not (paged and int8):
+                # Library yardstick: SDPA with GQA and a length mask over a
+                # dense bf16 [B, H, S, D] copy of the same keys (it reads the
+                # whole S; it cannot prune, and it reads no paged int8 pool).
+                k, v, ks, vs = kv[0]
+                if int8:
+                    k = (k.float() * ks[..., None]).to(torch.bfloat16)
+                    v = (v.float() * vs[..., None]).to(torch.bfloat16)
+                src = (idx if paged else torch.arange(
+                    rows, device=dev).view(SLOTS, MAX_LEN))
+                kt = k[src].transpose(1, 2).contiguous()
+                vt = v[src].transpose(1, 2).contiguous()
+                qt = q.transpose(1, 2)
+                horizon = (lengths[:, None] - (t - 1)
+                           + torch.arange(t, device=dev)[None])
+                mask = (torch.arange(MAX_LEN, device=dev)[None, None, None, :]
+                        < horizon[:, None, :, None])
+                lib = time_ms(lambda i: torch.nn.functional.
+                              scaled_dot_product_attention(
+                                  qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                              50)
+                del kt, vt
+            live = sum(lens)
+            scale_bytes = 2 * live * granule * 4 if int8 else 0
+            nbytes = (2 * live * row_bytes + scale_bytes + 2 * q.numel() * 2
+                      + 4 * SLOTS + (4 * SLOTS * nb if paged else 0))
+            ops = 4 * live * NQ * HEAD_DIM * t
+            b_ms, by = bound(nbytes, ops)
+            log(f"  ms={ms:.6g} plain_ms={plain:.6g} library_ms="
+                f"{'none' if lib is None else f'{lib:.6g}'} "
+                f"bound_ms={b_ms:.6g} ({by})")
+            if t == 1 and granule in (0, 1):
+                calls = LAYERS
+                entry = {"ms": calls * ms, "plain_ms": calls * plain,
+                         "bound_ms": calls * b_ms, "bound_by": by,
+                         "library_ms": None if lib is None else calls * lib,
+                         "work": f"one decode step at T=1: 16 calls, B=16, "
+                                 f"lengths {lens}"
+                                 + (", scale granule 1" if int8 else "")
+                                 + (f", {BLOCK}-token blocks" if paged
+                                    else "")}
+        del kv
     entry["max_abs_err"] = worst
-    results["decode_attend"] = entry
+    results[name] = entry
 
 
 # ---------------------------------------------------------------- phase 3
@@ -285,20 +361,28 @@ def plain_kernels():
     from fasttalk_tpu_torch.models import llama
     from fasttalk_tpu_torch.ops import cuda_attention, cuda_int8, quant
 
-    saved = (quant.int8_matmul, quant.int8_matmul_t, llama.decode_attend)
+    saved = (quant.int8_matmul, quant.int8_matmul_t, llama.decode_attend,
+             llama.decode_attend_paged)
     quant.int8_matmul = cuda_int8.int8_matmul_plain
     quant.int8_matmul_t = cuda_int8.int8_matmul_t_plain
     llama.decode_attend = cuda_attention.decode_attend_plain
+    llama.decode_attend_paged = cuda_attention.decode_attend_paged_plain
     try:
         yield
     finally:
-        quant.int8_matmul, quant.int8_matmul_t, llama.decode_attend = saved
+        (quant.int8_matmul, quant.int8_matmul_t, llama.decode_attend,
+         llama.decode_attend_paged) = saved
 
 
 def check_full_width_model() -> None:
+    """Prefill and 4 decode steps of llama3.2:1b, kernels against plain, on
+    the dense bf16 cache and on the paged int8 pool. The paged prefill runs
+    as the engine's does: the dense forward over a cache of the tier, its
+    rows then scattered into the pool through shuffled block tables."""
     from fasttalk_tpu_torch.models import llama
     from fasttalk_tpu_torch.models.configs import get_model_config
     from fasttalk_tpu_torch.models.loader import init_params_device
+    from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 
     dev = torch.device("cuda")
     cfg = get_model_config("llama3.2:1b")
@@ -308,58 +392,78 @@ def check_full_width_model() -> None:
     torch.cuda.synchronize()
     log(f"llama3.2:1b int8 random init on the card: "
         f"{time.monotonic() - t0:.3f} s")
-    g = torch.Generator(device=dev).manual_seed(4)
-    b, t, steps = SLOTS, 64, 4
-    prompt = torch.randint(0, 32000, (b, t), generator=g, device=dev)
-    pos = torch.arange(t, device=dev)[None].expand(b, t)
-    caches = [llama.init_cache(cfg, b, MAX_LEN, torch.bfloat16, dev)
-              for _ in range(2)]
-    logits = []
-    for cache, ctx in ((caches[0], contextlib.nullcontext()),
-                       (caches[1], plain_kernels())):
-        with ctx:
-            out = []
-            lg, _ = llama.forward(params, cfg, prompt, pos, cache,
-                                  torch.zeros(b, dtype=torch.long, device=dev),
-                                  blockwise=True,
-                                  logits_indices=torch.full(
-                                      (b,), t - 1, device=dev))
-            out.append(lg[:, 0])
-            logits.append(out)
-    # Decode: both paths are fed the kernel path's greedy tokens.
-    cur = logits[0][0].argmax(-1)
-    mask = torch.ones(b, dtype=torch.bool, device=dev)
-    for i in range(steps):
-        p = torch.full((b,), t + i, dtype=torch.long, device=dev)
-        lk, _ = llama.forward_decode(params, cfg, cur, p, caches[0], mask,
-                                     attn_len=512)
-        with plain_kernels():
-            lp, _ = llama.forward_decode(params, cfg, cur, p, caches[1], mask,
-                                         attn_len=512)
-        logits[0].append(lk)
-        logits[1].append(lp)
-        cur = lk.argmax(-1)
-    torch.cuda.synchronize()
-    agree = total = 0
-    for i, (lk, lp) in enumerate(zip(*logits)):
-        span = (lp.max() - lp.min()).item()
-        err = (lk - lp).abs().max().item()
-        same = (lk.argmax(-1) == lp.argmax(-1)).sum().item()
-        agree += same
-        total += lk.shape[0]
-        log(f"llama3.2:1b {'prefill' if i == 0 else f'decode {i}'}: "
-            f"max|kernel-plain|={err:.6g} logit range={span:.6g} "
-            f"greedy agree {same}/{lk.shape[0]}")
-        if not (math.isfinite(err) and err <= 0.05 * span):
-            fail(f"full-width logits differ beyond 5% of the range: {err}")
-    if agree < 0.9 * total:
-        fail(f"greedy tokens agree on only {agree}/{total} rows")
-    del params, caches
+    b, t, steps, ctx = SLOTS, 64, 4, 512
+    nb = ctx // BLOCK
+    for tier in ("dense bf16", "paged int8"):
+        paged = tier.startswith("paged")
+        g = torch.Generator(device=dev).manual_seed(4)
+        prompt = torch.randint(0, 32000, (b, t), generator=g, device=dev)
+        pos = torch.arange(t, device=dev)[None].expand(b, t)
+        caches = [llama.init_cache(cfg, b, MAX_LEN, torch.bfloat16, dev,
+                                   quantized=paged) for _ in range(2)]
+        logits = []
+        for cache, ctxm in ((caches[0], contextlib.nullcontext()),
+                            (caches[1], plain_kernels())):
+            with ctxm:
+                lg, _ = llama.forward(
+                    params, cfg, prompt, pos, cache,
+                    torch.zeros(b, dtype=torch.long, device=dev),
+                    blockwise=True,
+                    logits_indices=torch.full((b,), t - 1, device=dev))
+                logits.append([lg[:, 0]])
+        table = None
+        if paged:
+            table = torch.randperm(b * nb, generator=torch.Generator(
+                ).manual_seed(5)).to(torch.int32).to(dev).view(b, nb)
+            idx = paged_gather_indices(table, BLOCK).long()
+            pools = []
+            for cache in caches:
+                pool = llama.init_paged_cache(cfg, b * nb, BLOCK,
+                                              torch.bfloat16, dev,
+                                              quantized=True)
+                for dst, src in zip(pool, cache):
+                    dst[:, idx.flatten()] = src[:, :, :ctx].flatten(1, 2)
+                pools.append(pool)
+            caches = pools
+        # Decode: both paths are fed the kernel path's greedy tokens.
+        cur = logits[0][0].argmax(-1)
+        mask = torch.ones(b, dtype=torch.bool, device=dev)
+        kw = dict(attn_len=ctx, block_table=table,
+                  block_size=BLOCK if paged else 0)
+        for i in range(steps):
+            p = torch.full((b,), t + i, dtype=torch.long, device=dev)
+            lk, _ = llama.forward_decode(params, cfg, cur, p, caches[0], mask,
+                                         **kw)
+            with plain_kernels():
+                lp, _ = llama.forward_decode(params, cfg, cur, p, caches[1],
+                                             mask, **kw)
+            logits[0].append(lk)
+            logits[1].append(lp)
+            cur = lk.argmax(-1)
+        torch.cuda.synchronize()
+        agree = total = 0
+        for i, (lk, lp) in enumerate(zip(*logits)):
+            span = (lp.max() - lp.min()).item()
+            err = (lk - lp).abs().max().item()
+            same = (lk.argmax(-1) == lp.argmax(-1)).sum().item()
+            agree += same
+            total += lk.shape[0]
+            log(f"llama3.2:1b {tier} "
+                f"{'prefill' if i == 0 else f'decode {i}'}: "
+                f"max|kernel-plain|={err:.6g} logit range={span:.6g} "
+                f"greedy agree {same}/{lk.shape[0]}")
+            if not (math.isfinite(err) and err <= 0.05 * span):
+                fail(f"full-width {tier} logits differ beyond 5% of the "
+                     f"range: {err}")
+        if agree < 0.9 * total:
+            fail(f"{tier}: greedy tokens agree on only {agree}/{total} rows")
+        del caches
+    del params
 
 
 # ------------------------------------------------------------- phase 4/5
 
-def check_tinychat() -> None:
+def check_tinychat(**kv) -> None:
     from fasttalk_tpu_torch.engine.engine import GenerationParams
     from fasttalk_tpu_torch.engine.factory import build_engine
     from fasttalk_tpu_torch.utils.config import Config
@@ -367,7 +471,8 @@ def check_tinychat() -> None:
     engine = build_engine(Config(model_name="tinychat", model_path=ASSETS,
                                  weight_quant="int8", decode_slots=4,
                                  max_model_len=512,
-                                 default_context_window=512), device="cuda")
+                                 default_context_window=512, **kv),
+                          device="cuda")
     engine.start()
     try:
         async def run():
@@ -385,7 +490,8 @@ def check_tinychat() -> None:
         text, final = asyncio.run(asyncio.wait_for(run(), timeout=120))
     finally:
         engine.shutdown()
-    log(f"tinychat int8 greedy: {text!r} ({final.get('finish_reason')})")
+    log(f"tinychat int8 greedy, KV {kv or 'dense bf16'}: {text!r} "
+        f"({final.get('finish_reason')})")
     if final.get("type") != "done" or "blue" not in text.lower():
         fail(f"tinychat answer is wrong: {text!r} {final}")
 
@@ -432,15 +538,16 @@ async def drive_sessions(port: int, n: int, max_tokens: int) -> dict:
             "errors": [e for r in res for e in r[1]], "wall_s": wall}
 
 
-def serve_main_path(drive):
+def serve_main_path(drive, max_len: int = MAX_LEN, **kv):
     """Serve the main path and return ``await drive(engine, port)``.
 
     Builds the engine through ``build_engine`` as ``python -m
     fasttalk_tpu_torch websocket`` does (llama3.2:1b at full width, int8
-    random weights, 16 slots, max_len 2048, prefill chunk 512), serves it
-    on an ephemeral localhost port, runs one short warm-up session (the
-    first CUDA launches), then hands the port to ``drive``. Server and
-    engine are stopped before this returns.
+    random weights, 16 slots, max_len 2048, prefill chunk 512; ``kv``
+    overrides the KV settings of ``Config``, e.g. ``kv_layout="paged"``),
+    serves it on an ephemeral localhost port, runs one short warm-up
+    session (the first CUDA launches), then hands the port to ``drive``.
+    Server and engine are stopped before this returns.
     """
     from aiohttp import web
 
@@ -449,12 +556,12 @@ def serve_main_path(drive):
     from fasttalk_tpu_torch.utils.config import Config
 
     cfg = Config(model_name="llama3.2:1b", model_path="", weight_quant="int8",
-                 decode_slots=SLOTS, max_model_len=MAX_LEN, prefill_chunk=512,
-                 default_context_window=MAX_LEN, default_max_tokens=64)
+                 decode_slots=SLOTS, max_model_len=max_len, prefill_chunk=512,
+                 default_context_window=max_len, default_max_tokens=64, **kv)
     t0 = time.monotonic()
     engine = build_engine(cfg, device="cuda")
-    log(f"build_engine (llama3.2:1b int8, 16 slots, max_len 2048): "
-        f"{time.monotonic() - t0:.3f} s")
+    log(f"build_engine (llama3.2:1b int8, 16 slots, max_len {max_len}, KV "
+        f"{kv or 'dense bf16'}): {time.monotonic() - t0:.3f} s")
     engine.start()
 
     async def run():
@@ -499,7 +606,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from fasttalk_tpu_torch.ops import _build
-    from fasttalk_tpu_torch.ops.cuda_attention import decode_attend
+    from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
+                                                       decode_attend_paged)
     from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
 
     t0 = time.monotonic()
@@ -509,53 +617,118 @@ def main() -> int:
     results: dict = {}
     check_int8_matmul(results)
     check_int8_matmul_t(results)
-    check_decode_attend(results)
-    torch.cuda.empty_cache()
+    for seed, (name, paged, int8) in enumerate((
+            ("decode_attend", False, False),
+            ("decode_attend[int8]", False, True),
+            ("decode_attend_paged", True, False),
+            ("decode_attend_paged[int8]", True, True))):
+        check_attend(results, name, paged=paged, int8=int8, seed=3 + seed)
+        torch.cuda.empty_cache()
     check_full_width_model()
     torch.cuda.empty_cache()
     check_tinychat()
-    counters = [int8_matmul, int8_matmul_t, decode_attend]
+    check_tinychat(kv_layout="paged", kv_quant="int8")
 
-    async def measured(engine, port: int) -> dict:
-        for fn in counters:
-            fn.launches = 0
-        out = await drive_sessions(port, SLOTS, 64)
-        out["launches"] = {fn.__name__: fn.launches for fn in counters}
-        return out
+    # Launch counters of every kernel and attention tier: (wrapper, the
+    # count of this tier's launches).
+    counters = {
+        "int8_matmul": lambda: int8_matmul.launches,
+        "int8_matmul_t": lambda: int8_matmul_t.launches,
+        "decode_attend": lambda: (decode_attend.launches
+                                  - decode_attend.launches_int8),
+        "decode_attend[int8]": lambda: decode_attend.launches_int8,
+        "decode_attend_paged": lambda: (decode_attend_paged.launches
+                                        - decode_attend_paged.launches_int8),
+        "decode_attend_paged[int8]": lambda: decode_attend_paged.launches_int8,
+    }
 
-    served = serve_main_path(measured)
-    tok_s = served["tokens"] / served["wall_s"]
-    log(f"served {served['sessions']} concurrent WS sessions: "
-        f"{served['tokens']} tokens in {served['wall_s']:.6g} s "
-        f"({tok_s:.6g} decode tok/s), error frames: {len(served['errors'])}")
-    if served["errors"]:
-        fail(f"error frames: {served['errors'][:3]}")
-    if served["tokens"] <= 0:
-        fail("no tokens served")
-    for name, n in served["launches"].items():
-        log(f"launches on the served path: {name}={n}")
-        if n <= 0:
-            fail(f"kernel {name} never launched on the served path")
+    def served_phase(label: str, attend: str, sessions: int, max_tokens: int,
+                     **kw) -> dict:
+        """Serve one KV tier; the counts are zeroed just before the
+        sessions and read just after. Every kernel of the path (the two
+        matmuls and the tier's attention) must have launched."""
+        async def measured(engine, port: int) -> dict:
+            for fn in (int8_matmul, int8_matmul_t, decode_attend,
+                       decode_attend_paged):
+                fn.launches = 0
+            decode_attend.launches_int8 = 0
+            decode_attend_paged.launches_int8 = 0
+            out = await drive_sessions(port, sessions, max_tokens)
+            out["launches"] = {k: c() for k, c in counters.items()}
+            out["engine"] = engine.get_stats()
+            return out
 
+        served = serve_main_path(measured, **kw)
+        served["tok_s"] = served["tokens"] / served["wall_s"]
+        log(f"{label}: served {served['sessions']} concurrent WS sessions: "
+            f"{served['tokens']} tokens in {served['wall_s']:.6g} s "
+            f"({served['tok_s']:.6g} decode tok/s), error frames: "
+            f"{len(served['errors'])}")
+        blocks = served["engine"].get("kv_blocks")
+        if blocks:
+            log(f"  kv_blocks after the sessions: in use {blocks['in_use']} "
+                f"of {blocks['total']}")
+        if served["errors"]:
+            fail(f"{label}: error frames: {served['errors'][:3]}")
+        if served["tokens"] <= 0:
+            fail(f"{label}: no tokens served")
+        log(f"  launches on the served path: {served['launches']}")
+        for name in ("int8_matmul", "int8_matmul_t", attend):
+            if served["launches"][name] <= 0:
+                fail(f"{label}: kernel {name} never launched on the "
+                     "served path")
+        return served
+
+    served = served_phase("phase 5 (dense bf16 KV)", "decode_attend",
+                          SLOTS, 64)
+    paged = served_phase(
+        "phase 6 (paged int8 KV, 2048 blocks of 16)",
+        "decode_attend_paged[int8]", SLOTS, 64, max_len=8192,
+        kv_layout="paged", kv_quant="int8", kv_block_size=BLOCK,
+        kv_pool_blocks=2048)
+    dense8 = served_phase("phase 7a (dense int8 KV)", "decode_attend[int8]",
+                          SLOTS, 16, kv_quant="int8")
+    paged16 = served_phase("phase 7b (paged bf16 KV)", "decode_attend_paged",
+                           SLOTS, 16, kv_layout="paged",
+                           kv_block_size=BLOCK)
+    launches = {"int8_matmul": served["launches"]["int8_matmul"],
+                "int8_matmul_t": served["launches"]["int8_matmul_t"],
+                "decode_attend": served["launches"]["decode_attend"],
+                "decode_attend[int8]":
+                    dense8["launches"]["decode_attend[int8]"],
+                "decode_attend_paged":
+                    paged16["launches"]["decode_attend_paged"],
+                "decode_attend_paged[int8]":
+                    paged["launches"]["decode_attend_paged[int8]"]}
+    attention_src = "fasttalk_tpu_torch/csrc/decode_attention.cu"
     sources = {"int8_matmul": ("fasttalk_tpu_torch/csrc/int8_matmul.cu",
                                "fasttalk_tpu/ops/pallas_int8.py:89"),
                "int8_matmul_t": ("fasttalk_tpu_torch/csrc/int8_matmul.cu",
                                  "fasttalk_tpu/ops/pallas_int8.py:127"),
-               "decode_attend": ("fasttalk_tpu_torch/csrc/decode_attention.cu",
-                                 "fasttalk_tpu/ops/pallas_attention.py:153")}
+               "decode_attend": (attention_src,
+                                 "fasttalk_tpu/ops/pallas_attention.py:153"),
+               "decode_attend[int8]": (
+                   attention_src, "fasttalk_tpu/ops/pallas_attention.py:153"),
+               "decode_attend_paged": (
+                   attention_src, "fasttalk_tpu/ops/pallas_attention.py:249"),
+               "decode_attend_paged[int8]": (
+                   attention_src, "fasttalk_tpu/ops/pallas_attention.py:249")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": served["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
-        "sessions": served["sessions"], "tokens": served["tokens"],
-        "wall_s": served["wall_s"], "decode_tok_s": tok_s}}), flush=True)
+        label: {"sessions": x["sessions"], "tokens": x["tokens"],
+                "wall_s": x["wall_s"], "decode_tok_s": x["tok_s"]}
+        for label, x in (("dense_bf16", served), ("paged_int8", paged),
+                         ("dense_int8", dense8), ("paged_bf16", paged16))}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,10 +20,23 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   onto the device only when the slot set changes.
 - Retire/detokenize, stop strings, EOS, ``max_tokens``, ``cancel`` and
   ``release_session`` behave as in the JAX engine.
+- **KV tiers** (JAX ``engine.py`` :465-581, :2826-3206): ``kv_quant="int8"``
+  stores int8 rows + f32 row scales (prefill and decode write the scales,
+  the kernels dequantize after the load); ``kv_layout="paged"`` replaces
+  the per-slot cache with one block pool and per-slot block tables
+  (kvcache/blocks.py). Paged admission is by blocks: the prompt's padded
+  prefill horizon plus the reserve policy's decode growth must fit, else
+  the request ends with ``code="kv_blocks_exhausted"`` and ``retry_after``.
+  Before each decode call every running slot's blocks are ensured out to
+  where the device can be by the end of it (the host mirrors lag the
+  in-flight calls); a prefill chunk ensures ``start + bucket`` and runs as
+  gather -> dense ``forward`` -> scatter of the chunk's rows. Blocks go
+  back on session eviction and release, and past the trusted rows when a
+  request finishes or a prompt diverges from the resident history.
 
-Speculative decoding, host KV offload, paged and int8 KV, the radix
-cache, structured decoding and a device mesh are not part of this engine
-(utils/config.py rejects them by name).
+Speculative decoding, host KV offload, the radix cache, shared-prefix
+aliasing, structured decoding and a device mesh are not part of this
+engine (utils/config.py rejects them by name).
 """
 
 from __future__ import annotations
@@ -42,9 +55,12 @@ import torch
 
 from fasttalk_tpu_torch.engine.slots import Slot, SlotManager
 from fasttalk_tpu_torch.engine.tokenizer import StreamDetokenizer, Tokenizer
+from fasttalk_tpu_torch.kvcache.blocks import BlockAllocator, blocks_for
 from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.models.llama import (KVCache, forward, forward_decode,
-                                             init_cache)
+                                             init_cache, init_paged_cache)
+from fasttalk_tpu_torch.ops.attention import paged_gather_indices
+from fasttalk_tpu_torch.ops.kv_quant import granule_dim
 from fasttalk_tpu_torch.ops.sampling import apply_penalties, sample_tokens
 from fasttalk_tpu_torch.utils.config import resolve_device
 from fasttalk_tpu_torch.utils.errors import ErrorCategory, LLMServiceError
@@ -93,6 +109,7 @@ class _Request:
     out_queue: asyncio.Queue
     loop: asyncio.AbstractEventLoop
     submitted_at: float = field(default_factory=time.monotonic)
+    admitted_at: float = 0.0
     detok: StreamDetokenizer | None = None
     slot: Slot | None = None
     generated: int = 0
@@ -177,7 +194,11 @@ class TorchEngine(EngineBase):
                  prefill_chunk: int = 512,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  context_window: int | None = None,
-                 steps_per_call: int = 32, pipeline_depth: int = 2):
+                 steps_per_call: int = 32, pipeline_depth: int = 2,
+                 kv_quant: str = "none", kv_quant_granule: str = "token",
+                 kv_layout: str = "dense", kv_block_size: int = 16,
+                 kv_pool_blocks: int = 0, kv_reserve_policy: str = "fixed",
+                 kv_reserve_tokens: int = 128):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.params = params
@@ -198,9 +219,45 @@ class TorchEngine(EngineBase):
         self.sample_vocab = min(model_cfg.vocab_size,
                                 getattr(tokenizer, "vocab_size",
                                         model_cfg.vocab_size))
-        self.cache: KVCache = init_cache(model_cfg, num_slots, self.max_len,
-                                         dtype, self.device)
-        self.slots = SlotManager(num_slots, self.max_len)
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', "
+                             f"got {kv_quant!r}")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', "
+                             f"got {kv_layout!r}")
+        self.kv_quant = kv_quant == "int8"
+        self.kv_scale_granule = (granule_dim(kv_quant_granule,
+                                             model_cfg.num_kv_heads)
+                                 if self.kv_quant else 1)
+        self.paged = kv_layout == "paged"
+        self.kv_block_size = int(kv_block_size)
+        self._kv_blocks: BlockAllocator | None = None
+        if self.paged:
+            bs = self.kv_block_size
+            if bs < 8 or bs > _KV_BUCKETS[0] or bs & (bs - 1):
+                raise ValueError(f"KV_BLOCK_SIZE must be a power of two in "
+                                 f"[8, {_KV_BUCKETS[0]}], got {bs}")
+            if kv_reserve_policy not in ("none", "fixed", "max_tokens"):
+                raise ValueError(f"kv_reserve_policy must be none|fixed|"
+                                 f"max_tokens, got {kv_reserve_policy!r}")
+            self.kv_reserve_policy = kv_reserve_policy
+            self.kv_reserve_tokens = max(0, int(kv_reserve_tokens))
+            # 0 = the dense-equivalent pool (the factory passes what the
+            # memory budget holds).
+            self.kv_pool_blocks = int(kv_pool_blocks) \
+                or num_slots * self.max_len // bs
+            self._kv_blocks = BlockAllocator(self.kv_pool_blocks, bs,
+                                             num_slots)
+            self.cache: KVCache = init_paged_cache(
+                model_cfg, self.kv_pool_blocks, bs, dtype, self.device,
+                quantized=self.kv_quant, scale_granule=self.kv_scale_granule)
+        else:
+            self.cache = init_cache(model_cfg, num_slots, self.max_len, dtype,
+                                    self.device, quantized=self.kv_quant,
+                                    scale_granule=self.kv_scale_granule)
+        self._service_ema_s = 0.0
+        self.slots = SlotManager(num_slots, self.max_len,
+                                 on_unpin=self._on_slot_unpin)
         self._rows = torch.arange(num_slots, device=self.device)
         self._reset_decode_state()
 
@@ -321,6 +378,9 @@ class TorchEngine(EngineBase):
 
     def get_model_info(self) -> dict:
         return {
+            "kv_layout": "paged" if self.paged else "dense",
+            "kv_quant": "int8" if self.kv_quant else "none",
+            "kv_block_size": self.kv_block_size if self.paged else None,
             "model": self.cfg.name,
             "vocab_size": self.cfg.vocab_size,
             "num_layers": self.cfg.num_layers,
@@ -337,13 +397,18 @@ class TorchEngine(EngineBase):
         }
 
     def get_stats(self) -> dict:
-        return {"slots": self.slots.stats(), "waiting": len(self._waiting),
-                "prefilling": len(self._prefilling),
-                "running": len(self._running),
-                "tokens_generated": self.tokens_generated,
-                "decode_calls": self.decode_calls,
-                "decode_steps": self.decode_steps,
-                "decode_host_s": self.decode_host_s}
+        out = {"slots": self.slots.stats(), "waiting": len(self._waiting),
+               "prefilling": len(self._prefilling),
+               "running": len(self._running),
+               "tokens_generated": self.tokens_generated,
+               "decode_calls": self.decode_calls,
+               "decode_steps": self.decode_steps,
+               "decode_host_s": self.decode_host_s}
+        if self.paged:
+            used = sum(min(s.kv_written, len(s.tokens))
+                       for s in self.slots.slots)
+            out["kv_blocks"] = self._kv_blocks.stats(used_tokens=used)
+        return out
 
     # ---------------- engine thread ----------------
 
@@ -443,16 +508,23 @@ class TorchEngine(EngineBase):
                 self._waiting.clear()
                 break
             req.slot = slot
+            req.admitted_at = time.monotonic()
             slot.active = True
             busy.add(req.session_id)
             prompt = req.prompt_tokens
             reused = self.slots.reuse_prefix(slot, prompt)
+            if self.paged:
+                # Blocks past the trusted rows (a diverged history) go back.
+                self._kv_blocks.truncate(slot.index, slot.kv_written)
             todo = prompt[reused:]
             req.prefill_tokens = len(todo)
             if reused + len(todo) > self.usable_len:
                 self._finish(req, "error", error=f"prompt ({len(prompt)} "
                              "tok) exceeds context")
                 continue
+            if self.paged and not self._paged_admissible(slot, req, reused,
+                                                         len(todo)):
+                continue  # shed with retry_after: the blocks do not fit
             self._prefilling.append(_PrefillState(req=req, slot=slot,
                                                   start=reused, todo=todo))
         self._waiting = keep
@@ -483,6 +555,14 @@ class TorchEngine(EngineBase):
                 self._prefilling.pop(0)
                 self._finish(req, "error",
                              error="KV cache exhausted during prefill")
+                return
+            if self.paged and not self._kv_blocks.ensure(
+                    slot.index, st.start + bucket):
+                # The padded bucket writes up to start + bucket: without
+                # its blocks the padding would land in another slot's.
+                self._prefilling.pop(0)
+                self._paged_exhausted_finish(
+                    req, "KV block pool exhausted during prefill")
                 return
             chunk = st.todo[:take]
             st.last_logits = self._run_chunk_prefill(slot, chunk, st.start,
@@ -519,7 +599,13 @@ class TorchEngine(EngineBase):
         """One prompt chunk for one slot, written in place into the slot's
         cache rows; returns the last real token's logits [V]. Attention
         reads the slot's first ``ctx`` rows, a KV bucket covering the
-        chunk (the rows past it are masked for every query)."""
+        chunk (the rows past it are masked for every query).
+
+        Paged: the slot's logical rows 0..ctx are gathered out of the pool
+        into a dense [L, 1, ctx, ...] copy, the unchanged dense ``forward``
+        runs over it, and the chunk's rows start..start+bucket scatter
+        back through the table (their blocks were ensured by the caller).
+        """
         ctx = next((b for b in _KV_BUCKETS
                     if b >= start + bucket and b <= self.max_len),
                    self.max_len)
@@ -527,13 +613,26 @@ class TorchEngine(EngineBase):
         padded[0, :len(chunk)] = chunk
         tokens = torch.from_numpy(padded).to(self.device)
         positions = start + torch.arange(bucket, device=self.device)[None]
-        view = KVCache(self.cache.k[:, slot.index:slot.index + 1, :ctx],
-                       self.cache.v[:, slot.index:slot.index + 1, :ctx])
+        if self.paged:
+            read = self._paged_read_indices(slot.index, ctx)
+            view = KVCache(*(None if x is None else x[:, read][:, None]
+                             for x in self.cache))
+        else:
+            rows = slice(slot.index, slot.index + 1)
+            view = KVCache(*(None if x is None else x[:, rows, :ctx]
+                             for x in self.cache))
         logits, _ = forward(
             self.params, self.cfg, tokens, positions, view,
             torch.tensor([start], device=self.device), blockwise=True,
             logits_indices=torch.tensor([len(chunk) - 1],
                                         device=self.device))
+        if self.paged:
+            # ctx >= start + bucket (the caller keeps the bucket inside
+            # max_len), so the chunk's pool rows are a slice of the read's.
+            write = read[start:start + bucket]
+            for pool, part in zip(self.cache, view):
+                if pool is not None:
+                    pool[:, write] = part[:, 0, start:start + bucket]
         return logits[0, 0]
 
     def _activate(self, req: _Request, slot: Slot) -> None:
@@ -603,9 +702,11 @@ class TorchEngine(EngineBase):
         self._freqs_dev[ii] = vals[:, 7].to(torch.float32)
         self._counts_dev[ii] = 0
 
-    def _decode_steps(self, steps: int, kv_len: int) -> torch.Tensor:
+    def _decode_steps(self, steps: int, kv_len: int,
+                      table: torch.Tensor | None = None) -> torch.Tensor:
         """K decode steps on the device; returns the sampled tokens [K, S].
-        Nothing here waits for the device."""
+        Nothing here waits for the device. ``table`` [S, kv_len / bs] is
+        the paged tier's block table."""
         toks = torch.empty((steps, self.num_slots), dtype=torch.int64,
                            device=self.device)
         cur, pos = self._cur_dev, self._pos_dev
@@ -617,8 +718,10 @@ class TorchEngine(EngineBase):
             # exactly once at sampling time.
             self._counts_dev.index_put_((self._rows, cur),
                                         act.to(torch.int32), accumulate=True)
-            logits, _ = forward_decode(self.params, self.cfg, cur, pos,
-                                       self.cache, act, attn_len=kv_len)
+            logits, _ = forward_decode(
+                self.params, self.cfg, cur, pos, self.cache, act,
+                attn_len=kv_len, block_table=table,
+                block_size=self.kv_block_size if self.paged else 0)
             lg = apply_penalties(logits[:, :self.sample_vocab],
                                  self._counts_dev, self._reps_dev,
                                  self._press_dev, self._freqs_dev)
@@ -632,12 +735,16 @@ class TorchEngine(EngineBase):
 
     def _dispatch_decode(self) -> None:
         """Launch one K-step decode call; does not wait for results."""
-        self._patch_slot_state()
-        active = list(self._running)
-        snapshot = list(self._running.items())
         steps = (self.steps_burst if self._waiting or self._prefilling
                  or any(r.first_pending for r in self._running.values())
                  else self.steps_per_call)
+        # Paged: blocks first, so that a shed's deactivation reaches this
+        # very call through the patch below.
+        if self.paged and not self._paged_prepare_decode(steps):
+            return  # every running request was shed for blocks
+        self._patch_slot_state()
+        active = list(self._running)
+        snapshot = list(self._running.items())
         # Device positions lead the host mirrors by the in-flight calls'
         # advances; size the KV bucket for where the device can be at the
         # end of this call.
@@ -647,7 +754,10 @@ class TorchEngine(EngineBase):
                        if b >= base + steps and b <= self.max_len),
                       self.max_len)
         t0 = time.perf_counter()
-        toks = self._decode_steps(steps, kv_len)
+        table = (self._paged_table(kv_len // self.kv_block_size,
+                                   list(range(self.num_slots)))
+                 if self.paged else None)
+        toks = self._decode_steps(steps, kv_len, table)
         self.decode_host_s += time.perf_counter() - t0
         self.decode_calls += 1
         self.decode_steps += steps
@@ -720,7 +830,8 @@ class TorchEngine(EngineBase):
         req.emit_buf += emit_now
 
     def _finish(self, req: _Request, reason: str, error: str | None = None,
-                suppress_flush: bool = False) -> None:
+                suppress_flush: bool = False, code: str = "model_error",
+                retry_after: float | None = None) -> None:
         with self._term_lock:
             if req.finished:
                 return
@@ -743,6 +854,11 @@ class TorchEngine(EngineBase):
                                       int(self._positions[slot.index]))
             self._positions[slot.index] = slot.length
             self._dirty_slots.add(slot.index)
+            if self.paged and slot.session_id is not None:
+                # Decode-growth slack past the trusted rows goes back. The
+                # in-flight calls' late writes into those blocks are ahead
+                # of any new owner's writes on the stream.
+                self._kv_blocks.truncate(slot.index, slot.kv_written)
             sid = slot.session_id
             if sid is not None and sid in self._release_after:
                 self._release_after.discard(sid)
@@ -763,10 +879,15 @@ class TorchEngine(EngineBase):
         req.pending_text = ""
         self._flush_emit(req)
         if error is not None:
-            self._emit(req, {"type": "error", "error": error,
-                             "code": "model_error"})
+            event = {"type": "error", "error": error, "code": code}
+            if retry_after is not None:
+                event["retry_after"] = retry_after
+            self._emit(req, event)
             return
         duration = time.monotonic() - req.submitted_at
+        if reason != "cancelled":
+            self._service_ema_s = (duration if not self._service_ema_s else
+                                   0.8 * self._service_ema_s + 0.2 * duration)
         ttft_ms = ((req.first_token_at or time.monotonic())
                    - req.submitted_at) * 1000
         self._emit(req, {
@@ -794,3 +915,97 @@ class TorchEngine(EngineBase):
             req.loop.call_soon_threadsafe(req.out_queue.put_nowait, event)
         except RuntimeError:
             pass  # client loop already closed; drop
+
+    # ---------------- paged KV tier ----------------
+    # (KV_LAYOUT=paged; JAX engine.py :2826-3206. Engine thread only.)
+
+    def _on_slot_unpin(self, slot: Slot) -> None:
+        """SlotManager hook: a session leaving its slot (eviction or
+        release) drops its whole block table."""
+        if self.paged:
+            self._kv_blocks.release(slot.index)
+
+    def _paged_table(self, nb: int, slots: list[int]) -> torch.Tensor:
+        """[len(slots), nb] int32 block table on the device. Unallocated
+        entries stay 0: their rows sit beyond every slot's length, and
+        masked decode writes go to the pool's sink block."""
+        tbl = np.zeros((len(slots), nb), np.int32)
+        for i, s in enumerate(slots):
+            t = self._kv_blocks.table(s)[:nb]
+            tbl[i, :len(t)] = t
+        return torch.from_numpy(tbl).to(self.device)
+
+    def _paged_read_indices(self, slot_index: int, rows: int) -> torch.Tensor:
+        """Pool rows of one slot's logical positions 0..rows. Positions
+        past the slot's table read pool row 0; the consumer masks them."""
+        bs = self.kv_block_size
+        table = self._paged_table(blocks_for(rows, bs), [slot_index])
+        return paged_gather_indices(table, bs)[0, :rows].long()
+
+    def _paged_reserve_tokens(self, req: _Request) -> int:
+        """Decode growth the admission check must see free
+        (KV_RESERVE_POLICY): 'fixed' the next KV_RESERVE_TOKENS, 'max_tokens'
+        the request's whole budget, 'none' nothing (relies on the mid-decode
+        shed)."""
+        if self.kv_reserve_policy == "none":
+            return 0
+        if self.kv_reserve_policy == "max_tokens":
+            return req.params.max_tokens
+        return min(self.kv_reserve_tokens, req.params.max_tokens)
+
+    def _paged_admissible(self, slot: Slot, req: _Request, reused: int,
+                          todo: int) -> bool:
+        """Admit iff the prompt's padded prefill horizon plus the reserve
+        fits in free blocks; otherwise shed with retry_after."""
+        bs = self.kv_block_size
+        # The last chunk pads to a bucket: cover reused + the full chunks
+        # + the last chunk's bucket.
+        last = (todo % self.prefill_chunk
+                or min(max(1, todo), self.prefill_chunk))
+        pad = next((b for b in _PREFILL_BUCKETS if b >= last),
+                   _PREFILL_BUCKETS[-1])
+        need_tokens = min(self.max_len, reused + max(0, todo - last) + pad
+                          + self._paged_reserve_tokens(req))
+        need = blocks_for(need_tokens, bs) \
+            - self._kv_blocks.slot_blocks(slot.index)
+        if need <= self._kv_blocks.available():
+            return True
+        self._paged_exhausted_finish(
+            req, f"KV block pool exhausted: prompt needs {need} more "
+                 f"{bs}-token blocks ({self._kv_blocks.available()} free of "
+                 f"{self.kv_pool_blocks})")
+        return False
+
+    def _paged_exhausted_finish(self, req: _Request, error: str) -> None:
+        """End a request for want of blocks, as load shedding: roughly one
+        service time must pass for a running generation to free its
+        blocks."""
+        self._finish(req, "error", error=error, code="kv_blocks_exhausted",
+                     retry_after=round(max(0.5, self._service_ema_s), 2))
+
+    def _paged_prepare_decode(self, steps: int) -> bool:
+        """Ensure every running slot's blocks out to the write horizon of
+        the next decode call: its host position plus the in-flight calls'
+        steps plus this call's. On exhaustion, shed the most recently
+        admitted request (its session is released, so its blocks free)
+        and retry. Returns False when nothing is left to run."""
+        lead = sum(n for _, n, _ in self._inflight) + steps
+        while self._running:
+            victim: _Request | None = None
+            for s in self._running:
+                horizon = min(self.max_len, int(self._positions[s]) + lead)
+                if not self._kv_blocks.ensure(s, horizon):
+                    victim = max(self._running.values(),
+                                 key=lambda r: r.admitted_at)
+                    break
+            if victim is None:
+                return True
+            log.warning(f"KV block pool exhausted mid-decode; shedding "
+                        f"{victim.request_id}")
+            slot = victim.slot
+            self._paged_exhausted_finish(
+                victim, "KV block pool exhausted mid-decode: request shed "
+                        "to free blocks")
+            if slot is not None and slot.session_id is not None:
+                self.slots.release_session(slot.session_id)
+        return False

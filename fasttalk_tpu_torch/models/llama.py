@@ -13,7 +13,15 @@ buffers instead). Norms, softmax and rope run in float32.
 - ``forward_decode_multi`` / ``forward_decode`` serve decode: the block's
   K/V columns scatter into the cache (masked rows write nothing) and
   attention reads the ``attn_len`` slice through the hand-written
-  ``decode_attend`` kernel (ops/cuda_attention.py).
+  ``decode_attend`` kernel, or, with a ``block_table``, the paged pool
+  through ``decode_attend_paged`` (ops/cuda_attention.py).
+
+Two KV tiers compose with both layouts. The int8 tier (``KV_QUANT=int8``,
+ops/kv_quant.py) stores int8 rows plus f32 row scales: fresh rows quantize
+on write, the kernels dequantize after the load, the plain attention of
+prefill reads a dequantized copy. The paged tier (``KV_LAYOUT=paged``)
+keeps one flat row pool per layer, ``[L, P, Kv, H]``, that slots address
+through host-managed block tables (kvcache/blocks.py).
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ import torch
 
 from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.ops.attention import attend, attend_blockwise
-from fasttalk_tpu_torch.ops.cuda_attention import decode_attend
+from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
+                                                   decode_attend_paged)
+from fasttalk_tpu_torch.ops.kv_quant import kv_dequantize, kv_quantize
 from fasttalk_tpu_torch.ops.quant import embed_lookup, matmul_tied
 from fasttalk_tpu_torch.ops.quant import matmul as qmm
 from fasttalk_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -34,10 +44,19 @@ Params = dict[str, Any]
 
 
 class KVCache(NamedTuple):
-    """Per-layer key/value cache: k, v each [L, B, S, num_kv_heads, head_dim]."""
+    """Per-layer key/value cache: k, v each [L, B, S, num_kv_heads,
+    head_dim] (dense), or the paged pool [L, P, num_kv_heads, head_dim].
+
+    Int8 tier: k/v are int8 and ``k_scale``/``v_scale`` hold per-row f32
+    scales [L, B, S, G] (dense) or [L, P, G] (paged), G = 1 (per token row)
+    or num_kv_heads (per head row). ``None`` scales mean the full-precision
+    cache.
+    """
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def batch(self) -> int:
@@ -47,13 +66,49 @@ class KVCache(NamedTuple):
     def max_len(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def _zeros_cache(shape: tuple, sshape: tuple, dtype: torch.dtype,
+                 quantized: bool, device) -> KVCache:
+    if quantized:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device))
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cuda") -> KVCache:
+               device: torch.device | str = "cuda", *,
+               quantized: bool = False, scale_granule: int = 1) -> KVCache:
+    """The dense cache; ``quantized`` allocates int8 rows + f32 scales with
+    granule axis ``scale_granule`` (1 or num_kv_heads). Zero scales on the
+    unwritten tail dequantize to the zeros the bf16 cache starts with."""
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    return _zeros_cache(shape, shape[:3] + (scale_granule,), dtype,
+                        quantized, device)
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: torch.device | str = "cuda", *,
+                     quantized: bool = False,
+                     scale_granule: int = 1) -> KVCache:
+    """The paged tier's pool: one flat row pool per layer,
+    ``[L, (num_blocks + 1) * block_size, Kv, H]`` (scales ``[L, P, G]``),
+    no slot axis. Blocks ``0..num_blocks-1`` are the allocator's; the last
+    block is the write sink of masked decode rows (``forward_decode_multi``)
+    and is never in a block table, so it is never attended."""
+    p = (num_blocks + 1) * block_size
+    shape = (cfg.num_layers, p, cfg.num_kv_heads, cfg.head_dim)
+    return _zeros_cache(shape, (cfg.num_layers, p, scale_granule), dtype,
+                        quantized, device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -163,8 +218,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             write_mask: torch.Tensor | None = None,
             logits_indices: torch.Tensor | None = None,
             ) -> tuple[torch.Tensor, KVCache]:
-    """Run the transformer over ``tokens`` [B, T], updating ``cache`` in
-    place (the caller may pass views of a larger cache).
+    """Run the transformer over ``tokens`` [B, T], updating the dense
+    ``cache`` in place (the caller may pass views of a larger cache, or a
+    gathered copy of paged rows). On the int8 tier the fresh rows quantize
+    before the write and attention reads the dequantized cache.
 
     positions [B, T]: absolute position (RoPE phase and attention
     horizon) of each token. write_start [B]: cache index of each row's
@@ -181,13 +238,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     b, t = tokens.shape
     cols = write_start[:, None] + torch.arange(t, device=tokens.device)[None]
     attn_fn = attend_blockwise if blockwise else attend
+    kvq = cache.quantized
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, positions, inv_freq)
+        if kvq:
+            g = cache.k_scale.shape[-1]
+            (k, sk), (v, sv) = kv_quantize(k, g), kv_quantize(v, g)
+            _write_rows(cache.k_scale[i], sk, cols, write_mask)
+            _write_rows(cache.v_scale[i], sv, cols, write_mask)
         _write_rows(cache.k[i], k, cols, write_mask)
         _write_rows(cache.v[i], v, cols, write_mask)
-        o = attn_fn(q, cache.k[i], cache.v[i], positions)
+        if kvq:
+            ak = kv_dequantize(cache.k[i], cache.k_scale[i], x.dtype)
+            av = kv_dequantize(cache.v[i], cache.v_scale[i], x.dtype)
+        else:
+            ak, av = cache.k[i], cache.v[i]
+        o = attn_fn(q, ak, av, positions)
         x = x + qmm(o.reshape(b, t, cfg.q_dim), lp["wo"])
         x = _mlp(x, lp, cfg)
     if logits_indices is not None:
@@ -198,17 +266,34 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_decode_multi(params: Params, cfg: ModelConfig,
                          tokens: torch.Tensor, positions: torch.Tensor,
                          cache: KVCache, write_mask: torch.Tensor, *,
-                         attn_len: int) -> tuple[torch.Tensor, KVCache]:
+                         attn_len: int,
+                         block_table: torch.Tensor | None = None,
+                         block_size: int = 0,
+                         ) -> tuple[torch.Tensor, KVCache]:
     """Scatter-write decode over a short block: tokens [B, T] -> float32
     logits [B, T, V], cache updated in place.
 
     positions [B]: absolute position of tokens[:, 0] per slot (the block
     occupies positions..positions+T-1). write_mask [B]: rows with False
     write nothing. Attention reads the first ``attn_len`` cache rows of
-    every slot through ``decode_attend`` with per-slot lengths
-    ``positions + T`` (query t sees positions + t + 1 keys).
+    every slot with per-slot lengths ``positions + T`` (query t sees
+    positions + t + 1 keys), through ``decode_attend``.
+
+    ``block_table`` [B, attn_len // block_size] (int32) selects the paged
+    tier: the cache is the pool of ``init_paged_cache``, a write lands at
+    pool row ``table[b, pos // bs] * bs + pos % bs``, and attention walks
+    the table through ``decode_attend_paged``. Every written position of
+    an unmasked row must have its block in the table; masked rows write
+    into the pool's sink block (a masked slot's table entry may name
+    another slot's block, and two writers to one row in one scatter give
+    an undefined result).
     """
-    if attn_len > cache.max_len:
+    paged = block_table is not None
+    if paged:
+        if block_table.shape[1] * block_size != attn_len:
+            raise ValueError("the block table must cover exactly the "
+                             f"attn_len {attn_len} bucket")
+    elif attn_len > cache.max_len:
         raise ValueError(f"attn_len {attn_len} exceeds the cache length "
                          f"{cache.max_len}")
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
@@ -218,14 +303,45 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
     b, t = tokens.shape
     pos_mat = positions[:, None] + torch.arange(t, device=tokens.device)[None]
     lengths = (pos_mat[:, -1] + 1).to(torch.int32)
+    kvq = cache.quantized
+    if paged:
+        blk = (pos_mat // block_size).clamp(max=block_table.shape[1] - 1)
+        flat = (block_table.long().gather(1, blk) * block_size
+                + pos_mat % block_size)
+        sink = (cache.k.shape[1] - block_size
+                + (torch.arange(b * t, device=tokens.device).view(b, t)
+                   % block_size))
+        write_rows = torch.where(write_mask[:, None], flat, sink)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(h, lp, cfg, pos_mat, inv_freq)
-        _write_rows(cache.k[i], k, pos_mat, write_mask)
-        _write_rows(cache.v[i], v, pos_mat, write_mask)
-        o = decode_attend(q, cache.k[i][:, :attn_len], cache.v[i][:, :attn_len],
-                          lengths)
+        sk = sv = None
+        if kvq:
+            g = cache.k_scale.shape[-1]
+            (k, sk), (v, sv) = kv_quantize(k, g), kv_quantize(v, g)
+        if paged:
+            cache.k[i][write_rows] = k.to(cache.k.dtype)
+            cache.v[i][write_rows] = v.to(cache.v.dtype)
+            if kvq:
+                cache.k_scale[i][write_rows] = sk
+                cache.v_scale[i][write_rows] = sv
+            o = decode_attend_paged(
+                q, cache.k[i], cache.v[i], lengths, block_table,
+                block_size=block_size,
+                k_scale=cache.k_scale[i] if kvq else None,
+                v_scale=cache.v_scale[i] if kvq else None)
+        else:
+            _write_rows(cache.k[i], k, pos_mat, write_mask)
+            _write_rows(cache.v[i], v, pos_mat, write_mask)
+            if kvq:
+                _write_rows(cache.k_scale[i], sk, pos_mat, write_mask)
+                _write_rows(cache.v_scale[i], sv, pos_mat, write_mask)
+            o = decode_attend(
+                q, cache.k[i][:, :attn_len], cache.v[i][:, :attn_len],
+                lengths,
+                k_scale=cache.k_scale[i][:, :attn_len] if kvq else None,
+                v_scale=cache.v_scale[i][:, :attn_len] if kvq else None)
         x = x + qmm(o.reshape(b, t, cfg.q_dim), lp["wo"])
         x = _mlp(x, lp, cfg)
     return _head(params, cfg, x), cache
@@ -234,8 +350,11 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
 def forward_decode(params: Params, cfg: ModelConfig, cur: torch.Tensor,
                    positions: torch.Tensor, cache: KVCache,
                    write_mask: torch.Tensor, *, attn_len: int,
-                   ) -> tuple[torch.Tensor, KVCache]:
+                   block_table: torch.Tensor | None = None,
+                   block_size: int = 0) -> tuple[torch.Tensor, KVCache]:
     """One decode step [B] -> logits [B, V], cache updated in place."""
     logits, cache = forward_decode_multi(params, cfg, cur[:, None], positions,
-                                         cache, write_mask, attn_len=attn_len)
+                                         cache, write_mask, attn_len=attn_len,
+                                         block_table=block_table,
+                                         block_size=block_size)
     return logits[:, 0], cache

@@ -12,7 +12,10 @@ their port:
 Both mask by absolute position: key j is visible to the query at
 absolute position p iff j <= p, which enforces causality within a chunk
 and hides the unwritten cache tail. Decode attention over the dense
-cache is the hand-written kernel in ``ops/cuda_attention.py``.
+cache and over the paged block pool is the hand-written kernel in
+``ops/cuda_attention.py``; ``paged_gather_indices`` and
+``gather_paged_rows`` are the plain paged read its plain version and the
+paged prefill use.
 """
 
 from __future__ import annotations
@@ -20,6 +23,27 @@ from __future__ import annotations
 import torch
 
 _NEG_INF = -1e30
+
+
+def paged_gather_indices(block_table: torch.Tensor,
+                         block_size: int) -> torch.Tensor:
+    """Flat pool-row indices for a paged read: ``block_table`` [B, nb]
+    (pool block id of each slot's logical block) -> [B, nb * block_size],
+    the pool row of every logical position per slot, in position order.
+    Unallocated entries may hold any in-range id (conventionally 0): their
+    rows sit beyond every query's position mask."""
+    b, nb = block_table.shape
+    idx = (block_table[:, :, None] * block_size
+           + torch.arange(block_size, dtype=block_table.dtype,
+                          device=block_table.device)[None, None, :])
+    return idx.reshape(b, nb * block_size)
+
+
+def gather_paged_rows(pool_rows: torch.Tensor,
+                      flat_idx: torch.Tensor) -> torch.Tensor:
+    """One layer's paged rows: pool [P, ...] x indices [B, S] ->
+    [B, S, ...]."""
+    return pool_rows[flat_idx.long()]
 
 
 def _split_gqa(q: torch.Tensor, num_kv_heads: int) -> torch.Tensor:

@@ -7,10 +7,13 @@ Counterpart of the main path of ``fasttalk_tpu/serving/server.py``
   server -> client: session_started, session_configured, token,
                     response_complete, cancelled, session_ended, error
 
-plus HTTP GET ``/health`` and ``/models``. Token frames carry the delta
-in ``data``. A generation runs as an asyncio task, so ``cancel`` is
-received mid-stream; per-session config from ``start_session`` applies
-to every generation of the session.
+plus HTTP GET ``/health`` and ``/models`` (which reports the KV layout,
+quantization and block size). Token frames carry the delta in ``data``.
+An engine terminal error whose code is a shed (``kv_blocks_exhausted``)
+reaches the client as a ``rate_limit_error`` frame with ``retry_after``
+and does not count against the circuit breaker. A generation runs as an
+asyncio task, so ``cancel`` is received mid-stream; per-session config
+from ``start_session`` applies to every generation of the session.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from fasttalk_tpu_torch import __version__
 from fasttalk_tpu_torch.engine.engine import EngineBase, GenerationParams
 from fasttalk_tpu_torch.serving.conversation import ConversationManager
 from fasttalk_tpu_torch.utils.config import Config
-from fasttalk_tpu_torch.utils.errors import (CircuitBreaker,
+from fasttalk_tpu_torch.utils.errors import (ENGINE_SHED_CODES,
+                                             AdmissionRejected,
+                                             CircuitBreaker,
                                              CircuitBreakerOpen,
                                              ErrorCategory, LLMServiceError)
 from fasttalk_tpu_torch.utils.logger import get_logger
@@ -245,6 +250,10 @@ class WebSocketLLMServer:
                     finish_reason = ("cancelled" if etype == "cancelled"
                                      else event.get("finish_reason", "stop"))
                 elif etype == "error":
+                    if event.get("code") in ENGINE_SHED_CODES:
+                        # Load shedding (KV block pool exhausted): a
+                        # rate-limit frame with retry_after, not a fault.
+                        raise AdmissionRejected.from_shed_event(event)
                     raise LLMServiceError(event.get("error", "engine error"))
             self.breaker.record_success()
             tokens = int(stats.get("tokens_generated") or 0)
@@ -267,7 +276,8 @@ class WebSocketLLMServer:
         except CircuitBreakerOpen as e:
             await self._send(ws, {"type": "error", "error": e.to_dict()})
         except LLMServiceError as e:
-            if e.category != ErrorCategory.VALIDATION:
+            if e.category not in (ErrorCategory.VALIDATION,
+                                  ErrorCategory.RATE_LIMIT):
                 self.breaker.record_failure()
             await self._send(ws, {"type": "error", "error": e.to_dict()})
         except Exception as e:  # the stream must end with a frame

@@ -1,11 +1,12 @@
 """Environment-driven configuration of the port's serving slice.
 
 The subset of ``fasttalk_tpu/utils/config.py`` that the WebSocket serving
-path reads, under the same environment names. Features of the JAX package
-that this slice does not carry (speculative decoding, host KV offload,
-paged or int8 KV, the radix cache, structured decoding, int4 weights, a
-device mesh) are rejected with a named error when their variable asks for
-them; they are never silently ignored.
+path reads, under the same environment names, defaults and validation
+(the KV tiers: ``fasttalk_tpu/utils/config.py`` :535-589, :1083-1141).
+Features of the JAX package that the port does not carry yet (speculative
+decoding, host KV offload, the radix cache, structured decoding, int4
+weights, a device mesh) are rejected with a named error when their
+variable asks for them; they are never silently ignored.
 
 The device is not configuration: it is an argument of the entry points
 (``resolve_device``), ``cuda`` unless the caller asks for the CPU.
@@ -64,8 +65,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 # feature off, what to tell the operator).
 _OUT_OF_SLICE = (
     ("TPU_SPEC_DECODE", ("off", ""), "speculative decoding"),
-    ("KV_QUANT", ("none", ""), "the int8 KV-cache tier"),
-    ("KV_LAYOUT", ("dense", ""), "the paged KV tier"),
     ("STRUCTURED_MODE", ("auto", "off", ""), "structured decoding"),
 )
 
@@ -106,6 +105,33 @@ class Config:
     default_repeat_penalty: float = field(
         default_factory=lambda: _env_float("DEFAULT_REPEAT_PENALTY", 1.1))
     session_timeout: int = field(default_factory=lambda: _env_int("SESSION_TIMEOUT", 3600))
+    # Share of the card's memory the weights and the KV cache may take.
+    hbm_util: float = field(
+        default_factory=lambda: _env_float("TPU_HBM_UTILIZATION", 0.9))
+    # Int8 KV-cache tier: "none" | "int8" (int8 rows + f32 row scales,
+    # half the cache's bytes and half what each decode step reads).
+    kv_quant: str = field(default_factory=lambda: _env_str("KV_QUANT", "none"))
+    # Scale granularity: "token" (one scale per K/V row) or "head" (one per
+    # KV head of the row).
+    kv_quant_granule: str = field(
+        default_factory=lambda: _env_str("KV_QUANT_GRANULE", "token"))
+    # "dense" preallocates every slot at TPU_MAX_MODEL_LEN; "paged" holds one
+    # block pool with per-slot block tables, priced at the blocks in use.
+    kv_layout: str = field(
+        default_factory=lambda: _env_str("KV_LAYOUT", "dense"))
+    # Tokens per block: a power of two in [8, 512].
+    kv_block_size: int = field(
+        default_factory=lambda: _env_int("KV_BLOCK_SIZE", 16))
+    # Pool size in blocks; 0 = the dense-equivalent pool, shrunk by the
+    # factory to what the memory budget holds.
+    kv_pool_blocks: int = field(
+        default_factory=lambda: _env_int("KV_POOL_BLOCKS", 0))
+    # Decode growth an admission must see free: "fixed" (the next
+    # KV_RESERVE_TOKENS), "max_tokens" (the whole budget) or "none".
+    kv_reserve_policy: str = field(
+        default_factory=lambda: _env_str("KV_RESERVE_POLICY", "fixed"))
+    kv_reserve_tokens: int = field(
+        default_factory=lambda: _env_int("KV_RESERVE_TOKENS", 128))
 
     def __post_init__(self) -> None:
         errs: list[str] = []
@@ -151,6 +177,31 @@ class Config:
             errs.append("DEFAULT_MAX_TOKENS must be > 0")
         if not 0.0 < self.default_repeat_penalty <= 2.0:
             errs.append("DEFAULT_REPEAT_PENALTY must be in (0, 2]")
+        if not 0.0 < self.hbm_util <= 1.0:
+            errs.append("TPU_HBM_UTILIZATION must be in (0, 1]")
+        if self.kv_quant not in ("none", "int8"):
+            errs.append("kv_quant must be 'none' or 'int8'")
+        if self.kv_quant_granule not in ("token", "head"):
+            errs.append("kv_quant_granule must be 'token' or 'head'")
+        if self.kv_layout not in ("dense", "paged"):
+            errs.append(f"kv_layout must be 'dense' or 'paged', "
+                        f"got {self.kv_layout!r}")
+        if (self.kv_block_size < 8 or self.kv_block_size > 512
+                or self.kv_block_size & (self.kv_block_size - 1)):
+            errs.append(f"kv_block_size must be a power of two in "
+                        f"[8, 512], got {self.kv_block_size}")
+        if self.kv_pool_blocks < 0:
+            errs.append("kv_pool_blocks must be >= 0 (0 sizes the pool "
+                        "to the dense-equivalent footprint)")
+        if self.kv_reserve_policy not in ("none", "fixed", "max_tokens"):
+            errs.append(f"kv_reserve_policy must be none|fixed|"
+                        f"max_tokens, got {self.kv_reserve_policy!r}")
+        if self.kv_reserve_tokens < 0:
+            errs.append("kv_reserve_tokens must be >= 0")
+        if self.kv_layout == "paged" \
+                and self.kv_block_size > self.max_model_len:
+            errs.append(f"kv_block_size ({self.kv_block_size}) must not "
+                        f"exceed max_model_len ({self.max_model_len})")
         if errs:
             raise ValueError("Invalid configuration:\n  " + "\n  ".join(errs))
 

@@ -58,6 +58,37 @@ class LLMServiceError(Exception):
         return d
 
 
+class AdmissionRejected(LLMServiceError):
+    """A request shed by the engine to protect itself (KV block pool
+    exhausted, a deadline that expired in the queue): recoverable, with a
+    ``retry_after``. Load shedding, not a backend fault: the serving layer
+    must not count it against the circuit breaker."""
+
+    def __init__(self, message: str, retry_after: float,
+                 reason: str = "shed"):
+        super().__init__(message, category=ErrorCategory.RATE_LIMIT,
+                         severity=ErrorSeverity.MEDIUM, recoverable=True,
+                         retry_after=retry_after)
+        self.reason = reason
+
+    def to_dict(self) -> dict[str, Any]:
+        return {**super().to_dict(), "details": {"reason": self.reason}}
+
+    @classmethod
+    def from_shed_event(cls, event: dict) -> "AdmissionRejected":
+        """From an engine terminal error event whose ``code`` is in
+        ``ENGINE_SHED_CODES``; the code rides on as ``details.reason``."""
+        return cls(str(event.get("error") or "request shed"),
+                   retry_after=float(event.get("retry_after") or 1.0),
+                   reason=str(event.get("code") or "shed"))
+
+
+# Engine terminal-error codes that are load shedding, not backend faults:
+# the serving layer sends them as rate-limit frames with retry_after and
+# leaves the circuit breaker untouched.
+ENGINE_SHED_CODES = ("deadline_expired", "kv_blocks_exhausted")
+
+
 class CircuitBreakerOpen(LLMServiceError):
     def __init__(self, retry_after: float):
         super().__init__(

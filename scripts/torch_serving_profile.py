@@ -3,12 +3,14 @@
 one CUDA GPU.
 
     python3 scripts/torch_serving_profile.py [--sessions 16] [--max-tokens 64]
-                                             [--table PATH]
+        [--table PATH] [--kv-layout dense|paged] [--kv-quant none|int8]
+        [--max-len 2048] [--pool-blocks 0]
 
 Serves the main path through ``chip_smoke.serve_main_path`` (llama3.2:1b
 at full width, int8 random weights, 16 slots, max_len 2048, prefill chunk
-512; one warm-up session) and drives ``--sessions`` concurrent WebSocket
-sessions under ``torch.profiler``. Prints:
+512, dense bf16 KV unless the KV options say otherwise; one warm-up
+session) and drives ``--sessions`` concurrent WebSocket sessions under
+``torch.profiler``. Prints:
 
 - wall time, tokens and decode tokens/s of the measured sessions;
 - the engine's decode calls and steps in that window, the host time per
@@ -40,6 +42,11 @@ def main() -> int:
     ap.add_argument("--max-tokens", type=int, default=64)
     ap.add_argument("--table", default="",
                     help="write the full profiler table to this file")
+    ap.add_argument("--kv-layout", default="dense", choices=("dense", "paged"))
+    ap.add_argument("--kv-quant", default="none", choices=("none", "int8"))
+    ap.add_argument("--max-len", type=int, default=2048)
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="KV_POOL_BLOCKS of the paged layout (0 = fit)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -64,7 +71,9 @@ def main() -> int:
             out[key] = after[key] - before[key]
         return out, prof
 
-    served, prof = serve_main_path(profiled)
+    served, prof = serve_main_path(
+        profiled, max_len=args.max_len, kv_layout=args.kv_layout,
+        kv_quant=args.kv_quant, kv_pool_blocks=args.pool_blocks)
     print(f"sessions={served['sessions']} tokens={served['tokens']} "
           f"wall_s={served['wall_s']} decode_tok_s="
           f"{served['tokens'] / served['wall_s']} errors={len(served['errors'])}")

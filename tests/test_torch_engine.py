@@ -3,10 +3,15 @@
 ``TorchEngine(device="cpu")`` on the trained tinychat checkpoint must give
 the same greedy text as the JAX package's ``TPUEngine`` for the prompts of
 tests/test_trained_tiny.py, whether the sessions run one at a time or
-four at once; cancel ends a stream with a ``cancelled`` event; one
-WebSocket round trip runs through the port's server. The port and
-``chip_smoke.py`` import neither ``jax`` nor ``fasttalk_tpu``, and an
-entry point asked for no device refuses to run without a GPU.
+four at once, on the dense bf16 cache and on the paged int8 pool (the
+JAX engine then runs the same KV settings); cancel ends a stream with a
+``cancelled`` event; one WebSocket round trip runs through the port's
+server. A small block pool sheds with ``kv_blocks_exhausted`` and
+``retry_after`` at admission and mid-decode while the engine keeps
+serving, and the WebSocket client sees that as a ``rate_limit_error``
+frame. The port and ``chip_smoke.py`` import neither ``jax`` nor
+``fasttalk_tpu``, and an entry point asked for no device refuses to run
+without a GPU.
 """
 
 import ast
@@ -56,8 +61,10 @@ async def _collect(engine, params_cls, rid, messages, max_tokens, **kw):
     return text, final
 
 
-@pytest.fixture(scope="module")
-def jax_texts():
+PAGED_INT8 = dict(kv_layout="paged", kv_quant="int8")
+
+
+def _jax_replies(**kv):
     """Greedy replies of the JAX engine, one session at a time (float32)."""
     import jax.numpy as jnp
 
@@ -73,7 +80,7 @@ def jax_texts():
                                    template=cfg.chat_template),
                     num_slots=4, max_len=512, dtype=jnp.float32,
                     steps_per_call=8, spec_decode="off",
-                    shared_prefix=False)
+                    shared_prefix=False, **kv)
     eng.start()
     try:
         async def run():
@@ -84,7 +91,17 @@ def jax_texts():
         eng.shutdown()
 
 
-def _torch_engine():
+@pytest.fixture(scope="module")
+def jax_texts():
+    return _jax_replies()
+
+
+@pytest.fixture(scope="module")
+def jax_texts_paged_int8():
+    return _jax_replies(**PAGED_INT8)
+
+
+def _torch_engine(**kw):
     from fasttalk_tpu_torch.engine.engine import TorchEngine
     from fasttalk_tpu_torch.engine.tokenizer import load_tokenizer
     from fasttalk_tpu_torch.models.configs import get_model_config
@@ -96,7 +113,7 @@ def _torch_engine():
                        load_tokenizer(ASSETS, "tinychat",
                                       template=cfg.chat_template),
                        device="cpu", num_slots=4, max_len=512,
-                       dtype=torch.float32, steps_per_call=8)
+                       dtype=torch.float32, steps_per_call=8, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -135,6 +152,105 @@ def test_four_concurrent_sessions_match_jax_engine(torch_engine, jax_texts):
     for (rid, _, _), (text, final) in zip(PROMPTS[:4], got):
         assert text == jax_texts[rid][0], rid
         assert final["type"] == "done"
+
+
+@pytest.fixture(scope="module")
+def torch_engine_paged_int8():
+    eng = _torch_engine(**PAGED_INT8)
+    eng.start()
+    try:
+        yield eng
+    finally:
+        eng.shutdown()
+
+
+def test_paged_int8_one_session_at_a_time_matches_jax_engine(
+        torch_engine_paged_int8, jax_texts_paged_int8):
+    """KV_LAYOUT=paged with KV_QUANT=int8 on both engines: the same greedy
+    text, finish reason and token count; all blocks return once the
+    sessions are released."""
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+
+    eng = torch_engine_paged_int8
+    assert eng.get_model_info()["kv_layout"] == "paged"
+
+    async def run():
+        out = {rid: await _collect(eng, GenerationParams, rid, msgs, n)
+               for rid, msgs, n in PROMPTS}
+        for rid, _, _ in PROMPTS:
+            eng.release_session(f"s-{rid}")
+        # A command after the releases: they are processed once it ends.
+        await _collect(eng, GenerationParams, "sync", PROMPTS[0][1], 1)
+        eng.release_session("s-sync")
+        await _collect(eng, GenerationParams, "sync2", PROMPTS[0][1], 1)
+        return out
+    got = asyncio.run(run())
+    for rid, (text, final) in got.items():
+        want_text, want_final = jax_texts_paged_int8[rid]
+        assert text == want_text, rid
+        assert final["finish_reason"] == want_final["finish_reason"]
+        assert final["stats"]["tokens_generated"] == \
+            want_final["stats"]["tokens_generated"]
+    assert "blue" in got["sky"][0].lower() and "Alice" in got["alice"][0]
+    eng._kv_blocks.check_leaks()
+    assert eng.get_stats()["kv_blocks"]["in_use"] == \
+        eng._kv_blocks.slot_blocks(eng.slots.lookup("s-sync2").index)
+
+
+def test_paged_int8_four_concurrent_sessions_match_jax_engine(
+        torch_engine_paged_int8, jax_texts_paged_int8):
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+
+    async def run():
+        return await asyncio.gather(*(
+            _collect(torch_engine_paged_int8, GenerationParams, f"c-{rid}",
+                     msgs, n) for rid, msgs, n in PROMPTS[:4]))
+    got = asyncio.run(run())
+    for (rid, _, _), (text, final) in zip(PROMPTS[:4], got):
+        assert text == jax_texts_paged_int8[rid][0], rid
+        assert final["type"] == "done"
+    torch_engine_paged_int8._kv_blocks.check_leaks()
+
+
+def test_small_pool_sheds_with_retry_after_and_keeps_serving():
+    """A 6-block pool of 16 tokens: a long prompt sheds at admission, then
+    two long generations with no reserve outgrow the pool mid-decode and
+    the most recently admitted one sheds; every shed carries
+    ``kv_blocks_exhausted`` and ``retry_after``, the survivor finishes,
+    short requests keep being served once the long sessions are released,
+    and no block leaks."""
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+
+    eng = _torch_engine(kv_layout="paged", kv_pool_blocks=6,
+                        kv_reserve_policy="none")
+    eng.start()
+    try:
+        async def run():
+            long_msgs = [{"role": "user", "content": "tell me a story " * 30}]
+            shed = await _collect(eng, GenerationParams, "long", long_msgs, 8)
+            ok = await _collect(eng, GenerationParams, "sky", PROMPTS[0][1],
+                                48)
+            grow = await asyncio.gather(*(
+                _collect(eng, GenerationParams, f"g{i}", PROMPTS[0][1], 60,
+                         ignore_eos=True) for i in range(2)))
+            # Idle pinned sessions keep their blocks until released.
+            for i in range(2):
+                eng.release_session(f"s-g{i}")
+            after = await _collect(eng, GenerationParams, "sky2",
+                                   PROMPTS[0][1], 48)
+            return shed, ok, grow, after
+        shed, ok, grow, after = asyncio.run(asyncio.wait_for(run(), 120))
+    finally:
+        eng.shutdown()
+    for _, final in [shed] + [g for g in grow if g[1]["type"] == "error"]:
+        assert final["type"] == "error"
+        assert final["code"] == "kv_blocks_exhausted"
+        assert final["retry_after"] >= 0.5
+    assert sorted(g[1]["type"] for g in grow) == ["done", "error"]
+    survivor = next(g for g in grow if g[1]["type"] == "done")
+    assert survivor[1]["stats"]["tokens_generated"] == 60
+    assert "blue" in ok[0].lower() and after[0] == ok[0]
+    eng._kv_blocks.check_leaks()
 
 
 def test_cancel_ends_the_stream(torch_engine):
@@ -213,6 +329,59 @@ def test_websocket_round_trip():
     assert frames[-2]["stats"]["finish_reason"] == "stop"
 
 
+def test_websocket_shed_is_a_rate_limit_frame():
+    """A terminal ``kv_blocks_exhausted`` reaches the client as a
+    ``rate_limit_error`` frame with ``retry_after`` and the reason, the
+    circuit breaker counts no failure, and /models reports the KV tier."""
+    import aiohttp
+    from aiohttp import web
+
+    from fasttalk_tpu_torch.serving.server import WebSocketLLMServer
+    from fasttalk_tpu_torch.utils.config import Config
+
+    async def run():
+        engine = _torch_engine(kv_layout="paged", kv_quant="int8",
+                               kv_pool_blocks=4)
+        engine.start()
+        runner = None
+        try:
+            server = WebSocketLLMServer(
+                Config(model_name="tinychat", model_path=ASSETS,
+                       max_model_len=512, default_context_window=512),
+                engine)
+            runner = web.AppRunner(server.app)
+            await runner.setup()
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            port = site._server.sockets[0].getsockname()[1]
+            base = f"http://127.0.0.1:{port}"
+            async with aiohttp.ClientSession() as http:
+                async with http.get(f"{base}/models") as r:
+                    info = await r.json()
+                async with http.ws_connect(f"{base}/ws/llm") as ws:
+                    await ws.receive()
+                    await ws.send_json({"type": "start_session", "config": {
+                        "max_tokens": 16, **GREEDY}})
+                    await ws.receive()
+                    await ws.send_json({"type": "user_message",
+                                        "text": "tell me a story " * 30})
+                    frame = json.loads((await ws.receive()).data)
+            return info, frame, server.breaker.to_dict()
+        finally:
+            if runner is not None:
+                await runner.cleanup()
+            engine.shutdown()
+
+    info, frame, breaker = asyncio.run(asyncio.wait_for(run(), timeout=120))
+    assert (info["kv_layout"], info["kv_quant"], info["kv_block_size"]) == \
+        ("paged", "int8", 16)
+    assert frame["type"] == "error"
+    err = frame["error"]
+    assert err["code"] == "rate_limit_error" and err["retry_after"] >= 0.5
+    assert err["details"]["reason"] == "kv_blocks_exhausted"
+    assert breaker == {"state": "closed", "failures": 0}
+
+
 def _imported_names(path):
     tree = ast.parse(open(path, encoding="utf-8").read(), path)
     for node in ast.walk(tree):
@@ -274,8 +443,10 @@ def _default_device_engine():
 
 
 @pytest.mark.parametrize("env", [
-    {"TPU_SPEC_DECODE": "ngram"}, {"KV_QUANT": "int8"},
-    {"KV_LAYOUT": "paged"}, {"KV_HOST_BUDGET_MB": "64"},
+    {"TPU_SPEC_DECODE": "ngram"},
+    {"KV_QUANT": "int8", "TPU_SPEC_DECODE": "ngram"},
+    {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true"},
+    {"KV_HOST_BUDGET_MB": "64"},
     {"KV_RADIX_ENABLED": "true"}, {"STRUCTURED_MODE": "on"},
     {"TPU_TP_SIZE": "2"}, {"WEIGHT_QUANT": "int4"}])
 def test_config_rejects_features_outside_the_slice(monkeypatch, env):

@@ -8,10 +8,12 @@ fixture skips them. On a machine with the card run
 Tolerances: kernel and plain version both accumulate in f32 and cast to
 bf16 once, so they differ by summation order plus at most one bf16
 rounding step of the output. The matmuls are held to 1% of the output's
-largest magnitude. ``decode_attend`` is held slot by slot, to 1% of each
-slot's own largest output (``chip_smoke.attend_slot_gaps``, the criterion
-the card run uses); the CPU tests below show that this criterion catches
-one key too many or too few at a tile edge and a dropped key tile.
+largest magnitude. ``decode_attend`` and ``decode_attend_paged`` (bf16 and
+int8 rows) are held slot by slot, to 1% of each slot's own largest output
+(``chip_smoke.attend_slot_gaps``, the criterion the card run uses); the CPU
+tests below show that this criterion catches one key too many or too few
+at a tile edge, a dropped key tile, a block of another slot read in place
+of the slot's own, and the partial last block read one key short or long.
 """
 
 import importlib.util
@@ -21,10 +23,13 @@ import pytest
 import torch
 
 from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
+                                                   decode_attend_paged,
+                                                   decode_attend_paged_plain,
                                                    decode_attend_plain)
 from fasttalk_tpu_torch.ops.cuda_int8 import (int8_matmul, int8_matmul_plain,
                                               int8_matmul_t,
                                               int8_matmul_t_plain)
+from fasttalk_tpu_torch.ops.kv_quant import kv_quantize
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
@@ -91,7 +96,7 @@ def test_int8_matmul_t_matches_plain(cuda, m, v, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("t,nq,nkv,d", [(1, 32, 8, 64), (3, 8, 2, 32),
                                         (4, 32, 8, 64), (1, 16, 2, 128),
-                                        (2, 4, 4, 16)])
+                                        (2, 4, 4, 16), (8, 32, 8, 64)])
 def test_decode_attend_matches_plain(cuda, t, nq, nkv, d):
     g = torch.Generator(device=cuda).manual_seed(t * nq + d)
     b, s_full, s = 6, 1024, 512
@@ -114,6 +119,76 @@ def test_decode_attend_matches_plain(cuda, t, nq, nkv, d):
     assert decode_attend.launches == before + 1
 
 
+def _int8_rows(shape, granule, gen, device, scale=1.0):
+    """Random K/V rows quantized as the int8 tier stores them."""
+    x = torch.randn(shape, generator=gen, device=device) * scale
+    return kv_quantize(x, shape[-2] if granule == "head" else 1)
+
+
+def _paged_case(gen, device, *, b, t, nq, nkv, d, bs, nb, pool_blocks,
+                int8, granule="token", k_mult=3.0):
+    """A pool with shuffled, distinct blocks per slot, and q/lengths."""
+    perm = torch.randperm(pool_blocks, generator=torch.Generator().manual_seed(
+        b * nb + bs))[:b * nb]
+    tables = perm.view(b, nb).to(torch.int32).to(device)
+    shape = (pool_blocks * bs, nkv, d)
+    if int8:
+        (k, ks), (v, vs) = (_int8_rows(shape, granule, gen, device, k_mult),
+                            _int8_rows(shape, granule, gen, device))
+    else:
+        k = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        ks = vs = None
+    q = torch.randn((b, t, nq, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    return q, k, v, ks, vs, tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("granule", ["token", "head"])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_decode_attend_int8_matches_plain(cuda, granule, t):
+    """Int8 rows with [B, S, G] scales, read from a batch-strided slice of
+    a longer cache, as forward_decode passes them."""
+    g = torch.Generator(device=cuda).manual_seed(11 * t)
+    b, s_full, s, nq, nkv, d = 6, 1024, 512, 32, 8, 64
+    (ck, cks), (cv, cvs) = (_int8_rows((b, s_full, nkv, d), granule, g, cuda),
+                            _int8_rows((b, s_full, nkv, d), granule, g, cuda))
+    k, v, ks, vs = ck[:, :s], cv[:, :s], cks[:, :s], cvs[:, :s]
+    lengths = torch.tensor([t, 31, 32, 33, 257, 512], dtype=torch.int32,
+                           device=cuda)
+    q = torch.randn((b, t, nq, d), generator=g, device=cuda).to(torch.bfloat16)
+    before = (decode_attend.launches, decode_attend.launches_int8)
+    got = decode_attend(q, k, v, lengths, k_scale=ks, v_scale=vs)
+    gaps = chip_smoke.attend_slot_gaps(got, decode_attend_plain(
+        q, k, v, lengths, k_scale=ks, v_scale=vs))
+    assert bool((gaps <= chip_smoke.ATTEND_SLOT_TOL).all()), gaps.tolist()
+    assert (decode_attend.launches, decode_attend.launches_int8) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_decode_attend_paged_matches_plain(cuda, int8, t):
+    """Shuffled tables over the pool; lengths at block edges 15/16/17."""
+    g = torch.Generator(device=cuda).manual_seed(13 * t + int8)
+    b, nq, nkv, d, bs, nb = 6, 32, 8, 64, 16, 32
+    q, k, v, ks, vs, tables = _paged_case(
+        g, cuda, b=b, t=t, nq=nq, nkv=nkv, d=d, bs=bs, nb=nb,
+        pool_blocks=b * nb + 7, int8=int8, granule="head" if t == 4
+        else "token")
+    lengths = torch.tensor([t, 15, 16, 17, 300, nb * bs], dtype=torch.int32,
+                           device=cuda)
+    before = decode_attend_paged.launches
+    got = decode_attend_paged(q, k, v, lengths, tables, block_size=bs,
+                              k_scale=ks, v_scale=vs)
+    gaps = chip_smoke.attend_slot_gaps(got, decode_attend_paged_plain(
+        q, k, v, lengths, tables, block_size=bs, k_scale=ks, v_scale=vs))
+    assert bool((gaps <= chip_smoke.ATTEND_SLOT_TOL).all()), gaps.tolist()
+    assert decode_attend_paged.launches == before + 1
+
+
 @pytest.mark.gpu
 def test_kernels_give_the_same_bits_on_every_call(cuda):
     """Split-K partials and the attention warps' states are summed in a
@@ -133,6 +208,21 @@ def test_kernels_give_the_same_bits_on_every_call(cuda):
     first = decode_attend(qa, k, k, lengths)
     for _ in range(5):
         assert torch.equal(decode_attend(qa, k, k, lengths), first)
+    (k8, s8), = (_int8_rows((4, 1024, 8, 64), "token", g, cuda),)
+    first = decode_attend(qa, k8, k8, lengths, k_scale=s8, v_scale=s8)
+    for _ in range(5):
+        assert torch.equal(decode_attend(qa, k8, k8, lengths, k_scale=s8,
+                                         v_scale=s8), first)
+    for int8 in (False, True):
+        q, kp, vp, ks, vs, tables = _paged_case(
+            g, cuda, b=4, t=1, nq=32, nkv=8, d=64, bs=16, nb=64,
+            pool_blocks=300, int8=int8)
+        first = decode_attend_paged(q, kp, vp, lengths, tables, block_size=16,
+                                    k_scale=ks, v_scale=vs)
+        for _ in range(5):
+            assert torch.equal(decode_attend_paged(
+                q, kp, vp, lengths, tables, block_size=16, k_scale=ks,
+                v_scale=vs), first)
 
 
 @pytest.mark.gpu
@@ -147,8 +237,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     qa = torch.zeros((2, 40, 4, 32), dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros((2, 64, 1, 32), dtype=torch.bfloat16, device=cuda)
     lengths = torch.ones((2,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="T\\*G"):
-        decode_attend(qa, kv, kv, lengths)
+    with pytest.raises(ValueError, match="int8 k/v come with float32"):
+        decode_attend(qa, kv.to(torch.int8), kv.to(torch.int8), lengths)
+    with pytest.raises(ValueError, match="D=200"):
+        decode_attend(torch.zeros((2, 1, 4, 200), dtype=torch.bfloat16,
+                                  device=cuda),
+                      torch.zeros((2, 8, 1, 200), dtype=torch.bfloat16,
+                                  device=cuda),
+                      torch.zeros((2, 8, 1, 200), dtype=torch.bfloat16,
+                                  device=cuda), lengths)
+    pool = torch.zeros((100, 1, 32), dtype=torch.bfloat16, device=cuda)
+    tables = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="not divisible"):
+        decode_attend_paged(qa[:, 0].contiguous(), pool, pool, lengths,
+                            tables, block_size=16)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -169,8 +271,15 @@ def test_cpu_tensors_take_the_plain_version():
     lengths = torch.tensor([1, 8, 16], dtype=torch.int32)
     torch.testing.assert_close(decode_attend(qa, kv, kv, lengths),
                                decode_attend_plain(qa, kv, kv, lengths))
+    tables = torch.tensor([[2], [0], [1]], dtype=torch.int32)
+    pool = kv.reshape(48, 2, 16)
+    torch.testing.assert_close(
+        decode_attend_paged(qa, pool, pool, lengths, tables, block_size=16),
+        decode_attend_paged_plain(qa, pool, pool, lengths, tables,
+                                  block_size=16))
     assert counts == (int8_matmul.launches, int8_matmul_t.launches,
                       decode_attend.launches)
+    assert decode_attend_paged.launches == 0
 
 
 @pytest.mark.parametrize("t", [1, 4])
@@ -197,3 +306,45 @@ def test_attend_slot_tolerance_catches_a_key_off_and_a_dropped_tile(t):
             else:
                 assert gaps[slot].item() > chip_smoke.ATTEND_SLOT_TOL, \
                     (n, m, gaps[slot].item())
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("t", [1, 4])
+def test_attend_slot_tolerance_catches_a_wrong_paged_read(t, int8):
+    """What the per-slot criterion must reject in the paged read, shown
+    with the plain version: one of a slot's blocks swapped for a block of
+    another slot, and the partial last block read one key short or long
+    (lengths 15/17/33 inside a block, 16 at its edge). Slots the fault
+    does not touch stay exactly equal."""
+    b, nq, nkv, d, bs, nb = 6, 8, 2, 64, 16, 16
+    q, k, v, ks, vs, tables = _paged_case(
+        torch.Generator().manual_seed(t), "cpu", b=b, t=t, nq=nq, nkv=nkv,
+        d=d, bs=bs, nb=nb, pool_blocks=b * nb, int8=int8, k_mult=1.0)
+    q, k, v = q.float(), (k if int8 else k.float()), (v if int8 else v.float())
+    lens = [15, 16, 17, 33, 100, 255]
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs)
+    ref = decode_attend_paged_plain(q, k, v, torch.tensor(
+        lens, dtype=torch.int32), tables, **kw)
+
+    def gaps(wrong_lens, wrong_tables):
+        return chip_smoke.attend_slot_gaps(decode_attend_paged_plain(
+            q, k, v, torch.tensor(wrong_lens, dtype=torch.int32),
+            wrong_tables, **kw), ref)
+
+    for slot in range(b):
+        # The slot's block holding key 0 replaced by another slot's block.
+        swapped = tables.clone()
+        swapped[slot, 0] = tables[(slot + 1) % b, 0]
+        got = gaps(lens, swapped)
+        for other in range(b):
+            if other == slot:
+                assert got[other].item() > chip_smoke.ATTEND_SLOT_TOL, \
+                    (slot, got[other].item())
+            else:
+                assert got[other].item() == 0.0
+    for delta in (-1, 1):
+        wrong = [n + delta for n in lens]
+        got = gaps(wrong, tables)
+        for slot in range(b):
+            assert got[slot].item() > chip_smoke.ATTEND_SLOT_TOL, \
+                (lens[slot], delta, got[slot].item())

@@ -16,19 +16,24 @@ import jax.numpy as jnp
 from fasttalk_tpu.models.configs import get_model_config as jax_model_config
 from fasttalk_tpu.models.llama import rms_norm as jax_rms_norm
 from fasttalk_tpu.ops import attention as jatt
+from fasttalk_tpu.ops import kv_quant as jkvq
 from fasttalk_tpu.ops import quant as jquant
 from fasttalk_tpu.ops import rope as jrope
 from fasttalk_tpu.ops import sampling as jsamp
 from fasttalk_tpu.ops.pallas_attention import decode_attend as jax_decode_attend
+from fasttalk_tpu.ops.pallas_attention import \
+    decode_attend_paged as jax_decode_attend_paged
 from fasttalk_tpu.ops.pallas_int8 import int8_matmul as jax_int8_matmul
 from fasttalk_tpu.ops.pallas_int8 import int8_matmul_t as jax_int8_matmul_t
 from fasttalk_tpu_torch.models.configs import get_model_config
 from fasttalk_tpu_torch.models.llama import rms_norm
 from fasttalk_tpu_torch.ops import attention as tatt
+from fasttalk_tpu_torch.ops import kv_quant as tkvq
 from fasttalk_tpu_torch.ops import quant as tquant
 from fasttalk_tpu_torch.ops import rope as trope
 from fasttalk_tpu_torch.ops import sampling as tsamp
-from fasttalk_tpu_torch.ops.cuda_attention import decode_attend
+from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
+                                                   decode_attend_paged)
 from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
 
 # float32 on both sides: differences come from summation order only.
@@ -161,7 +166,7 @@ def test_int8_matmul_t_plain_matches_pallas_kernel():
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("t", [1, 3, 8])
 def test_decode_attend_plain_matches_pallas_kernel(t):
     b, s, nq, nkv, d = 4, 256, 8, 2, 32
     q, k, v = _qkv(11, b, t, nq, nkv, d, s)
@@ -172,6 +177,79 @@ def test_decode_attend_plain_matches_pallas_kernel(t):
     got = decode_attend(_t(qin), _t(k), _t(v), _t(lengths))
     assert got.shape == qin.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _kv_int8(seed, shape, g, mult=1.0):
+    """K/V rows quantized by the JAX package (numpy out)."""
+    x = _rng(seed).standard_normal(shape).astype(np.float32) * mult
+    q, s = jkvq.kv_quantize(jnp.asarray(x), g)
+    return np.asarray(q), np.asarray(s)
+
+
+@pytest.mark.parametrize("granule", ["token", "head"])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_decode_attend_int8_plain_matches_pallas_kernel(granule, t):
+    """Int8 rows + [B, S, G] scales: the plain version against the Pallas
+    kernel's fused-dequant tier in interpret mode (both dequantize in f32
+    before the dot products)."""
+    b, s, nq, nkv, d = 4, 256, 8, 2, 32
+    g = tkvq.granule_dim(granule, nkv)
+    q = _rng(20).standard_normal((b, t, nq, d)).astype(np.float32)
+    k, ks = _kv_int8(21, (b, s, nkv, d), g, 2.0)
+    v, vs = _kv_int8(22, (b, s, nkv, d), g, 0.5)
+    lengths = np.array([t, 128, 129, 256], np.int32)
+    qin = q[:, 0] if t == 1 else q
+    ref = jax_decode_attend(jnp.asarray(qin), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+                            v_scale=jnp.asarray(vs), interpret=True)
+    got = decode_attend(_t(qin), _t(k), _t(v), _t(lengths), k_scale=_t(ks),
+                        v_scale=_t(vs))
+    assert got.shape == qin.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_decode_attend_paged_plain_matches_pallas_kernel(int8, t):
+    """The paged block walk over scrambled tables (distinct shuffled pool
+    blocks per slot), lengths straddling block edges, bf16-tier f32 rows
+    and int8 rows with head-granule pool scales [P, G]."""
+    b, nq, nkv, d, bs, nb, pool_blocks = 4, 8, 2, 32, 16, 8, 40
+    perm = _rng(23).permutation(pool_blocks)[:b * nb]
+    tables = perm.reshape(b, nb).astype(np.int32)
+    q = _rng(24).standard_normal((b, t, nq, d)).astype(np.float32)
+    shape = (pool_blocks * bs, nkv, d)
+    if int8:
+        (k, ks), (v, vs) = _kv_int8(25, shape, nkv, 3.0), _kv_int8(26, shape,
+                                                                   nkv)
+    else:
+        k = _rng(25).standard_normal(shape).astype(np.float32)
+        v = _rng(26).standard_normal(shape).astype(np.float32)
+        ks = vs = None
+    lengths = np.array([t, 16, 17, 128], np.int32)
+    qin = q[:, 0] if t == 1 else q
+    opt = (lambda a, f: None if a is None else f(a))  # noqa: E731
+    ref = jax_decode_attend_paged(
+        jnp.asarray(qin), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), jnp.asarray(tables), block_size=bs,
+        k_scale=opt(ks, jnp.asarray), v_scale=opt(vs, jnp.asarray),
+        interpret=True)
+    got = decode_attend_paged(_t(qin), _t(k), _t(v), _t(lengths), _t(tables),
+                              block_size=bs, k_scale=opt(ks, _t),
+                              v_scale=opt(vs, _t))
+    assert got.shape == qin.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_paged_gather_indices_and_rows_match_jax():
+    tables = _rng(27).permutation(12)[:8].reshape(2, 4).astype(np.int32)
+    ref = jatt.paged_gather_indices(jnp.asarray(tables), 16)
+    got = tatt.paged_gather_indices(_t(tables), 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    pool = _rng(28).standard_normal((12 * 16, 2, 8)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tatt.gather_paged_rows(_t(pool), got).numpy(),
+        np.asarray(jatt.gather_paged_rows(jnp.asarray(pool), ref)))
 
 
 @pytest.mark.parametrize("tlen", [1, 4])
