@@ -17,19 +17,25 @@ no result line):
 3. llama3.2:1b at full width (int8 random weights on the card): prefill
    plus decode steps through the kernels against the same forward through
    the plain versions, by logits and greedy tokens, on the dense bf16 cache
-   and on the paged int8 pool;
+   and on the paged int8 pool; then the same with int4 random weights
+   (WEIGHT_QUANT=int4, group 128) on the dense bf16 cache;
 4. the trained tinychat checkpoint (read in place from
    ``fasttalk_tpu/assets``) with int8 weights, on the dense bf16 cache and
-   on the paged int8 pool: the greedy answer to "what color is the sky?";
+   on the paged int8 pool, and with int4 weights on the dense bf16 cache:
+   the greedy answer to "what color is the sky?";
 5. the WebSocket server in-process through ``build_engine`` (full-width
    llama3.2:1b, int8, 16 slots, max_len 2048, prefill chunk 512, dense
    bf16 KV) with 16 concurrent sessions;
 6. the same server on the paged int8 pool (KV_LAYOUT=paged,
    KV_QUANT=int8, max_len 8192, 16-token blocks, 2048 pool blocks: a
    quarter of the dense layout's rows) with 16 concurrent sessions;
-7. the two other tiers served briefly (dense int8, paged bf16).
+7. the two other tiers served briefly (dense int8, paged bf16);
+8. WEIGHT_QUANT=int4 served as in phase 5 (full-width llama3.2:1b, 16
+   slots, max_len 2048, prefill chunk 512, dense bf16 KV) with 16
+   concurrent sessions: the layer matmuls run ``int4_matmul`` and
+   ``int8_matmul`` must launch no time.
 
-In phases 5-7 the kernels' launch counts are zeroed just before the
+In phases 5-8 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
 launched. The line before the last is one JSON object listing the kernels;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -122,6 +128,69 @@ def attend_slot_gaps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- phase 2
+
+INT4_GROUP = 128               # WEIGHT_QUANT_GROUP of the int4 tier
+
+
+def check_int4_matmul(results: dict) -> None:
+    """int4_matmul at the decode-step shapes, G = 128, M = 16 and 1: held to
+    1% of the plain version's largest output; timed beside the plain
+    version and ``torch.matmul`` on the pre-dequantized bf16 weight; the
+    entry is one decode step at M = 16 (112 calls)."""
+    from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul, int4_matmul_plain
+    from fasttalk_tpu_torch.quantization.int4 import unpack_int4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+            "ops": 0.0}
+    worst = 0.0
+    for (k, n), per_layer in LAYER_MATMULS.items():
+        groups = k // INT4_GROUP
+        n_cp = copies_for(k * n // 2)
+        q4s = [torch.randint(0, 256, (k // 2, n), generator=g, device=dev,
+                             dtype=torch.uint8) for _ in range(n_cp)]
+        s = torch.rand((groups, n), generator=g, device=dev) * 0.02 + 1e-3
+        for m in (SLOTS, 1):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            got = int4_matmul(x, q4s[0], s).float()
+            ref = int4_matmul_plain(x, q4s[0], s).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = 1e-2 * ref.abs().max().item()
+            log(f"int4_matmul M={m} K={k} N={n} G={INT4_GROUP}: "
+                f"max_abs_err={err:.6g} (tol {tol:.6g})")
+            if not err <= tol:
+                fail(f"int4_matmul disagrees with its plain version at "
+                     f"M={m} K={k} N={n}: {err} > {tol}")
+            worst = max(worst, err)
+            ms = time_ms(lambda i: int4_matmul(x, q4s[i % n_cp], s), 50)
+            plain = time_ms(lambda i: int4_matmul_plain(x, q4s[i % n_cp], s),
+                            10)
+            sx = s.to(torch.bfloat16).float().repeat_interleave(INT4_GROUP, 0)
+            ws = [(unpack_int4(q).float() * sx).to(torch.bfloat16)
+                  for q in q4s[:max(1, n_cp // 4)]]
+            lib = time_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 50)
+            del ws, sx
+            nbytes = k * n // 2 + 4 * groups * n + 2 * m * k + 2 * m * n
+            ops = 2 * m * k * n
+            b_ms, by = bound(nbytes, ops)
+            log(f"  ms={ms:.6g} plain_ms={plain:.6g} library_ms={lib:.6g} "
+                f"bound_ms={b_ms:.6g} ({by})")
+            if m == SLOTS:
+                calls = per_layer * LAYERS
+                for key, val in (("ms", ms), ("plain_ms", plain),
+                                 ("library_ms", lib), ("bytes", nbytes),
+                                 ("ops", ops)):
+                    step[key] += calls * val
+        del q4s
+    b_ms, by = bound(step["bytes"], step["ops"])
+    results["int4_matmul"] = {
+        "max_abs_err": worst, "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": b_ms, "bound_by": by, "library_ms": step["library_ms"],
+        "work": "one decode step at M=16: 112 calls over the 4 (K, N) "
+                f"shapes, group {INT4_GROUP}"}
+
 
 def check_int8_matmul(results: dict) -> None:
     from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_plain
@@ -359,26 +428,29 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
 def plain_kernels():
     """Route the model's kernel call sites to the plain versions."""
     from fasttalk_tpu_torch.models import llama
-    from fasttalk_tpu_torch.ops import cuda_attention, cuda_int8, quant
+    from fasttalk_tpu_torch.ops import (cuda_attention, cuda_int4, cuda_int8,
+                                        quant)
 
-    saved = (quant.int8_matmul, quant.int8_matmul_t, llama.decode_attend,
-             llama.decode_attend_paged)
+    saved = (quant.int8_matmul, quant.int8_matmul_t, quant.int4_matmul,
+             llama.decode_attend, llama.decode_attend_paged)
     quant.int8_matmul = cuda_int8.int8_matmul_plain
     quant.int8_matmul_t = cuda_int8.int8_matmul_t_plain
+    quant.int4_matmul = cuda_int4.int4_matmul_plain
     llama.decode_attend = cuda_attention.decode_attend_plain
     llama.decode_attend_paged = cuda_attention.decode_attend_paged_plain
     try:
         yield
     finally:
-        (quant.int8_matmul, quant.int8_matmul_t, llama.decode_attend,
-         llama.decode_attend_paged) = saved
+        (quant.int8_matmul, quant.int8_matmul_t, quant.int4_matmul,
+         llama.decode_attend, llama.decode_attend_paged) = saved
 
 
-def check_full_width_model() -> None:
-    """Prefill and 4 decode steps of llama3.2:1b, kernels against plain, on
-    the dense bf16 cache and on the paged int8 pool. The paged prefill runs
-    as the engine's does: the dense forward over a cache of the tier, its
-    rows then scattered into the pool through shuffled block tables."""
+def check_full_width_model(weight_quant: str, tiers: tuple[str, ...]) -> None:
+    """Prefill and 4 decode steps of llama3.2:1b with ``weight_quant``
+    random weights, kernels against plain, on each KV tier of ``tiers``
+    ("dense bf16", "paged int8"). The paged prefill runs as the engine's
+    does: the dense forward over a cache of the tier, its rows then
+    scattered into the pool through shuffled block tables."""
     from fasttalk_tpu_torch.models import llama
     from fasttalk_tpu_torch.models.configs import get_model_config
     from fasttalk_tpu_torch.models.loader import init_params_device
@@ -387,15 +459,17 @@ def check_full_width_model() -> None:
     dev = torch.device("cuda")
     cfg = get_model_config("llama3.2:1b")
     t0 = time.monotonic()
-    params = init_params_device(cfg, torch.bfloat16, dev, quantize=True,
-                                seed=0)
+    params = init_params_device(cfg, torch.bfloat16, dev,
+                                quantize=weight_quant, seed=0,
+                                weight_quant_group=INT4_GROUP)
     torch.cuda.synchronize()
-    log(f"llama3.2:1b int8 random init on the card: "
+    log(f"llama3.2:1b {weight_quant} random init on the card: "
         f"{time.monotonic() - t0:.3f} s")
     b, t, steps, ctx = SLOTS, 64, 4, 512
     nb = ctx // BLOCK
-    for tier in ("dense bf16", "paged int8"):
-        paged = tier.startswith("paged")
+    for kv_tier in tiers:
+        tier = f"{weight_quant} weights, {kv_tier}"
+        paged = kv_tier.startswith("paged")
         g = torch.Generator(device=dev).manual_seed(4)
         prompt = torch.randint(0, 32000, (b, t), generator=g, device=dev)
         pos = torch.arange(t, device=dev)[None].expand(b, t)
@@ -463,13 +537,13 @@ def check_full_width_model() -> None:
 
 # ------------------------------------------------------------- phase 4/5
 
-def check_tinychat(**kv) -> None:
+def check_tinychat(weight_quant: str = "int8", **kv) -> None:
     from fasttalk_tpu_torch.engine.engine import GenerationParams
     from fasttalk_tpu_torch.engine.factory import build_engine
     from fasttalk_tpu_torch.utils.config import Config
 
     engine = build_engine(Config(model_name="tinychat", model_path=ASSETS,
-                                 weight_quant="int8", decode_slots=4,
+                                 weight_quant=weight_quant, decode_slots=4,
                                  max_model_len=512,
                                  default_context_window=512, **kv),
                           device="cuda")
@@ -490,7 +564,7 @@ def check_tinychat(**kv) -> None:
         text, final = asyncio.run(asyncio.wait_for(run(), timeout=120))
     finally:
         engine.shutdown()
-    log(f"tinychat int8 greedy, KV {kv or 'dense bf16'}: {text!r} "
+    log(f"tinychat {weight_quant} greedy, KV {kv or 'dense bf16'}: {text!r} "
         f"({final.get('finish_reason')})")
     if final.get("type") != "done" or "blue" not in text.lower():
         fail(f"tinychat answer is wrong: {text!r} {final}")
@@ -538,13 +612,15 @@ async def drive_sessions(port: int, n: int, max_tokens: int) -> dict:
             "errors": [e for r in res for e in r[1]], "wall_s": wall}
 
 
-def serve_main_path(drive, max_len: int = MAX_LEN, **kv):
+def serve_main_path(drive, max_len: int = MAX_LEN, weight_quant: str = "int8",
+                    **kv):
     """Serve the main path and return ``await drive(engine, port)``.
 
     Builds the engine through ``build_engine`` as ``python -m
-    fasttalk_tpu_torch websocket`` does (llama3.2:1b at full width, int8
-    random weights, 16 slots, max_len 2048, prefill chunk 512; ``kv``
-    overrides the KV settings of ``Config``, e.g. ``kv_layout="paged"``),
+    fasttalk_tpu_torch websocket`` does (llama3.2:1b at full width,
+    ``weight_quant`` random weights (int8, or int4 with group 128), 16
+    slots, max_len 2048, prefill chunk 512; ``kv`` overrides the KV
+    settings of ``Config``, e.g. ``kv_layout="paged"``),
     serves it on an ephemeral localhost port, runs one short warm-up
     session (the first CUDA launches), then hands the port to ``drive``.
     Server and engine are stopped before this returns.
@@ -555,13 +631,14 @@ def serve_main_path(drive, max_len: int = MAX_LEN, **kv):
     from fasttalk_tpu_torch.serving.server import WebSocketLLMServer
     from fasttalk_tpu_torch.utils.config import Config
 
-    cfg = Config(model_name="llama3.2:1b", model_path="", weight_quant="int8",
+    cfg = Config(model_name="llama3.2:1b", model_path="",
+                 weight_quant=weight_quant, weight_quant_group=INT4_GROUP,
                  decode_slots=SLOTS, max_model_len=max_len, prefill_chunk=512,
                  default_context_window=max_len, default_max_tokens=64, **kv)
     t0 = time.monotonic()
     engine = build_engine(cfg, device="cuda")
-    log(f"build_engine (llama3.2:1b int8, 16 slots, max_len {max_len}, KV "
-        f"{kv or 'dense bf16'}): {time.monotonic() - t0:.3f} s")
+    log(f"build_engine (llama3.2:1b {weight_quant}, 16 slots, max_len "
+        f"{max_len}, KV {kv or 'dense bf16'}): {time.monotonic() - t0:.3f} s")
     engine.start()
 
     async def run():
@@ -608,6 +685,7 @@ def main() -> int:
     from fasttalk_tpu_torch.ops import _build
     from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
                                                        decode_attend_paged)
+    from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul
     from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
 
     t0 = time.monotonic()
@@ -617,6 +695,7 @@ def main() -> int:
     results: dict = {}
     check_int8_matmul(results)
     check_int8_matmul_t(results)
+    check_int4_matmul(results)
     for seed, (name, paged, int8) in enumerate((
             ("decode_attend", False, False),
             ("decode_attend[int8]", False, True),
@@ -624,16 +703,20 @@ def main() -> int:
             ("decode_attend_paged[int8]", True, True))):
         check_attend(results, name, paged=paged, int8=int8, seed=3 + seed)
         torch.cuda.empty_cache()
-    check_full_width_model()
+    check_full_width_model("int8", ("dense bf16", "paged int8"))
+    torch.cuda.empty_cache()
+    check_full_width_model("int4", ("dense bf16",))
     torch.cuda.empty_cache()
     check_tinychat()
     check_tinychat(kv_layout="paged", kv_quant="int8")
+    check_tinychat(weight_quant="int4")
 
     # Launch counters of every kernel and attention tier: (wrapper, the
     # count of this tier's launches).
     counters = {
         "int8_matmul": lambda: int8_matmul.launches,
         "int8_matmul_t": lambda: int8_matmul_t.launches,
+        "int4_matmul": lambda: int4_matmul.launches,
         "decode_attend": lambda: (decode_attend.launches
                                   - decode_attend.launches_int8),
         "decode_attend[int8]": lambda: decode_attend.launches_int8,
@@ -643,12 +726,13 @@ def main() -> int:
     }
 
     def served_phase(label: str, attend: str, sessions: int, max_tokens: int,
-                     **kw) -> dict:
-        """Serve one KV tier; the counts are zeroed just before the
-        sessions and read just after. Every kernel of the path (the two
-        matmuls and the tier's attention) must have launched."""
+                     weight_quant: str = "int8", **kw) -> dict:
+        """Serve one weight and KV tier; the counts are zeroed just before
+        the sessions and read just after. Every kernel of the path (the
+        tier's layer matmul, the lm_head and the tier's attention) must have
+        launched, and the other tier's layer matmul no time."""
         async def measured(engine, port: int) -> dict:
-            for fn in (int8_matmul, int8_matmul_t, decode_attend,
+            for fn in (int8_matmul, int8_matmul_t, int4_matmul, decode_attend,
                        decode_attend_paged):
                 fn.launches = 0
             decode_attend.launches_int8 = 0
@@ -658,7 +742,7 @@ def main() -> int:
             out["engine"] = engine.get_stats()
             return out
 
-        served = serve_main_path(measured, **kw)
+        served = serve_main_path(measured, weight_quant=weight_quant, **kw)
         served["tok_s"] = served["tokens"] / served["wall_s"]
         log(f"{label}: served {served['sessions']} concurrent WS sessions: "
             f"{served['tokens']} tokens in {served['wall_s']:.6g} s "
@@ -673,10 +757,17 @@ def main() -> int:
         if served["tokens"] <= 0:
             fail(f"{label}: no tokens served")
         log(f"  launches on the served path: {served['launches']}")
-        for name in ("int8_matmul", "int8_matmul_t", attend):
+        layer_mm, other_mm = (("int4_matmul", "int8_matmul")
+                              if weight_quant == "int4"
+                              else ("int8_matmul", "int4_matmul"))
+        for name in (layer_mm, "int8_matmul_t", attend):
             if served["launches"][name] <= 0:
                 fail(f"{label}: kernel {name} never launched on the "
                      "served path")
+        if served["launches"][other_mm] != 0:
+            fail(f"{label}: {other_mm} launched "
+                 f"{served['launches'][other_mm]} times on the "
+                 f"{weight_quant} path")
         return served
 
     served = served_phase("phase 5 (dense bf16 KV)", "decode_attend",
@@ -691,8 +782,11 @@ def main() -> int:
     paged16 = served_phase("phase 7b (paged bf16 KV)", "decode_attend_paged",
                            SLOTS, 16, kv_layout="paged",
                            kv_block_size=BLOCK)
+    int4 = served_phase("phase 8 (WEIGHT_QUANT=int4, dense bf16 KV)",
+                        "decode_attend", SLOTS, 64, weight_quant="int4")
     launches = {"int8_matmul": served["launches"]["int8_matmul"],
                 "int8_matmul_t": served["launches"]["int8_matmul_t"],
+                "int4_matmul": int4["launches"]["int4_matmul"],
                 "decode_attend": served["launches"]["decode_attend"],
                 "decode_attend[int8]":
                     dense8["launches"]["decode_attend[int8]"],
@@ -705,6 +799,8 @@ def main() -> int:
                                "fasttalk_tpu/ops/pallas_int8.py:89"),
                "int8_matmul_t": ("fasttalk_tpu_torch/csrc/int8_matmul.cu",
                                  "fasttalk_tpu/ops/pallas_int8.py:127"),
+               "int4_matmul": ("fasttalk_tpu_torch/csrc/int4_matmul.cu",
+                               "fasttalk_tpu/ops/pallas_int8.py:242"),
                "decode_attend": (attention_src,
                                  "fasttalk_tpu/ops/pallas_attention.py:153"),
                "decode_attend[int8]": (
@@ -727,7 +823,8 @@ def main() -> int:
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
                 "wall_s": x["wall_s"], "decode_tok_s": x["tok_s"]}
         for label, x in (("dense_bf16", served), ("paged_int8", paged),
-                         ("dense_int8", dense8), ("paged_bf16", paged16))}}),
+                         ("dense_int8", dense8), ("paged_bf16", paged16),
+                         ("int4_dense_bf16", int4))}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,12 @@
 
 Counterpart of ``fasttalk_tpu/engine/factory.py::build_engine`` (:224)
 for the port's slice: resolve the model config, check weights and KV cache
-against the card's memory budget (``check_hbm_budget``, :84), load the
-checkpoint under MODEL_PATH (or random-initialise on the device when there
-is none), quantize the matmul weights and the embedding to int8 when
-WEIGHT_QUANT asks for it, load the tokenizer, and build the
-``TorchEngine`` with the KV tier settings.
+against the card's memory budget (``check_hbm_budget``, :84), restore the
+prepared-weight cache of the checkpoint under MODEL_PATH or load the
+checkpoint and write that cache (or random-initialise on the device when
+there is no checkpoint), quantize to the WEIGHT_QUANT tier (int8, or int4
+group-wise for the seven layer matmuls), load the tokenizer, and build the
+``TorchEngine`` with the weight and KV tier settings.
 """
 
 from __future__ import annotations
@@ -20,7 +21,11 @@ from fasttalk_tpu_torch.engine.tokenizer import HFTokenizer, load_tokenizer
 from fasttalk_tpu_torch.models.configs import ModelConfig, get_model_config
 from fasttalk_tpu_torch.models.loader import (find_checkpoint_dir,
                                               init_params_device, load_params)
+from fasttalk_tpu_torch.models.prepared_cache import (cache_meta,
+                                                      load_prepared,
+                                                      save_prepared)
 from fasttalk_tpu_torch.ops.kv_quant import granule_dim
+from fasttalk_tpu_torch.quantization.int4 import validate_group
 from fasttalk_tpu_torch.utils.config import Config, resolve_device
 from fasttalk_tpu_torch.utils.logger import get_logger
 
@@ -33,23 +38,38 @@ BENCH_TOKENIZER = os.path.join(
         __file__)))), "fasttalk_tpu", "assets", "bench_tokenizer.json")
 
 
-def weight_bytes(m: ModelConfig, dsize: int, int8: bool) -> int:
-    """Device bytes of the weights: int8 matmuls and embedding with f32
-    scales, or everything in the serving dtype (norm scales always are)."""
+def weight_bytes_by_tier(m: ModelConfig, dsize: int,
+                         group: int = 128) -> dict[str, int]:
+    """Device bytes of the weights for each WEIGHT_QUANT tier, the one place
+    the weight-footprint math lives (budget check, over-budget remedies,
+    tests). A copy of ``fasttalk_tpu/engine/factory.py::weight_bytes_by_tier``
+    (:29-68) on one device: norm scales stay in the serving dtype; int8
+    matmuls and the embedding carry f32 scales per output channel / row;
+    int4 packs two matmul weights a byte with one f32 scale per (group x
+    out-channel), the embedding (and an untied lm_head) staying int8."""
     norm_params = (2 * m.num_layers + 1) * m.hidden_size
-    if not int8:
-        return m.param_count() * dsize
-    matmul = m.num_layers * (m.hidden_size * m.q_dim
-                             + 2 * m.hidden_size * m.kv_dim
-                             + m.q_dim * m.hidden_size
-                             + 3 * m.hidden_size * m.intermediate_size)
-    scales = m.num_layers * (m.q_dim + 2 * m.kv_dim + 2 * m.hidden_size
-                             + 2 * m.intermediate_size)
-    tables = 1 if m.tie_embeddings else 2
-    table = tables * m.hidden_size * m.vocab_size
+    # The seven stacked layer matmuls (quantization/int4.py INT4_LEAVES).
+    matmul_per_layer = (m.hidden_size * m.q_dim
+                        + 2 * m.hidden_size * m.kv_dim
+                        + m.q_dim * m.hidden_size
+                        + 3 * m.hidden_size * m.intermediate_size)
+    scales_per_layer = (m.q_dim + 2 * m.kv_dim + m.hidden_size
+                        + 2 * m.intermediate_size + m.hidden_size)
+    matmul = m.num_layers * matmul_per_layer
+    scales8 = m.num_layers * scales_per_layer
+    table = m.hidden_size * m.vocab_size
+    tscales = m.vocab_size
+    if not m.tie_embeddings:
+        table += m.hidden_size * m.vocab_size
+        tscales += m.vocab_size
     other = m.param_count() - matmul - table - norm_params  # qkv biases
-    return (matmul + table + (scales + tables * m.vocab_size) * 4
-            + (other + norm_params) * dsize)
+    return {
+        "off": m.param_count() * dsize,
+        "int8": (matmul + table + other * dsize + (scales8 + tscales) * 4
+                 + norm_params * dsize),
+        "int4": (matmul // 2 + (matmul // group) * 4 + table + tscales * 4
+                 + other * dsize + norm_params * dsize),
+    }
 
 
 def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
@@ -57,6 +77,9 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
     """Account weights + KV cache against the card's memory before any
     allocation, so bad TPU_DECODE_SLOTS / TPU_MAX_MODEL_LEN / KV settings
     fail with a named message instead of an out-of-memory error mid-load.
+    Weights are priced at the tier that runs (``weight_bytes_by_tier``);
+    the over-budget remedies name WEIGHT_QUANT=int4 and print every tier's
+    weight bytes, as ``fasttalk_tpu/engine/factory.py`` :186-215 does.
 
     KV rows cost int8 bytes plus f32 scales on the int8 tier. The paged
     tier is priced by pool blocks; ``KV_POOL_BLOCKS=0`` asks for the
@@ -69,7 +92,8 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
     else:
         row = 2 * m.num_kv_heads * m.head_dim * dsize
     row *= m.num_layers  # one token's K/V rows over all layers
-    wbytes = weight_bytes(m, dsize, cfg.weight_quant == "int8")
+    tiers = weight_bytes_by_tier(m, dsize, cfg.weight_quant_group)
+    wbytes = tiers[cfg.weight_quant]
     dense_rows = cfg.decode_slots * cfg.max_model_len
     paged = cfg.kv_layout == "paged"
     bs = cfg.kv_block_size
@@ -99,11 +123,17 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
         acct["kv_cache_bytes"] = kv = pool_blocks * block_bytes
     need = wbytes + kv
     if need > budget:
+        tier_math = (f"Weight bytes by tier (WEIGHT_QUANT={cfg.weight_quant}"
+                     f"): off(bf16)={tiers['off'] / 2**30:.2f} GiB, "
+                     f"int8={tiers['int8'] / 2**30:.2f} GiB, "
+                     f"int4+scales={tiers['int4'] / 2**30:.2f} GiB "
+                     f"(group={cfg.weight_quant_group}).")
         if paged:
             remedy = (f"Lower KV_POOL_BLOCKS ({pool_blocks}; 0 = fit to the "
                       f"budget), KV_BLOCK_SIZE ({bs}) or TPU_MAX_MODEL_LEN "
-                      f"({cfg.max_model_len}); enable KV_QUANT=int8 or "
-                      "WEIGHT_QUANT=int8; or raise TPU_HBM_UTILIZATION.")
+                      f"({cfg.max_model_len}); enable WEIGHT_QUANT=int4 / "
+                      "KV_QUANT=int8; or raise TPU_HBM_UTILIZATION. "
+                      + tier_math)
         else:
             remedy = (f"The dense layout preallocates every slot at its "
                       f"whole context: TPU_DECODE_SLOTS={cfg.decode_slots} x "
@@ -111,9 +141,10 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
                       f"KV rows ({dense_rows // bs} blocks of {bs} tokens), "
                       f"but the budget holds only {fit_blocks} blocks after "
                       "the weights. Set KV_LAYOUT=paged to admit by blocks in "
-                      f"use (KV_BLOCK_SIZE={bs}), enable KV_QUANT=int8 or "
-                      "WEIGHT_QUANT=int8, lower TPU_DECODE_SLOTS / "
-                      "TPU_MAX_MODEL_LEN, or raise TPU_HBM_UTILIZATION.")
+                      f"use (KV_BLOCK_SIZE={bs}), enable WEIGHT_QUANT=int4 "
+                      "(or int8) / KV_QUANT=int8, lower TPU_DECODE_SLOTS / "
+                      "TPU_MAX_MODEL_LEN, or raise TPU_HBM_UTILIZATION. "
+                      + tier_math)
         raise ValueError(
             f"Model + KV cache need {need / 2**30:.2f} GiB but the memory "
             f"budget is {budget / 2**30:.2f} GiB ({limit / 2**30:.2f} GiB x "
@@ -126,17 +157,35 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
     dev = resolve_device(device)
     model_cfg = get_model_config(cfg.model_name, cfg.model_path)
     dtype = cfg.torch_dtype
-    int8 = cfg.weight_quant == "int8"
+    tier, group = cfg.weight_quant, cfg.weight_quant_group
+    if tier == "int4":
+        validate_group(model_cfg, group)
     acct = check_hbm_budget(model_cfg, cfg, torch.finfo(dtype).bits // 8, dev)
     ckpt = find_checkpoint_dir(cfg.model_path, model_cfg.name) \
         if cfg.model_path else None
     if ckpt:
-        params = load_params(model_cfg, ckpt, dtype, dev, quantize=int8)
+        params = load_prepared(model_cfg, cfg.model_path, dtype, tier, ckpt,
+                               group=group, device=dev)
+        if params is None:
+            params = load_params(model_cfg, ckpt, dtype, dev, quantize=tier,
+                                 weight_quant_group=group)
+            if tier == "int4":
+                log.info(f"Quantized layer matmuls to int4 (group-wise "
+                         f"symmetric, group={group}, data-free scales; "
+                         "`python -m fasttalk_tpu_torch quantize` writes "
+                         "AWQ-calibrated scales into the prepared cache "
+                         "this load path reads)")
+            # The next start restores the engine-ready weights; an AWQ
+            # cache written by the quantize command has the same meta and
+            # wins by already existing.
+            save_prepared(params, cfg.model_path,
+                          cache_meta(model_cfg, dtype, tier, ckpt,
+                                     group=group))
     else:
         log.warning(f"No checkpoint for {model_cfg.name!r} under "
                     f"{cfg.model_path!r}; using random-initialised weights")
-        params = init_params_device(model_cfg, dtype, dev, quantize=int8,
-                                    seed=seed)
+        params = init_params_device(model_cfg, dtype, dev, quantize=tier,
+                                    seed=seed, weight_quant_group=group)
     tokenizer = load_tokenizer(cfg.model_path, cfg.model_name,
                                template=model_cfg.chat_template)
     if not ckpt and getattr(tokenizer, "vocab_size", 0) <= 512 \
@@ -151,7 +200,8 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
              f"({model_cfg.param_count() / 1e9:.2f}B params, weights "
              f"{'loaded' if ckpt else 'random-init'}), device={dev}, "
              f"slots={cfg.decode_slots}, max_len={cfg.max_model_len}, "
-             f"dtype={cfg.dtype}, weight_quant={cfg.weight_quant}, "
+             f"dtype={cfg.dtype}, weight_quant={tier}"
+             + (f" (group {group})" if tier == "int4" else "") + ", "
              f"kv_layout={cfg.kv_layout}, kv_quant={cfg.kv_quant}, "
              f"kv_cache={acct['kv_cache_bytes'] / 2**30:.3f} GiB")
     return TorchEngine(
@@ -161,6 +211,7 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         context_window=min(cfg.default_context_window, cfg.max_model_len),
         steps_per_call=cfg.decode_steps_per_call,
         pipeline_depth=cfg.pipeline_depth,
+        weight_quant=tier, weight_quant_group=group,
         kv_quant=cfg.kv_quant, kv_quant_granule=cfg.kv_quant_granule,
         kv_layout=cfg.kv_layout, kv_block_size=cfg.kv_block_size,
         kv_pool_blocks=acct["kv_pool_blocks"],

@@ -4,7 +4,13 @@ JAX package's parameter pytree, all into the stacked parameter dict.
 Counterpart of ``fasttalk_tpu/models/loader.py``. The dict has the JAX
 layout leaf for leaf: ``embed`` [V, D], ``final_norm`` [D], ``layers``
 with [L, in, out] matmul weights (HF Linear stores [out, in], so they are
-transposed on load), and int8 leaves ``{"q", "s"}`` after quantization.
+transposed on load), and int8 leaves ``{"q", "s"}`` or int4 leaves
+``{"q4", "s"}`` (the seven layer matmuls; quantization/int4.py) after
+quantization.
+
+``quantize`` takes the WEIGHT_QUANT tier, "none"/"off" | "int8" | "int4",
+or the legacy ``True``/``False`` (int8/none), as the JAX loader does
+(``fasttalk_tpu/models/loader.py`` :166-168).
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.models.llama import Params
 from fasttalk_tpu_torch.ops.quant import (QUANTIZED_LEAVES, quantize_math_out,
                                           quantize_math_row)
+from fasttalk_tpu_torch.quantization.int4 import (INT4_LEAVES, pack_int4,
+                                                  quantize_math_group,
+                                                  quantizing_put_int4)
 from fasttalk_tpu_torch.utils.logger import get_logger
 
 log = get_logger("models.loader")
@@ -42,6 +51,17 @@ _BIAS_MAP = {
     "model.layers.{i}.self_attn.k_proj.bias": ("bk", False),
     "model.layers.{i}.self_attn.v_proj.bias": ("bv", False),
 }
+
+
+def weight_tier(quantize: bool | str) -> str:
+    """The tier of a ``quantize`` argument: "none" | "int8" | "int4"."""
+    tier = quantize if isinstance(quantize, str) else (
+        "int8" if quantize else "none")
+    tier = {"off": "none", "": "none"}.get(tier, tier)
+    if tier not in ("none", "int8", "int4"):
+        raise ValueError(f"weight tier must be none|off|int8|int4, "
+                         f"got {quantize!r}")
+    return tier
 
 
 def find_checkpoint_dir(model_path: str, model_name: str) -> str | None:
@@ -82,13 +102,20 @@ def _tensor_files(ckpt_dir: str) -> dict[str, str]:
 def load_params(cfg: ModelConfig, ckpt_dir: str,
                 dtype: torch.dtype = torch.bfloat16,
                 device: torch.device | str = "cuda",
-                quantize: bool = False) -> Params:
+                quantize: bool | str = False,
+                weight_quant_group: int = 128) -> Params:
     """Load a HF Llama checkpoint into the stacked dict on ``device``.
 
-    Tensors are read as float32; with ``quantize`` the matmul weights and
-    the embedding become int8 on the host, tensor by tensor, before they
-    are placed (the device never holds their full-precision copy)."""
+    Tensors are read as float32; a quantized tier converts the matmul
+    weights and the embedding on the host, tensor by tensor, before they
+    are placed (the device never holds their full-precision copy): int8
+    per output channel, or for "int4" the seven layer matmuls group-wise
+    (``weight_quant_group`` rows per scale) with the embedding and lm_head
+    in int8."""
     from safetensors import safe_open
+
+    tier = weight_tier(quantize)
+    quantize = tier != "none"
 
     name_to_file = _tensor_files(ckpt_dir)
     handles: dict[str, Any] = {}
@@ -108,6 +135,10 @@ def load_params(cfg: ModelConfig, ckpt_dir: str,
             q, s = quantize_math_row(t)
             return {"q": q.to(device), "s": s.to(device)}
         return t.to(dtype).to(device)
+
+    if tier == "int4":
+        put = quantizing_put_int4(put, lambda t: t.to(device),
+                                  weight_quant_group)
 
     params: Params = {
         "embed": put(get("model.embed_tokens.weight"), "embed"),
@@ -148,13 +179,20 @@ def _leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 
 def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                        device: torch.device | str = "cuda",
-                       quantize: bool = True, seed: int = 0,
-                       rows_per_chunk: int = 16384) -> Params:
+                       quantize: bool | str = True, seed: int = 0,
+                       rows_per_chunk: int = 16384,
+                       weight_quant_group: int = 128) -> Params:
     """Architecture-faithful random init generated on ``device``, one layer
-    (or one block of embedding rows) at a time: with ``quantize`` each f32
-    slice becomes int8 before the next is drawn, so neither an f32 nor a
-    bf16 copy of the whole model ever exists. Each leaf draws from its own
-    generator seeded by ``seed`` and a CRC of its name."""
+    (or one block of embedding rows) at a time: with a quantized tier each
+    f32 slice becomes int8 (or, for "int4", the seven layer matmuls become
+    nibble-packed groups of ``weight_quant_group`` rows) before the next is
+    drawn, so neither an f32 nor a bf16 copy of the whole model ever
+    exists. Each leaf draws from its own generator seeded by ``seed`` and a
+    CRC of its name; the f32 slices are the same whatever the tier."""
+    tier = weight_tier(quantize)
+    quantize = tier != "none"
+    group = int(weight_quant_group)
+
     def gen(name: str) -> torch.Generator:
         g = torch.Generator(device=device)
         g.manual_seed(seed * 1_000_003 + (zlib.crc32(name.encode())
@@ -170,7 +208,17 @@ def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
             continue
         g = gen(f"layers/{name}")
         scale = shape[-2] ** -0.5
-        if quantize:
+        if tier == "int4" and name in INT4_LEAVES:
+            q4 = torch.empty((n, shape[1] // 2, shape[2]), dtype=torch.uint8,
+                             device=device)
+            s = torch.empty((n, shape[1] // group, shape[2]),
+                            dtype=torch.float32, device=device)
+            for i in range(n):
+                sl = torch.randn(shape[1:], generator=g, device=device) * scale
+                q, s[i] = quantize_math_group(sl, group)
+                q4[i] = pack_int4(q)
+            params["layers"][name] = {"q4": q4, "s": s}
+        elif quantize:
             q = torch.empty(shape, dtype=torch.int8, device=device)
             s = torch.empty((n, shape[-1]), dtype=torch.float32, device=device)
             for i in range(n):
@@ -211,7 +259,7 @@ def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
         else:
             params["lm_head"] = head.to(dtype)
     log.info(f"Random-initialised {cfg.name} on {device} "
-             f"({'int8' if quantize else dtype})")
+             f"({tier if quantize else dtype})")
     return params
 
 
@@ -226,7 +274,8 @@ def _to_torch(a: Any, device: torch.device | str) -> torch.Tensor:
 def from_jax_params(tree: Any, device: torch.device | str = "cuda") -> Any:
     """The JAX package's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's dict, leaf for
-    leaf and bit for bit: same names, shapes, dtypes and values."""
+    leaf and bit for bit: same names, shapes, dtypes and values (int4
+    ``q4`` leaves stay ``torch.uint8``)."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
     return _to_torch(tree, device)

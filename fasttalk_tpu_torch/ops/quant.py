@@ -6,9 +6,13 @@ leaf is the dict ``{"q": int8[..., in, out], "s": float32[..., out]}``
 (``{"q": int8[V, D], "s": float32[V]}``) because its rows are both the
 gathered input embeddings and the output channels of the tied lm_head;
 an untied lm_head is stored transposed, ``{"qt": int8[V, D], "s": [V]}``.
+The int4 tier's leaves ``{"q4": uint8[..., in/2, out], "s": f32[...,
+in/G, out]}`` (fasttalk_tpu_torch/quantization/int4.py) take the seven
+layer matmuls.
 
 Decode (T=1) matmuls on a CUDA tensor run the hand-written kernels of
-``ops/cuda_int8.py``; prefill (T>1) stays ``(x @ q.to(x.dtype)) * s`` via
+``ops/cuda_int8.py`` and ``ops/cuda_int4.py``; prefill (T>1) stays
+``(x @ q.to(x.dtype)) * s`` (int8) or the dequantized product (int4) via
 ``torch.matmul``, as the JAX package leaves it to XLA.
 """
 
@@ -18,7 +22,9 @@ from typing import Any
 
 import torch
 
+from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul
 from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
+from fasttalk_tpu_torch.quantization.int4 import unpack_int4
 
 # Matmul weights quantized per OUTPUT channel (scale over the contraction
 # axis). Norms/biases stay in the activation dtype.
@@ -50,6 +56,19 @@ def _quantize_stacked(w: torch.Tensor) -> dict[str, torch.Tensor]:
     return {"q": q, "s": s}
 
 
+def quantize_embed(w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Per-row int8 for the embedding table [V, D]."""
+    q, s = quantize_math_row(w.to(torch.float32))
+    return {"q": q, "s": s}
+
+
+def quantize_head_t(w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The untied lm_head [D, V], stored transposed: ``{"qt": int8[V, D],
+    "s": f32[V]}`` (the layout ``int8_matmul_t`` streams)."""
+    qt, s = quantize_math_row(w.T.to(torch.float32))
+    return {"qt": qt.contiguous(), "s": s}
+
+
 def quantize_params(params: dict) -> dict:
     """Quantize the matmul weights of a param dict (leaf by leaf; the
     input leaves are dropped from the returned dict)."""
@@ -59,16 +78,21 @@ def quantize_params(params: dict) -> dict:
         if name in QUANTIZED_LEAVES:
             out["layers"][name] = _quantize_stacked(out["layers"][name])
     if "lm_head" in out:
-        qt, s = quantize_math_row(out["lm_head"].T.to(torch.float32))
-        out["lm_head"] = {"qt": qt, "s": s}
-    q, s = quantize_math_row(out["embed"].to(torch.float32))
-    out["embed"] = {"q": q, "s": s}
+        out["lm_head"] = quantize_head_t(out["lm_head"])
+    out["embed"] = quantize_embed(out["embed"])
     return out
 
 
 def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """``x @ w`` for a plain or int8 weight leaf; x is [B, T, in]."""
+    """``x @ w`` for a plain, int8 or int4 weight leaf; x is [B, T, in]."""
     if isinstance(w, dict):
+        if "q4" in w:
+            if x.is_cuda and x.dim() == 3 and x.shape[1] == 1:
+                return int4_matmul(x[:, 0].contiguous(), w["q4"],
+                                   w["s"])[:, None]
+            group = (2 * w["q4"].shape[-2]) // w["s"].shape[-2]
+            wd = unpack_int4(w["q4"]).to(x.dtype)
+            return x @ (wd * w["s"].to(x.dtype).repeat_interleave(group, -2))
         if "qt" in w:
             if x.dim() == 3 and x.shape[1] == 1:
                 return int8_matmul_t(x[:, 0], w["qt"], w["s"])[:, None]

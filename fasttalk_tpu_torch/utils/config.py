@@ -3,10 +3,18 @@
 The subset of ``fasttalk_tpu/utils/config.py`` that the WebSocket serving
 path reads, under the same environment names, defaults and validation
 (the KV tiers: ``fasttalk_tpu/utils/config.py`` :535-589, :1083-1141).
+The weight tiers (``WEIGHT_QUANT`` off|int8|int4 and its legacy alias
+``TPU_QUANTIZE``, ``WEIGHT_QUANT_GROUP``, ``WEIGHT_QUANT_CALIB``,
+``TPU_USE_PALLAS_INT4``) resolve and fail as in
+``fasttalk_tpu/utils/config.py`` :337-358, :818-829, :931-965.
+``TPU_USE_PALLAS_INT4`` is validated for parity and selects nothing: on
+the port the hand-written ``int4_matmul`` kernel is the int4 decode path
+on the card, as ``decode_attend`` is the decode attention path whatever
+``TPU_USE_PALLAS_ATTENTION`` says in the JAX package.
 Features of the JAX package that the port does not carry yet (speculative
-decoding, host KV offload, the radix cache, structured decoding, int4
-weights, a device mesh) are rejected with a named error when their
-variable asks for them; they are never silently ignored.
+decoding, host KV offload, the radix cache, structured decoding, a device
+mesh) are rejected with a named error when their variable asks for them;
+they are never silently ignored.
 
 The device is not configuration: it is an argument of the entry points
 (``resolve_device``), ``cuda`` unless the caller asks for the CPU.
@@ -82,10 +90,29 @@ class Config:
         default_factory=lambda: _env_int("TPU_DECODE_STEPS", 32))
     pipeline_depth: int = field(
         default_factory=lambda: _env_int("TPU_PIPELINE_DEPTH", 2))
-    # WEIGHT_QUANT wins; TPU_QUANTIZE is its legacy alias.
-    weight_quant: str = field(default_factory=lambda: _env_str(
-        "WEIGHT_QUANT", {"none": "off"}.get(_env_str("TPU_QUANTIZE", "none"),
-                                           _env_str("TPU_QUANTIZE", "none"))))
+    # Legacy weight-tier knob: "none" | "int8" | "int4". WEIGHT_QUANT is the
+    # name to use; TPU_QUANTIZE is its alias.
+    quantize: str = field(default_factory=lambda: _env_str("TPU_QUANTIZE", "none"))
+    # Serving weight tier: "" (unset: taken from TPU_QUANTIZE) | "off" |
+    # "int8" | "int4" (group-wise symmetric 4-bit, nibble-packed, for the
+    # seven layer matmuls; the embedding and lm_head stay per-row int8).
+    weight_quant: str = field(default_factory=lambda: _env_str("WEIGHT_QUANT", ""))
+    # Contraction rows sharing one int4 scale: even (a nibble pair never
+    # straddles a group); that it divides the model's matmul dims is checked
+    # at engine build (quantization/int4.py validate_group).
+    weight_quant_group: int = field(
+        default_factory=lambda: _env_int("WEIGHT_QUANT_GROUP", 128))
+    # AWQ calibration source of ``python -m fasttalk_tpu_torch quantize``:
+    # "" (data-free), "corpus" (the tinychat training corpus) or a text file
+    # with one document per line. Serving never calibrates inline; it
+    # restores the prepared cache that the quantize command writes.
+    weight_quant_calib: str = field(
+        default_factory=lambda: _env_str("WEIGHT_QUANT_CALIB", ""))
+    # Validated as in the JAX package (it requires WEIGHT_QUANT=int4) and
+    # selects nothing: on the port the hand-written int4_matmul kernel is
+    # the int4 decode path on the card, as decode_attend is for attention.
+    use_pallas_int4: bool = field(
+        default_factory=lambda: _env_bool("TPU_USE_PALLAS_INT4", False))
     dtype: str = field(default_factory=lambda: _env_str("TPU_DTYPE", "bfloat16"))
     host: str = field(default_factory=lambda: _env_str("LLM_HOST", "0.0.0.0"))
     port: int = field(default_factory=lambda: _env_int("LLM_PORT", 8000))
@@ -134,6 +161,16 @@ class Config:
         default_factory=lambda: _env_int("KV_RESERVE_TOKENS", 128))
 
     def __post_init__(self) -> None:
+        # WEIGHT_QUANT unset: take the legacy TPU_QUANTIZE tier; set: it is
+        # authoritative and the legacy field is brought into agreement. Two
+        # different tiers are a named error below, never a silent precedence
+        # (fasttalk_tpu/utils/config.py :818-829, :931-937).
+        if not self.weight_quant:
+            self.weight_quant = {"none": "off"}.get(self.quantize, self.quantize)
+        elif self.quantize == "none" \
+                and self.weight_quant in ("off", "int8", "int4"):
+            self.quantize = {"off": "none"}.get(self.weight_quant,
+                                                self.weight_quant)
         errs: list[str] = []
         for name, off_values, what in _OUT_OF_SLICE:
             raw = os.getenv(name, "").strip().lower()
@@ -150,10 +187,34 @@ class Config:
             if _env_int(name, 1) != 1:
                 errs.append(f"{name}>1 asks for a device mesh: not "
                             "implemented yet in fasttalk_tpu_torch")
-        if self.weight_quant not in ("off", "int8"):
-            errs.append(f"WEIGHT_QUANT must be off|int8 in fasttalk_tpu_torch "
-                        f"(int4: not implemented yet), got "
-                        f"{self.weight_quant!r}")
+        if self.quantize not in ("none", "int8", "int4"):
+            errs.append("quantize must be 'none', 'int8' or 'int4'")
+        if self.weight_quant not in ("off", "int8", "int4"):
+            errs.append(f"WEIGHT_QUANT must be off|int8|int4, "
+                        f"got {self.weight_quant!r}")
+        elif self.quantize in ("none", "int8", "int4") \
+                and {"off": "none"}.get(self.weight_quant,
+                                        self.weight_quant) != self.quantize:
+            errs.append(
+                f"WEIGHT_QUANT={self.weight_quant} conflicts with "
+                f"legacy TPU_QUANTIZE={self.quantize}; set only "
+                f"WEIGHT_QUANT (TPU_QUANTIZE is its alias)")
+        if self.weight_quant_group < 2 or self.weight_quant_group % 2:
+            errs.append(
+                f"WEIGHT_QUANT_GROUP must be an even integer >= 2 (int4 "
+                f"packs adjacent rows into one byte, so a scale group "
+                f"must never split a nibble pair), got "
+                f"{self.weight_quant_group}")
+        if self.weight_quant_calib and self.weight_quant_calib != "corpus" \
+                and not os.path.isfile(self.weight_quant_calib):
+            errs.append(
+                f"WEIGHT_QUANT_CALIB must be '' (data-free), 'corpus', "
+                f"or a readable prompt file (one per line); no file at "
+                f"{self.weight_quant_calib!r}")
+        if self.use_pallas_int4 and self.weight_quant != "int4":
+            errs.append(
+                "TPU_USE_PALLAS_INT4=true requires WEIGHT_QUANT=int4 "
+                "(the kernel reads nibble-packed {'q4','s'} leaves)")
         if self.dtype not in ("bfloat16", "float32", "float16"):
             errs.append(f"TPU_DTYPE must be bfloat16|float32|float16, "
                         f"got {self.dtype!r}")

@@ -4,11 +4,12 @@ one CUDA GPU.
 
     python3 scripts/torch_serving_profile.py [--sessions 16] [--max-tokens 64]
         [--table PATH] [--kv-layout dense|paged] [--kv-quant none|int8]
-        [--max-len 2048] [--pool-blocks 0]
+        [--max-len 2048] [--pool-blocks 0] [--weight-quant int8|int4]
 
 Serves the main path through ``chip_smoke.serve_main_path`` (llama3.2:1b
-at full width, int8 random weights, 16 slots, max_len 2048, prefill chunk
-512, dense bf16 KV unless the KV options say otherwise; one warm-up
+at full width, int8 random weights (int4, group 128, with ``--weight-quant
+int4``), 16 slots, max_len 2048, prefill chunk 512, dense bf16 KV unless
+the KV options say otherwise; one warm-up
 session) and drives ``--sessions`` concurrent WebSocket sessions under
 ``torch.profiler``. Prints:
 
@@ -47,6 +48,8 @@ def main() -> int:
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--pool-blocks", type=int, default=0,
                     help="KV_POOL_BLOCKS of the paged layout (0 = fit)")
+    ap.add_argument("--weight-quant", default="int8", choices=("int8", "int4"),
+                    help="WEIGHT_QUANT of the served weights")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -72,7 +75,8 @@ def main() -> int:
         return out, prof
 
     served, prof = serve_main_path(
-        profiled, max_len=args.max_len, kv_layout=args.kv_layout,
+        profiled, max_len=args.max_len, weight_quant=args.weight_quant,
+        kv_layout=args.kv_layout,
         kv_quant=args.kv_quant, kv_pool_blocks=args.pool_blocks)
     print(f"sessions={served['sessions']} tokens={served['tokens']} "
           f"wall_s={served['wall_s']} decode_tok_s="

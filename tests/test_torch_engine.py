@@ -408,6 +408,11 @@ def test_importing_the_port_loads_no_jax_module():
         "import fasttalk_tpu_torch, fasttalk_tpu_torch.__main__\n"
         "import fasttalk_tpu_torch.engine.factory\n"
         "import fasttalk_tpu_torch.serving.server\n"
+        "import fasttalk_tpu_torch.quantization\n"
+        "import fasttalk_tpu_torch.quantization.awq\n"
+        "import fasttalk_tpu_torch.models.prepared_cache\n"
+        "import fasttalk_tpu_torch.training.corpus\n"
+        "import fasttalk_tpu_torch.ops.cuda_int4\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -448,7 +453,7 @@ def _default_device_engine():
     {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true"},
     {"KV_HOST_BUDGET_MB": "64"},
     {"KV_RADIX_ENABLED": "true"}, {"STRUCTURED_MODE": "on"},
-    {"TPU_TP_SIZE": "2"}, {"WEIGHT_QUANT": "int4"}])
+    {"TPU_TP_SIZE": "2"}, {"WEIGHT_QUANT": "int4", "TPU_TP_SIZE": "2"}])
 def test_config_rejects_features_outside_the_slice(monkeypatch, env):
     from fasttalk_tpu_torch.utils.config import Config
 

@@ -7,8 +7,9 @@ fixture skips them. On a machine with the card run
 
 Tolerances: kernel and plain version both accumulate in f32 and cast to
 bf16 once, so they differ by summation order plus at most one bf16
-rounding step of the output. The matmuls are held to 1% of the output's
-largest magnitude. ``decode_attend`` and ``decode_attend_paged`` (bf16 and
+rounding step of the output. The matmuls (``int8_matmul``,
+``int8_matmul_t``, ``int4_matmul``) are held to 1% of the output's largest
+magnitude. ``decode_attend`` and ``decode_attend_paged`` (bf16 and
 int8 rows) are held slot by slot, to 1% of each slot's own largest output
 (``chip_smoke.attend_slot_gaps``, the criterion the card run uses); the CPU
 tests below show that this criterion catches one key too many or too few
@@ -26,6 +27,7 @@ from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
                                                    decode_attend_paged,
                                                    decode_attend_paged_plain,
                                                    decode_attend_plain)
+from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul, int4_matmul_plain
 from fasttalk_tpu_torch.ops.cuda_int8 import (int8_matmul, int8_matmul_plain,
                                               int8_matmul_t,
                                               int8_matmul_t_plain)
@@ -91,6 +93,54 @@ def test_int8_matmul_t_matches_plain(cuda, m, v, d):
     before = int8_matmul_t.launches
     _close(int8_matmul_t(x, q, s), int8_matmul_t_plain(x, q, s))
     assert int8_matmul_t.launches == before + 1
+
+
+def _int4_case(m, k, n, group, gen, device):
+    q4 = torch.randint(0, 256, (k // 2, n), generator=gen, device=device,
+                       dtype=torch.uint8)
+    s = torch.rand((k // group, n), generator=gen, device=device) * 0.02 + 1e-3
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    return x, q4, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,group", [
+    (16, 2048, 2048, 128), (16, 2048, 512, 128), (16, 2048, 8192, 128),
+    (16, 8192, 2048, 128), (1, 2048, 512, 128), (16, 2048, 512, 64),
+    (5, 256, 258, 64), (40, 192, 1024, 64), (3, 96, 7, 2)])
+def test_int4_matmul_matches_plain(cuda, m, k, n, group):
+    """The four Llama-3.2-1B decode shapes at G = 128, G = 64, and ragged
+    shapes: N % 4 != 0, M over one 16-row tile, small K and G."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n + group)
+    x, q4, s = _int4_case(m, k, n, group, g, cuda)
+    before = int4_matmul.launches
+    _close(int4_matmul(x, q4, s), int4_matmul_plain(x, q4, s))
+    assert int4_matmul.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_int4_matmul_gives_the_same_bits_on_every_call(cuda):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x, q4, s = _int4_case(16, 2048, 8192, 128, g, cuda)
+    first = int4_matmul(x, q4, s)
+    for _ in range(5):
+        assert torch.equal(int4_matmul(x, q4, s), first)
+
+
+@pytest.mark.gpu
+def test_int4_matmul_refuses_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(19)
+    x, q4, s = _int4_case(4, 256, 64, 64, g, cuda)
+    with pytest.raises(ValueError, match="K must be even"):
+        int4_matmul(x[:, :255].contiguous(), q4, s)
+    with pytest.raises(ValueError, match="do not split"):
+        int4_matmul(x, q4, s[:3].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        int4_matmul(x.float(), q4, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        int4_matmul(x, q4.cpu(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(x, q4.T.contiguous().T, s)
 
 
 @pytest.mark.gpu
@@ -280,6 +330,24 @@ def test_cpu_tensors_take_the_plain_version():
     assert counts == (int8_matmul.launches, int8_matmul_t.launches,
                       decode_attend.launches)
     assert decode_attend_paged.launches == 0
+
+
+def test_int4_matmul_on_the_cpu_is_its_plain_version():
+    """A CPU tensor computes the plain version and launches nothing; the
+    shape checks run before the device dispatch (odd K, groups that do not
+    split K evenly)."""
+    g = torch.Generator().manual_seed(1)
+    x, q4, s = _int4_case(3, 128, 40, 32, g, "cpu")
+    before = int4_matmul.launches
+    torch.testing.assert_close(int4_matmul(x, q4, s),
+                               int4_matmul_plain(x, q4, s), rtol=0, atol=0)
+    assert int4_matmul.launches == before
+    with pytest.raises(ValueError, match="K must be even"):
+        int4_matmul(x[:, :127], q4, s)
+    with pytest.raises(ValueError, match="do not split"):
+        int4_matmul(x, q4, s[:3])
+    with pytest.raises(ValueError, match="do not split"):
+        int4_matmul(x[:, :126], q4[:63], s[:2])
 
 
 @pytest.mark.parametrize("t", [1, 4])

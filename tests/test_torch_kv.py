@@ -155,17 +155,18 @@ def test_memory_budget_names_the_kv_remedies(monkeypatch):
     over budget names KV_LAYOUT=paged and KV_QUANT=int8; KV_POOL_BLOCKS=0
     shrinks the pool to what the budget holds; weights are accounted as
     the JAX package accounts them. On the CPU the budget is skipped."""
-    from fasttalk_tpu.engine.factory import weight_bytes_by_tier
+    from fasttalk_tpu.engine.factory import \
+        weight_bytes_by_tier as jax_weight_bytes_by_tier
     from fasttalk_tpu.models.configs import get_model_config as jax_cfg
     from fasttalk_tpu_torch.engine.factory import (check_hbm_budget,
-                                                   weight_bytes)
+                                                   weight_bytes_by_tier)
     from fasttalk_tpu_torch.models.configs import get_model_config
     from fasttalk_tpu_torch.utils.config import Config
 
     m = get_model_config("llama3.2:1b")
-    tiers = weight_bytes_by_tier(jax_cfg("llama3.2:1b"), 2)
-    assert weight_bytes(m, 2, False) == tiers["off"]
-    assert weight_bytes(m, 2, True) == tiers["int8"]
+    tiers = jax_weight_bytes_by_tier(jax_cfg("llama3.2:1b"), 2)
+    assert weight_bytes_by_tier(m, 2)["off"] == tiers["off"]
+    assert weight_bytes_by_tier(m, 2)["int8"] == tiers["int8"]
     cpu = torch.device("cpu")
     acct = check_hbm_budget(m, Config(), 2, cpu)
     assert acct["limit_bytes"] is None
@@ -179,8 +180,9 @@ def test_memory_budget_names_the_kv_remedies(monkeypatch):
     assert "KV_QUANT=int8" in str(err.value)
     acct = check_hbm_budget(m, Config(**big, kv_layout="paged"), 2, card)
     row = 2 * m.num_kv_heads * m.head_dim * 2 * m.num_layers
-    assert acct["kv_pool_blocks"] == int((12 * gib * 0.9 - weight_bytes(
-        m, 2, True)) // (16 * row))
+    wbytes = weight_bytes_by_tier(m, 2)["int8"]
+    assert acct["kv_pool_blocks"] == int((12 * gib * 0.9 - wbytes)
+                                         // (16 * row))
     with pytest.raises(ValueError, match="Lower KV_POOL_BLOCKS"):
         check_hbm_budget(m, Config(**big, kv_layout="paged",
                                    kv_pool_blocks=10 ** 6), 2, card)
