@@ -147,14 +147,17 @@ def check_int4_matmul(results: dict) -> None:
     worst = 0.0
     for (k, n), per_layer in LAYER_MATMULS.items():
         groups = k // INT4_GROUP
-        n_cp = copies_for(k * n // 2)
+        # Each copy has its own scales, as each layer of a decode step does,
+        # so neither the packed weights nor the scales stay in L2.
+        n_cp = copies_for(k * n // 2 + 4 * groups * n)
         q4s = [torch.randint(0, 256, (k // 2, n), generator=g, device=dev,
                              dtype=torch.uint8) for _ in range(n_cp)]
-        s = torch.rand((groups, n), generator=g, device=dev) * 0.02 + 1e-3
+        ss = [torch.rand((groups, n), generator=g, device=dev) * 0.02 + 1e-3
+              for _ in range(n_cp)]
         for m in (SLOTS, 1):
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-            got = int4_matmul(x, q4s[0], s).float()
-            ref = int4_matmul_plain(x, q4s[0], s).float()
+            got = int4_matmul(x, q4s[0], ss[0]).float()
+            ref = int4_matmul_plain(x, q4s[0], ss[0]).float()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             tol = 1e-2 * ref.abs().max().item()
@@ -164,14 +167,15 @@ def check_int4_matmul(results: dict) -> None:
                 fail(f"int4_matmul disagrees with its plain version at "
                      f"M={m} K={k} N={n}: {err} > {tol}")
             worst = max(worst, err)
-            ms = time_ms(lambda i: int4_matmul(x, q4s[i % n_cp], s), 50)
-            plain = time_ms(lambda i: int4_matmul_plain(x, q4s[i % n_cp], s),
-                            10)
-            sx = s.to(torch.bfloat16).float().repeat_interleave(INT4_GROUP, 0)
-            ws = [(unpack_int4(q).float() * sx).to(torch.bfloat16)
-                  for q in q4s[:max(1, n_cp // 4)]]
+            ms = time_ms(lambda i: int4_matmul(x, q4s[i % n_cp],
+                                               ss[i % n_cp]), 50)
+            plain = time_ms(lambda i: int4_matmul_plain(x, q4s[i % n_cp],
+                                                        ss[i % n_cp]), 10)
+            ws = [(unpack_int4(q).float() * s.to(torch.bfloat16).float()
+                   .repeat_interleave(INT4_GROUP, 0)).to(torch.bfloat16)
+                  for q, s in zip(q4s[:max(1, n_cp // 4)], ss)]
             lib = time_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 50)
-            del ws, sx
+            del ws
             nbytes = k * n // 2 + 4 * groups * n + 2 * m * k + 2 * m * n
             ops = 2 * m * k * n
             b_ms, by = bound(nbytes, ops)
@@ -183,7 +187,7 @@ def check_int4_matmul(results: dict) -> None:
                                  ("library_ms", lib), ("bytes", nbytes),
                                  ("ops", ops)):
                     step[key] += calls * val
-        del q4s
+        del q4s, ss
     b_ms, by = bound(step["bytes"], step["ops"])
     results["int4_matmul"] = {
         "max_abs_err": worst, "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -542,11 +546,14 @@ def check_tinychat(weight_quant: str = "int8", **kv) -> None:
     from fasttalk_tpu_torch.engine.factory import build_engine
     from fasttalk_tpu_torch.utils.config import Config
 
+    # The checkpoint goes through the loader and its quantization on every
+    # run: a prepared cache (one left by the quantize command included)
+    # would stand in for the load path under check.
     engine = build_engine(Config(model_name="tinychat", model_path=ASSETS,
                                  weight_quant=weight_quant, decode_slots=4,
                                  max_model_len=512,
                                  default_context_window=512, **kv),
-                          device="cuda")
+                          device="cuda", prepared_cache=False)
     engine.start()
     try:
         async def run():

@@ -9,8 +9,9 @@ the WebSocket protocol on ``/ws/llm`` until interrupted.
 fasttalk_tpu/assets [--group 128] [--calib corpus|FILE] [--calib-samples 16]
 [--seq-len 256] [--dtype bfloat16] [--data-free] [--seed 0] [--device
 cuda|cpu]`` quantizes a float checkpoint to the int4 tier, AWQ-calibrated
-unless ``--data-free``, and writes it into the prepared-weight cache
-(``<MODEL_PATH>/.prepared_torch/``) with ``quantize_manifest.json``
+unless ``--data-free`` (on ``--calib``, else the WEIGHT_QUANT_CALIB
+setting, else the tinychat corpus), and writes it into the prepared-weight
+cache (``<MODEL_PATH>/.prepared_torch/``) with ``quantize_manifest.json``
 beside it; a server started afterwards with WEIGHT_QUANT=int4 and the same
 group and dtype restores it. The counterpart of
 ``scripts/quantize_checkpoint.py``.
@@ -55,18 +56,20 @@ def quantize(args: argparse.Namespace) -> int:
     else:
         from fasttalk_tpu_torch.quantization.awq import (calibration_tokens,
                                                          quantize_params_awq)
+        from fasttalk_tpu_torch.utils.config import Config
 
+        calib = args.calib or Config().weight_quant_calib or "corpus"
         tokenizer = load_tokenizer(args.model_path, args.model,
                                    template=model_cfg.chat_template)
         tokens = calibration_tokens(
             tokenizer, n_samples=args.calib_samples, seq_len=args.seq_len,
-            seed=args.seed, source=args.calib)
+            seed=args.seed, source=calib)
         print(f"calibrating on {tokens.shape[0]} x {tokens.shape[1]} "
-              f"tokens from {args.calib!r}")
+              f"tokens from {calib!r}")
         qparams, awq_info = quantize_params_awq(params, model_cfg, tokens,
                                                 args.group)
         manifest = {"mode": "awq", "model": model_cfg.name,
-                    "calib": args.calib,
+                    "calib": calib,
                     "calib_samples": int(tokens.shape[0]),
                     "seq_len": int(tokens.shape[1]),
                     "seed": args.seed, **awq_info}
@@ -106,8 +109,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="MODEL_PATH the server will use")
     qz.add_argument("--group", type=int, default=128,
                     help="WEIGHT_QUANT_GROUP the server will use")
-    qz.add_argument("--calib", default="corpus",
-                    help="'corpus' or a UTF-8 text file of documents")
+    qz.add_argument("--calib", default=None,
+                    help="'corpus' or a UTF-8 text file of documents "
+                    "(default: WEIGHT_QUANT_CALIB, else 'corpus')")
     qz.add_argument("--calib-samples", type=int, default=16)
     qz.add_argument("--seq-len", type=int, default=256)
     qz.add_argument("--dtype", default="bfloat16",

@@ -20,10 +20,10 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   onto the device only when the slot set changes.
 - Retire/detokenize, stop strings, EOS, ``max_tokens``, ``cancel`` and
   ``release_session`` behave as in the JAX engine.
-- **Weight tiers** (``weight_quant``): bf16, int8, or int4 group-wise
-  leaves for the seven layer matmuls (quantization/int4.py); the model
-  routes each leaf to its matmul (ops/quant.py), and ``/models`` reports
-  the tier.
+- **Weight tiers**: bf16, int8, or int4 group-wise leaves for the seven
+  layer matmuls (quantization/int4.py), read from the params' leaves; the
+  model routes each leaf to its matmul (ops/quant.py), and ``/models``
+  reports the tier.
 - **KV tiers** (JAX ``engine.py`` :465-581, :2826-3206): ``kv_quant="int8"``
   stores int8 rows + f32 row scales (prefill and decode write the scales,
   the kernels dequantize after the load); ``kv_layout="paged"`` replaces
@@ -66,7 +66,8 @@ from fasttalk_tpu_torch.models.llama import (KVCache, forward, forward_decode,
 from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 from fasttalk_tpu_torch.ops.kv_quant import granule_dim
 from fasttalk_tpu_torch.ops.sampling import apply_penalties, sample_tokens
-from fasttalk_tpu_torch.quantization.int4 import is_int4, validate_group
+from fasttalk_tpu_torch.quantization.int4 import (group_size_of, is_int4,
+                                                  validate_group)
 from fasttalk_tpu_torch.utils.config import resolve_device
 from fasttalk_tpu_torch.utils.errors import ErrorCategory, LLMServiceError
 from fasttalk_tpu_torch.utils.logger import get_logger
@@ -200,7 +201,6 @@ class TorchEngine(EngineBase):
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  context_window: int | None = None,
                  steps_per_call: int = 32, pipeline_depth: int = 2,
-                 weight_quant: str = "off", weight_quant_group: int = 128,
                  kv_quant: str = "none", kv_quant_granule: str = "token",
                  kv_layout: str = "dense", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, kv_reserve_policy: str = "fixed",
@@ -225,19 +225,19 @@ class TorchEngine(EngineBase):
         self.sample_vocab = min(model_cfg.vocab_size,
                                 getattr(tokenizer, "vocab_size",
                                         model_cfg.vocab_size))
-        # The weight tier the params carry (JAX engine.py :443-464): int4
-        # leaves {"q4", "s"} need a group that fits the model's dims; it
-        # composes with both KV tiers and both layouts.
-        if weight_quant not in ("off", "int8", "int4"):
-            raise ValueError(f"weight_quant must be 'off', 'int8' or "
-                             f"'int4', got {weight_quant!r}")
-        self.weight_quant = weight_quant
-        self.weight_quant_group = int(weight_quant_group)
-        if weight_quant == "int4":
+        # The weight tier is the one the params carry, read from their
+        # leaves (the JAX engine takes it as a setting, :443-464): int4
+        # {"q4", "s"} with a group that fits the model's dims, int8
+        # {"q", "s"}, or float. Every tier composes with both KV tiers and
+        # both layouts.
+        wq = params.get("layers", {}).get("wq")
+        self.weight_quant_group = None
+        if is_int4(params):
+            self.weight_quant = "int4"
+            self.weight_quant_group = group_size_of(wq)
             validate_group(model_cfg, self.weight_quant_group)
-            if not is_int4(params):
-                raise ValueError("weight_quant='int4' needs params with "
-                                 "{'q4', 's'} layer leaves")
+        else:
+            self.weight_quant = "int8" if isinstance(wq, dict) else "off"
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', "
                              f"got {kv_quant!r}")

@@ -153,7 +153,10 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
 
 
 def build_engine(cfg: Config, device: str | torch.device | None = None,
-                 seed: int = 0) -> TorchEngine:
+                 seed: int = 0, prepared_cache: bool = True) -> TorchEngine:
+    """The engine ``cfg`` describes. ``prepared_cache=False`` loads and
+    quantizes the checkpoint itself, neither reading nor writing the
+    prepared-weight cache (checks of the load path)."""
     dev = resolve_device(device)
     model_cfg = get_model_config(cfg.model_name, cfg.model_path)
     dtype = cfg.torch_dtype
@@ -165,7 +168,8 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         if cfg.model_path else None
     if ckpt:
         params = load_prepared(model_cfg, cfg.model_path, dtype, tier, ckpt,
-                               group=group, device=dev)
+                               group=group, device=dev) \
+            if prepared_cache else None
         if params is None:
             params = load_params(model_cfg, ckpt, dtype, dev, quantize=tier,
                                  weight_quant_group=group)
@@ -178,9 +182,10 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
             # The next start restores the engine-ready weights; an AWQ
             # cache written by the quantize command has the same meta and
             # wins by already existing.
-            save_prepared(params, cfg.model_path,
-                          cache_meta(model_cfg, dtype, tier, ckpt,
-                                     group=group))
+            if prepared_cache:
+                save_prepared(params, cfg.model_path,
+                              cache_meta(model_cfg, dtype, tier, ckpt,
+                                         group=group))
     else:
         log.warning(f"No checkpoint for {model_cfg.name!r} under "
                     f"{cfg.model_path!r}; using random-initialised weights")
@@ -211,7 +216,6 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         context_window=min(cfg.default_context_window, cfg.max_model_len),
         steps_per_call=cfg.decode_steps_per_call,
         pipeline_depth=cfg.pipeline_depth,
-        weight_quant=tier, weight_quant_group=group,
         kv_quant=cfg.kv_quant, kv_quant_granule=cfg.kv_quant_granule,
         kv_layout=cfg.kv_layout, kv_block_size=cfg.kv_block_size,
         kv_pool_blocks=acct["kv_pool_blocks"],

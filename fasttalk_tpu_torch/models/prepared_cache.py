@@ -10,7 +10,8 @@ directory of its own, ``<MODEL_PATH>/.prepared_torch/<tag>/``, so it never
 collides with the JAX package's ``.prepared/``.
 
 Cache key: model name, serving dtype, weight tier (and the int4 group),
-and the source checkpoint's files (name, size, mtime). Any mismatch
+the source checkpoint's files (name, size, mtime) and a digest of the
+loading and quantization code (``transform_version``). Any mismatch
 ignores the cache; the factory writes a fresh one after its slow load.
 ``python -m fasttalk_tpu_torch quantize`` writes AWQ-calibrated int4
 weights into the same place, where the factory finds them first.
@@ -22,6 +23,8 @@ a partial cache and two writers of one checkpoint never mix their files.
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import json
 import os
 import shutil
@@ -38,6 +41,9 @@ log = get_logger("models.prepared_cache")
 
 _META = "fasttalk_meta.json"
 _TENSORS = "params.safetensors"
+# Modules of the package whose code decides the cached tensors' values.
+_TRANSFORM_SOURCES = ("models/loader.py", "ops/quant.py",
+                      "quantization/int4.py", "quantization/awq.py")
 
 
 def checkpoint_fingerprint(ckpt_dir: str | None) -> list | None:
@@ -53,11 +59,25 @@ def checkpoint_fingerprint(ckpt_dir: str | None) -> list | None:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def transform_version() -> str:
+    """Digest of the sources that turn a checkpoint into the cached
+    tensors: a change to the loading or quantization code invalidates every
+    cache written before it."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    h = hashlib.sha256()
+    for rel in _TRANSFORM_SOURCES:
+        with open(os.path.join(pkg, rel), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def cache_meta(cfg: ModelConfig, dtype: torch.dtype, quantize: bool | str,
                ckpt_dir: str | None = None, group: int = 128) -> dict:
     tier = weight_tier(quantize)
     meta = {
         "format": 1,
+        "code": transform_version(),
         "model": cfg.name,
         "dtype": str(dtype).replace("torch.", ""),
         "quantize": tier,

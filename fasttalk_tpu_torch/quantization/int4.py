@@ -21,7 +21,6 @@ formats (ops/quant.py), which the lookup and ``int8_matmul_t`` read.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 # Default contraction-group size; divides every matmul dim of the shipped
@@ -143,32 +142,18 @@ def quantize_params_int4(params: dict, group: int) -> dict:
     return out
 
 
-def _np_quantize_group(a: np.ndarray, group: int):
-    """Host-side numpy twin of quantize_group (checkpoint load path)."""
-    k, n = a.shape[-2], a.shape[-1]
-    g = a.astype(np.float32).reshape(a.shape[:-2] + (k // group, group, n))
-    s = np.maximum(np.max(np.abs(g), axis=-2) / 7.0, 1e-8).astype(np.float32)
-    q = np.clip(np.round(g / s[..., None, :]), -8, 7).astype(np.int8)
-    q = q.reshape(a.shape[:-2] + (k, n))
-    lo = q[..., 0::2, :]
-    hi = q[..., 1::2, :]
-    q4 = ((hi.astype(np.uint8) & 0xF) << 4) | (lo.astype(np.uint8) & 0xF)
-    return q4, s
-
-
 def quantizing_put_int4(inner_put, raw_put, group: int):
     """Wrap a loader ``put(tensor, name)`` hook so the seven layer matmuls
-    are group-quantized on the host (numpy) before placement: only packed
-    bytes and scales reach the device. Every other leaf (embedding,
-    lm_head, norms, biases) goes to ``inner_put``, which applies the int8
-    tier's formats to the embedding and lm_head."""
+    are group-quantized where the loader holds them (the host) before
+    placement: only packed bytes and scales reach the device. Every other
+    leaf (embedding, lm_head, norms, biases) goes to ``inner_put``, which
+    applies the int8 tier's formats to the embedding and lm_head."""
     group = int(group)
 
     def put(t: torch.Tensor, name: str):
         if name in INT4_LEAVES:
-            q4, s = _np_quantize_group(t.numpy(), group)
-            return {"q4": raw_put(torch.from_numpy(q4)),
-                    "s": raw_put(torch.from_numpy(s))}
+            leaf = quantize_group(t, group)
+            return {"q4": raw_put(leaf["q4"]), "s": raw_put(leaf["s"])}
         return inner_put(t, name)
 
     return put

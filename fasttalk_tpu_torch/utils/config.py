@@ -7,10 +7,11 @@ The weight tiers (``WEIGHT_QUANT`` off|int8|int4 and its legacy alias
 ``TPU_QUANTIZE``, ``WEIGHT_QUANT_GROUP``, ``WEIGHT_QUANT_CALIB``,
 ``TPU_USE_PALLAS_INT4``) resolve and fail as in
 ``fasttalk_tpu/utils/config.py`` :337-358, :818-829, :931-965.
-``TPU_USE_PALLAS_INT4`` is validated for parity and selects nothing: on
-the port the hand-written ``int4_matmul`` kernel is the int4 decode path
-on the card, as ``decode_attend`` is the decode attention path whatever
-``TPU_USE_PALLAS_ATTENTION`` says in the JAX package.
+``WEIGHT_QUANT_CALIB`` is read by ``python -m fasttalk_tpu_torch
+quantize`` only. ``TPU_USE_PALLAS_INT4`` is an accepted, validated name and
+a no-op: on the port the hand-written ``int4_matmul`` kernel is the int4
+decode path on the card, as ``decode_attend`` is the decode attention path
+whatever ``TPU_USE_PALLAS_ATTENTION`` says in the JAX package.
 Features of the JAX package that the port does not carry yet (speculative
 decoding, host KV offload, the radix cache, structured decoding, a device
 mesh) are rejected with a named error when their variable asks for them;
@@ -102,14 +103,15 @@ class Config:
     # at engine build (quantization/int4.py validate_group).
     weight_quant_group: int = field(
         default_factory=lambda: _env_int("WEIGHT_QUANT_GROUP", 128))
-    # AWQ calibration source of ``python -m fasttalk_tpu_torch quantize``:
-    # "" (data-free), "corpus" (the tinychat training corpus) or a text file
-    # with one document per line. Serving never calibrates inline; it
-    # restores the prepared cache that the quantize command writes.
+    # AWQ calibration source of ``python -m fasttalk_tpu_torch quantize``
+    # when no --calib is given: "" (unset: "corpus"), "corpus" (the tinychat
+    # training corpus) or a text file with one document per line. Serving
+    # never calibrates: it restores the prepared cache the command writes,
+    # and quantizes data-free when there is none.
     weight_quant_calib: str = field(
         default_factory=lambda: _env_str("WEIGHT_QUANT_CALIB", ""))
-    # Validated as in the JAX package (it requires WEIGHT_QUANT=int4) and
-    # selects nothing: on the port the hand-written int4_matmul kernel is
+    # Validated as in the JAX package (it requires WEIGHT_QUANT=int4); a
+    # no-op: on the port the hand-written int4_matmul kernel is
     # the int4 decode path on the card, as decode_attend is for attention.
     use_pallas_int4: bool = field(
         default_factory=lambda: _env_bool("TPU_USE_PALLAS_INT4", False))
@@ -208,7 +210,7 @@ class Config:
         if self.weight_quant_calib and self.weight_quant_calib != "corpus" \
                 and not os.path.isfile(self.weight_quant_calib):
             errs.append(
-                f"WEIGHT_QUANT_CALIB must be '' (data-free), 'corpus', "
+                f"WEIGHT_QUANT_CALIB must be '' (unset), 'corpus', "
                 f"or a readable prompt file (one per line); no file at "
                 f"{self.weight_quant_calib!r}")
         if self.use_pallas_int4 and self.weight_quant != "int4":

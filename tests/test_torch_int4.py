@@ -4,10 +4,11 @@ the JAX package's, on the CPU.
 - Format: ``unpack_int4`` of all 256 byte values and ``pack_int4`` round
   trips are bit-equal to JAX; the torch idiom they rest on (a uint8 tensor
   viewed as int8, arithmetic ``>>``) is pinned.
-- Quantization: ``quantize_math_group`` and the numpy twin are bit-equal to
-  eager JAX. Against the jitted ``quantize_params_int4`` scales may differ
-  by one float32 ulp and codes by one step: under ``jax.jit`` XLA rewrites
-  ``max / 7`` into ``max * (1/7)``, as it does ``/ 127`` for the int8 tier.
+- Quantization: ``quantize_math_group`` and ``quantize_group`` are
+  bit-equal to eager JAX and to the numpy twin JAX's loader uses. Against
+  the jitted ``quantize_params_int4`` scales may differ by one float32 ulp
+  and codes by one step: under ``jax.jit`` XLA rewrites ``max / 7`` into
+  ``max * (1/7)``, as it does ``/ 127`` for the int8 tier.
 - Kernel: ``int4_matmul_plain`` against JAX's ``int4_matmul`` (Pallas,
   interpret mode) and ``ops.quant.matmul``: float32 x to rtol/atol 1e-5;
   bfloat16 x to one bf16 step (2^-7 of each output's magnitude), the only
@@ -20,8 +21,8 @@ the JAX package's, on the CPU.
   ``kv_quantize`` may move a row by one int8 step).
 - Engine: ``TorchEngine(device="cpu")`` and ``TPUEngine`` with
   WEIGHT_QUANT=int4 on the trained tinychat checkpoint (both loaders
-  quantize host-side with the same numpy math), 1 and 4 sessions: the same
-  greedy text; ``/models`` reports int4.
+  quantize host-side to the same bytes), 1 and 4 sessions: the same
+  greedy text; ``/models`` reports int4, the tier the params carry.
 - Factory and config: ``weight_bytes_by_tier`` equals JAX's for every model
   and tier and the resident bytes of random init; the Config named errors,
   including the WEIGHT_QUANT / TPU_QUANTIZE conflict both packages reject.
@@ -115,10 +116,12 @@ def test_group_quantization_is_bit_exact_to_eager_jax(group):
     qt, st = t4.quantize_math_group(torch.from_numpy(w), group)
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
-    q4n, sn = t4._np_quantize_group(w, group)
-    np.testing.assert_array_equal(q4n, t4.pack_int4(qt).numpy())
-    np.testing.assert_array_equal(sn, st.numpy())
     leaf = t4.quantize_group(torch.from_numpy(w), group)
+    # The port's checkpoint load quantizes with this function; JAX's uses
+    # its numpy twin. Both give the same bytes.
+    q4n, sn = j4._np_quantize_group(w, group)
+    np.testing.assert_array_equal(leaf["q4"].numpy(), q4n)
+    np.testing.assert_array_equal(leaf["s"].numpy(), sn)
     assert t4.group_size_of(leaf) == group
     np.testing.assert_array_equal(
         t4.dequantize_int4(leaf).numpy(),
@@ -457,8 +460,7 @@ def torch_int4_engine():
                       load_tokenizer(ASSETS, "tinychat",
                                      template=cfg.chat_template),
                       device="cpu", num_slots=4, max_len=512,
-                      dtype=torch.float32, steps_per_call=8,
-                      weight_quant="int4", weight_quant_group=128)
+                      dtype=torch.float32, steps_per_call=8)
     eng.start()
     try:
         yield eng
@@ -524,27 +526,38 @@ def test_models_endpoint_reports_int4(torch_int4_engine):
     info = asyncio.run(asyncio.wait_for(run(), 60))
     assert info["weight_quant"] == "int4"
     assert torch_int4_engine.get_model_info()["weight_quant"] == "int4"
+    assert torch_int4_engine.weight_quant_group == 128
 
 
 def test_engine_checks_the_weight_tier():
+    """The engine reads its tier and int4 group from the params' leaves
+    and rejects int4 leaves whose group cannot fit the model."""
     from fasttalk_tpu_torch.engine.engine import TorchEngine
     from fasttalk_tpu_torch.engine.tokenizer import ByteTokenizer
     from fasttalk_tpu_torch.models.loader import init_params_device
 
     cfg = get_model_config("test-tiny")
-    p8 = init_params_device(cfg, torch.float32, "cpu", quantize="int8")
-    with pytest.raises(ValueError, match="'off', 'int8' or 'int4'"):
-        TorchEngine(cfg, p8, ByteTokenizer(), device="cpu", num_slots=2,
-                    max_len=512, weight_quant="int3")
-    with pytest.raises(ValueError, match="must divide"):
-        TorchEngine(cfg, p8, ByteTokenizer(), device="cpu", num_slots=2,
-                    max_len=512, weight_quant="int4", weight_quant_group=48)
-    with pytest.raises(ValueError, match="q4"):
-        TorchEngine(cfg, p8, ByteTokenizer(), device="cpu", num_slots=2,
-                    max_len=512, weight_quant="int4", weight_quant_group=32)
-    eng = TorchEngine(cfg, p8, ByteTokenizer(), device="cpu", num_slots=2,
-                      max_len=512, weight_quant="int8")
-    assert eng.get_model_info()["weight_quant"] == "int8"
+
+    def engine(params):
+        return TorchEngine(cfg, params, ByteTokenizer(), device="cpu",
+                           num_slots=2, max_len=512)
+
+    for tier, group in (("none", None), ("int8", None), ("int4", 32),
+                        ("int4", 64)):
+        params = init_params_device(cfg, torch.float32, "cpu", quantize=tier,
+                                    weight_quant_group=group or 128)
+        eng = engine(params)
+        assert eng.get_model_info()["weight_quant"] == \
+            {"none": "off"}.get(tier, tier)
+        assert eng.weight_quant_group == group
+    # wq's scales as if its group were 3 (64 rows / 21 scale rows): odd.
+    bad = init_params_device(cfg, torch.float32, "cpu", quantize="int4",
+                             weight_quant_group=32)
+    wq = bad["layers"]["wq"]
+    bad["layers"]["wq"] = {"q4": wq["q4"],
+                           "s": wq["s"][:, :1].repeat(1, 21, 1)}
+    with pytest.raises(ValueError, match="even integer"):
+        engine(bad)
 
 
 # ------------------------------------------------------------- factory, config
@@ -758,7 +771,8 @@ def test_prepared_cache_round_trip_and_meta_mismatches(tmp_path):
     from fasttalk_tpu_torch.models.prepared_cache import (cache_dir,
                                                           cache_meta,
                                                           load_prepared,
-                                                          save_prepared)
+                                                          save_prepared,
+                                                          transform_version)
 
     cfg = get_model_config("test-tiny")
     ckpt = tmp_path / "ckpt"
@@ -794,25 +808,48 @@ def test_prepared_cache_round_trip_and_meta_mismatches(tmp_path):
     (ckpt / "model.safetensors").write_bytes(b"y" * 11)
     assert load_prepared(cfg, str(tmp_path), torch.bfloat16, "int4",
                          str(ckpt), group=32, device="cpu") is None
-    with open(os.path.join(path, "fasttalk_meta.json"), "w") as f:
-        json.dump(dict(meta, model="other"), f)
-    assert load_prepared(cfg, str(tmp_path), torch.bfloat16, "int4",
-                         str(ckpt), group=32, device="cpu") is None
+    # With the new source's meta: another model's or another version of the
+    # loading and quantization code's is ignored, its own is read.
+    meta = cache_meta(cfg, torch.bfloat16, "int4", str(ckpt), group=32)
+    assert meta["code"] == transform_version() and len(meta["code"]) == 16
+    for have, found in ((dict(meta, model="other"), False),
+                        (dict(meta, code="0" * 16), False), (meta, True)):
+        with open(os.path.join(path, "fasttalk_meta.json"), "w") as f:
+            json.dump(have, f)
+        back = load_prepared(cfg, str(tmp_path), torch.bfloat16, "int4",
+                             str(ckpt), group=32, device="cpu")
+        assert (back is not None) == found, have
 
 
-def test_quantize_command_writes_the_cache_build_engine_restores(tmp_path):
-    """``python -m fasttalk_tpu_torch quantize`` (AWQ on a few corpus
-    samples) writes the int4 cache and its manifest; build_engine with
-    WEIGHT_QUANT=int4 and the same group and dtype restores exactly those
-    weights and serves the trained checkpoint's answer."""
+def _leaf(params, key):
+    for part in key.split("/"):
+        params = params[part]
+    return params
+
+
+def test_quantize_command_writes_the_cache_build_engine_restores(
+        tmp_path, monkeypatch):
+    """``python -m fasttalk_tpu_torch quantize`` (AWQ on a few samples of
+    the WEIGHT_QUANT_CALIB file) writes the int4 cache and its manifest;
+    build_engine with WEIGHT_QUANT=int4 and the same group and dtype
+    restores exactly those weights and serves the trained checkpoint's
+    answer. With the cache bypassed it quantizes the checkpoint itself and
+    leaves the cache alone."""
+    from safetensors.torch import load_file
+
     from fasttalk_tpu_torch.__main__ import main
     from fasttalk_tpu_torch.engine.engine import GenerationParams
     from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.models.loader import load_params
     from fasttalk_tpu_torch.models.prepared_cache import (cache_dir,
                                                           cache_meta)
+    from fasttalk_tpu_torch.training.corpus import corpus_texts
     from fasttalk_tpu_torch.utils.config import Config
 
     os.symlink(CKPT, tmp_path / "tinychat")
+    calib = tmp_path / "calib.txt"
+    calib.write_text("\n".join(corpus_texts(8, 0)) + "\n", encoding="utf-8")
+    monkeypatch.setenv("WEIGHT_QUANT_CALIB", str(calib))
     assert main(["quantize", "--model", "tinychat", "--model-path",
                  str(tmp_path), "--calib-samples", "2", "--seq-len", "64",
                  "--dtype", "float32", "--device", "cpu"]) == 0
@@ -821,20 +858,22 @@ def test_quantize_command_writes_the_cache_build_engine_restores(tmp_path):
         cfg, torch.float32, "int4", str(tmp_path / "tinychat"), group=128))
     with open(os.path.join(path, "quantize_manifest.json")) as f:
         manifest = json.load(f)
-    assert manifest["mode"] == "awq" and len(manifest["layers"]) == \
-        cfg.num_layers
-    from safetensors.torch import load_file
-
-    cached = load_file(os.path.join(path, "params.safetensors"))
-    eng = build_engine(Config(model_name="tinychat", model_path=str(tmp_path),
-                              weight_quant="int4", dtype="float32",
-                              decode_slots=2, max_model_len=512,
-                              default_context_window=512), device="cpu")
+    assert (manifest["mode"], manifest["calib"]) == ("awq", str(calib))
+    assert len(manifest["layers"]) == cfg.num_layers
+    tensors = os.path.join(path, "params.safetensors")
+    cached, written = load_file(tensors), os.stat(tensors).st_mtime_ns
+    config = Config(model_name="tinychat", model_path=str(tmp_path),
+                    weight_quant="int4", dtype="float32", decode_slots=2,
+                    max_model_len=512, default_context_window=512)
+    direct = build_engine(config, device="cpu", prepared_cache=False)
+    loaded = load_params(cfg, str(tmp_path / "tinychat"), torch.float32,
+                         "cpu", quantize="int4")
+    for key in cached:
+        assert torch.equal(_leaf(direct.params, key), _leaf(loaded, key)), key
+    assert os.stat(tensors).st_mtime_ns == written
+    eng = build_engine(config, device="cpu")
     for key, t in cached.items():
-        node = eng.params
-        for part in key.split("/"):
-            node = node[part]
-        assert torch.equal(node, t), key
+        assert torch.equal(_leaf(eng.params, key), t), key
     eng.start()
     try:
         text, final = asyncio.run(asyncio.wait_for(_collect(
