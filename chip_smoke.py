@@ -197,12 +197,18 @@ def check_int4_matmul(results: dict) -> None:
 
 
 def check_int8_matmul(results: dict) -> None:
+    """int8_matmul at the decode-step shapes, M = 16 and 1: held to 1% of
+    the plain version's largest output; timed beside the plain version and
+    ``torch.matmul`` on the dequantized bf16 weight. The entry is one decode
+    step at M = 16 (112 calls), with the same step at M = 1 in ``ms_m1``
+    and ``library_ms_m1``, and every shape's figures in ``shapes``."""
     from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bytes": 0.0, "ops": 0.0}
+            "bytes": 0.0, "ops": 0.0, "ms_m1": 0.0, "library_ms_m1": 0.0}
+    shapes = []
     worst = 0.0
     for (k, n), per_layer in LAYER_MATMULS.items():
         for m in (SLOTS, 1):
@@ -234,20 +240,32 @@ def check_int8_matmul(results: dict) -> None:
             b_ms, by = bound(nbytes, ops)
             log(f"  ms={ms:.6g} plain_ms={plain:.6g} library_ms={lib:.6g} "
                 f"bound_ms={b_ms:.6g} ({by})")
+            shapes.append({"m": m, "k": k, "n": n, "ms": ms,
+                           "plain_ms": plain, "library_ms": lib,
+                           "bound_ms": b_ms, "max_abs_err": err})
+            calls = per_layer * LAYERS
             if m == SLOTS:
-                calls = per_layer * LAYERS
                 for key, val in (("ms", ms), ("plain_ms", plain),
                                  ("library_ms", lib), ("bound_ms", b_ms),
                                  ("bytes", nbytes), ("ops", ops)):
                     step[key] += calls * val
+            else:
+                step["ms_m1"] += calls * ms
+                step["library_ms_m1"] += calls * lib
     b_ms, by = bound(step["bytes"], step["ops"])
     results["int8_matmul"] = {
         "max_abs_err": worst, "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": b_ms, "bound_by": by, "library_ms": step["library_ms"],
-        "work": "one decode step at M=16: 112 calls over the 4 (K, N) shapes"}
+        "ms_m1": step["ms_m1"], "library_ms_m1": step["library_ms_m1"],
+        "shapes": shapes,
+        "work": "one decode step at M=16: 112 calls over the 4 (K, N) "
+                "shapes (ms_m1, library_ms_m1: the same step at M=1)"}
 
 
 def check_int8_matmul_t(results: dict) -> None:
+    """int8_matmul_t over the full lm_head table at M = 16 (the decode
+    step) and M = 1 (a prefill chunk), held and timed as check_int8_matmul
+    does, beside ``F.linear`` on the dequantized bf16 table."""
     from fasttalk_tpu_torch.ops.cuda_int8 import (int8_matmul_t,
                                                   int8_matmul_t_plain)
 
@@ -257,7 +275,7 @@ def check_int8_matmul_t(results: dict) -> None:
                       dtype=torch.int8)
     s = torch.rand((VOCAB,), generator=g, device=dev) * 0.02 + 1e-3
     worst = 0.0
-    entry = None
+    entry, shapes = None, []
     for m in (SLOTS, 1):
         x = torch.randn((m, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
         got = int8_matmul_t(x, q, s).float()
@@ -280,11 +298,19 @@ def check_int8_matmul_t(results: dict) -> None:
         b_ms, by = bound(nbytes, 2 * m * VOCAB * HIDDEN)
         log(f"  ms={ms:.6g} plain_ms={plain:.6g} library_ms={lib:.6g} "
             f"bound_ms={b_ms:.6g} ({by})")
+        shapes.append({"m": m, "v": VOCAB, "d": HIDDEN, "ms": ms,
+                       "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": b_ms, "max_abs_err": err})
         if m == SLOTS:
             entry = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                      "bound_by": by, "library_ms": lib,
-                     "work": "one call at M=16 (the decode step's lm_head)"}
+                     "work": "one call at M=16 (the decode step's lm_head; "
+                             "ms_m1, library_ms_m1: one call at M=1, a "
+                             "prefill chunk's)"}
+        else:
+            entry["ms_m1"], entry["library_ms_m1"] = ms, lib
     entry["max_abs_err"] = worst
+    entry["shapes"] = shapes
     results["int8_matmul_t"] = entry
 
 
@@ -825,6 +851,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("ms_m1", "library_ms_m1") if k in r},
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],

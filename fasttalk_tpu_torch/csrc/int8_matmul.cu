@@ -7,298 +7,641 @@
 //   int8_matmul_t (:127, body _mm_t_kernel :118)
 //       y[M,V] = x[M,D] @ (q[V,D] * s[V])^T, no transpose materialised.
 //
-// Both are bound by the int8 weight bytes at decode batch sizes (M <= 16):
-// every weight byte is read once, x and y are KiB. The designs keep the
-// weight stream coalesced and keep x on chip:
+// Bound: the int8 weight bytes. At decode batch sizes (M <= 16) a step reads
+// 0.97 GB of layer weights and the 262.7 MB lm_head table once; x and y are
+// KiB to MiB. The arithmetic (2 M K N) is 31 GFLOP a step at M = 16, 0.03 ms
+// on the bf16 tensor cores, so both kernels hand it to them: the TPU kernels'
+// dot(x, q.astype(bf16)) with f32 accumulation is what
+// mma.sync.m16n8k16.bf16 computes, exactly, since every int8 is a bf16.
 //
-// int8_matmul: a block owns a 256-column tile of N and a K range of at least
-//   64 rows (split-K: the grid's y axis), about two blocks per SM where the
-//   weight is large enough. 256 threads = 64 column groups of 4 columns x 4
-//   row groups; a
-//   warp reads 128 contiguous bytes of a weight row per step. x's K range is
-//   staged in shared memory as float and read by broadcast. Accumulators
-//   (M x 4 floats) live in registers; the row groups reduce through shared
-//   memory and each split stores its partial sums to its own slice of an
-//   f32 workspace [splits, M, N]. A second small kernel sums the splits in
-//   split order, applies s[N] in f32 and casts once, so the result does not
-//   depend on the order in which blocks run.
+// Shared design (pieces in mma_bf16.cuh):
+// - Weights and x reach shared memory through a 4-stage ring of 16-byte
+//   cp.async copies, so a block keeps three stages in flight while it
+//   computes on the fourth. Ragged edges are zero-filled by the copy
+//   itself (src-size 0). Shapes whose rows are not 16-byte aligned take
+//   the same kernel with plain loads into the ring (VEC = false).
+// - int8 -> bf16 on the way from shared memory to the mma, in pairs: one
+//   byte permute gathers two int8 into the low bytes of a bf16x2 word, two
+//   LOP3 build 128 + (v & 127) and 128 (256 if v < 0) in the mantissa of
+//   bf16 128, and one bf16x2 subtract leaves v, exactly. Four
+//   instructions a pair, none on the quarter-rate I2F pipe.
+// - Up to 4 m16 tiles (M <= 64) loop inside the block, so each weight
+//   tile is read from device memory once for all of them; larger M takes
+//   more groups of 64 rows on the grid.
+// - The scale is applied once in f32 after the dot, one cast to bf16.
 //
-// int8_matmul_t: one block per SM walks vocab rows. x [M, D] sits in
-//   shared memory as float (dynamic shared memory, up to 227 KB); each warp
-//   owns groups of 32 consecutive vocab rows and works on 4 rows at a time,
-//   reading them with 16-byte loads (lane l takes bytes 16l.. of every
-//   512-byte span), so each x value read from shared memory feeds 4 rows.
-//   At M=16 the f32 multiply-adds, not the bytes, set this kernel's pace
-//   (tensor cores are a later step). The per-row dot products reduce across
-//   the warp by shuffles; lane r keeps row r's sums so the 32 outputs of a
-//   group are written as one coalesced store per x row.
+// int8_matmul (q [K, N], N contiguous): a block owns 128 columns and a K
+//   range (split-K on grid.y), 32 columns a warp. The [K, N] layout puts a
+//   lane's B elements on four rows, so a lane reads one 4-byte word (4
+//   columns) from each of rows 4t .. 4t+3 of a k-step and byte c of the
+//   four words fills B of n8 tile c: four n8 tiles at once, no transpose
+//   in shared memory. Tile c's column g is weight column 4g + c, so a
+//   lane's accumulators are 8 contiguous output columns, 8t .. 8t+7. The
+//   k permutation (logical 2t, 2t+1, 2t+8, 2t+9 -> physical 4t .. 4t+3)
+//   makes a lane's A elements one 8-byte shared load a row. Weight rows
+//   are 128 bytes in shared memory with 16-byte chunk j stored at
+//   j ^ (2 ((r / 4) % 4)), which keeps the 4-byte B reads of a warp on 32
+//   distinct banks. Up to 16 splits of a column tile run as one thread
+//   block cluster: each writes its f32 partial tile to its own shared
+//   memory, and after a cluster barrier each block sums 1/splits of the
+//   tile over all the cluster's blocks in split order (distributed shared
+//   memory), scales, casts and stores. One launch, no workspace in device
+//   memory, and the same bits every call whatever the block order.
 //
-// Every entry point returns cudaGetLastError() of its launches.
+// int8_matmul_t (q [V, D], D contiguous): a block owns 128 vocab rows (32
+//   a warp, four n8 tiles) and walks all of D in 128-byte stages. In mma
+//   terms B is "col", so a lane's B elements lie on one vocab row: a lane
+//   reads 16 contiguous bytes (4 k-steps) of its row, and the k
+//   permutation (logical 2t, 2t+1, 2t+8, 2t+9 of step j -> physical
+//   16t + 4j .. 16t + 4j + 3) makes its A elements 16 contiguous bf16 a
+//   row too. Chunk j of weight row r sits at j ^ (4 (r % 2)); x rows are
+//   padded by 16 bytes; both keep the 16-byte shared reads conflict-free.
+//   No cross-lane reduction is left: each accumulator is one output,
+//   scaled by s[v] in f32 and stored.
+//
+// ops/mma_layout.py writes both fragment mappings out in Python; the CPU
+// tests check them against the plain versions through numpy's m16n8k16.
+//
+// Every entry point returns cudaGetLastError() of its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+#include "mma_bf16.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int MAXM = 16;          // x rows per launch tile (grid.z tiles M)
-constexpr int MM_THREADS = 256;   // int8_matmul block
-constexpr int MM_COLS = 256;      // columns per int8_matmul block
-constexpr int MM_KCHUNK = 128;    // staged K rows of x per pass
-constexpr int MT_THREADS = 256;   // int8_matmul_t block (8 warps)
-constexpr int MT_ROWS = 4;        // vocab rows a warp works on at once
+using ft::cp_async16;
+using ft::cp_async_commit;
+using ft::cp_async_wait;
+using ft::mma_bf16_16816;
+using ft::s8x4_to_bf16x4;
 
-__device__ __forceinline__ float q2f(int8_t v) { return static_cast<float>(v); }
+constexpr int THREADS = 128;   // 4 warps, both kernels
+constexpr int STAGES = 4;      // cp.async ring depth, both kernels
+constexpr int MAX_MT = 4;      // m16 tiles per block
 
-__global__ void __launch_bounds__(MM_THREADS)
-mm_splitk_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
-                 const int8_t* __restrict__ q,          // [K, N]
-                 float* __restrict__ ws,                // [splits, M, N]
-                 int M, int K, int N, int k_per_split) {
-  __shared__ float xs[MAXM][MM_KCHUNK];
-  __shared__ float red[3][MM_THREADS / 4 * 4];
+// int8_matmul: 128 columns x 64 weight rows (4 k-steps) a stage; at most
+// 16 splits of K (a cluster, non-portable above 8).
+constexpr int MAX_SPLITS = 16;
+constexpr int MM_BN = 128;
+constexpr int MM_BK = 64;
+constexpr int MM_XS = MM_BK + 16;   // x row stride in bf16 (160 bytes)
+constexpr int MM_PS = MM_BN + 4;    // partial tile row stride in floats
 
+// int8_matmul_t: 128 vocab rows x 128 bytes of D (8 k-steps) a stage.
+constexpr int MT_BV = 128;
+constexpr int MT_BK = 128;
+constexpr int MT_XS = MT_BK + 8;    // x row stride in bf16 (272 bytes)
+
+template <int MT>
+struct MmLayout {
+  static constexpr int W = MM_BK * MM_BN;           // weight bytes a stage
+  static constexpr int STAGE = W + MT * 16 * MM_XS * 2;
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(MT * 16 * MM_PS * 4 <= SMEM, "the sum tile fits the ring");
+};
+
+template <int MT>
+struct MtLayout {
+  static constexpr int W = MT_BV * MT_BK;
+  static constexpr int STAGE = W + MT * 16 * MT_XS * 2;
+  static constexpr int SMEM = STAGES * STAGE;
+};
+
+__device__ __forceinline__ uint32_t pack4(const int8_t* p, int n) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < n) w |= static_cast<uint32_t>(static_cast<uint8_t>(p[e])) << (8 * e);
+  return w;
+}
+
+// Two floats rounded to bf16 as one word, a in the low half.
+__device__ __forceinline__ uint32_t bf16x2_rn(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Zero x rows mt_rows .. 16 MT - 1 (stride xs bf16) of every stage once:
+// the stage loads write only the rows below M, so the mma reads zeros for
+// the m16 tile's missing rows.
+__device__ __forceinline__ void zero_x_tail(uint8_t* smem, int stage_bytes,
+                                            int x_off, int xs, int rows,
+                                            int mt_rows) {
+  const int per_row = xs / 8;   // 16-byte pieces of a row
+  const int per_stage = (rows - mt_rows) * per_row;
+  for (int i = threadIdx.x; i < STAGES * per_stage; i += THREADS) {
+    const int st = i / per_stage, rem = i % per_stage;
+    const int r = mt_rows + rem / per_row, j = rem % per_row;
+    *reinterpret_cast<uint4*>(smem + st * stage_bytes + x_off
+                              + (r * xs + 8 * j) * 2) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// ------------------------------------------------------------ int8_matmul
+
+template <int MT, bool VEC>
+__device__ __forceinline__ void mm_load_stage(
+    uint8_t* stage, const __nv_bfloat16* __restrict__ x,
+    const int8_t* __restrict__ q, int K, int N, int m0, int mt_rows,
+    int n_blk, int k0, int k_end) {
   const int tid = threadIdx.x;
-  const int cg = tid & 63;        // column group (4 columns)
-  const int rg = tid >> 6;        // row group 0..3
-  const int n0 = blockIdx.x * MM_COLS + cg * 4;
-  const int m0 = blockIdx.z * MAXM;
-  const int mt = min(MAXM, M - m0);
+  // Weights: MM_BK rows x 8 chunks of 16 bytes, chunk j of row r stored at
+  // j ^ (2 ((r / 4) % 4)).
+  for (int c = tid; c < MM_BK * (MM_BN / 16); c += THREADS) {
+    const int r = c >> 3, j = c & 7;
+    const int k = k0 + r, n = n_blk + 16 * j;
+    uint8_t* dst = stage + r * MM_BN + ((j ^ (((r >> 2) & 3) << 1)) << 4);
+    const int8_t* src = q + (size_t)k * N + n;
+    if (VEC) {
+      const bool in = k < k_end && n < N;   // N % 16 == 0: whole chunks
+      cp_async16(dst, in ? src : q, in ? 16 : 0);
+    } else {
+      const int cnt = k < k_end ? min(16, N - n) : 0;
+      uint4 v;
+      v.x = pack4(src, cnt);
+      v.y = pack4(src + 4, cnt - 4);
+      v.z = pack4(src + 8, cnt - 8);
+      v.w = pack4(src + 12, cnt - 12);
+      *reinterpret_cast<uint4*>(dst) = v;
+    }
+  }
+  // x: mt_rows rows x MM_BK bf16, 8 chunks of 8 a row (the rows past M
+  // were zeroed once by zero_x_tail).
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage + MmLayout<MT>::W);
+  for (int c = tid; c < mt_rows * (MM_BK / 8); c += THREADS) {
+    const int r = c >> 3, j = c & 7;
+    const int k = k0 + 8 * j;
+    __nv_bfloat16* dst = xs + r * MM_XS + 8 * j;
+    const __nv_bfloat16* src = x + (size_t)(m0 + r) * K + k;
+    if (VEC) {
+      const bool in = k < k_end;   // K % 8 == 0: whole chunks
+      cp_async16(dst, in ? src : x, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = k + e < k_end ? src[e] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// This lane's 8 sums of each row (columns 8t .. 8t+7 of its warp's 32)
+// into a [MT * 16][MM_PS] float tile of shared memory. Tile c's
+// accumulators: c[0], c[1] at columns 8t + c, 8t + 4 + c of row g; c[2],
+// c[3] the same of row g + 8.
+template <int MT>
+__device__ __forceinline__ void mm_store_tile(float* tile, const float (&acc)[MT][4][4],
+                                              int g, int c_l, int mt_rows) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      if (r >= mt_rows) continue;
+      float4* p = reinterpret_cast<float4*>(tile + r * MM_PS + c_l);
+      p[0] = make_float4(acc[mt][0][2 * h], acc[mt][1][2 * h],
+                         acc[mt][2][2 * h], acc[mt][3][2 * h]);
+      p[1] = make_float4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
+                         acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]);
+    }
+}
+
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+mm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
+          const int8_t* __restrict__ q,          // [K, N]
+          const float* __restrict__ s,           // [N]
+          __nv_bfloat16* __restrict__ y,         // [M, N]
+          int M, int K, int N, int k_per_split) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  using L = MmLayout<MT>;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_blk = blockIdx.x * MM_BN;
+  const int splits = gridDim.y;
+  const int m0 = blockIdx.z * (MT * 16);
+  const int mt_rows = min(MT * 16, M - m0);
   const int k_begin = blockIdx.y * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
-  const bool vec = ((N & 3) == 0) && (n0 + 3 < N);
+  const int iters = k_end > k_begin ? (k_end - k_begin + MM_BK - 1) / MM_BK : 0;
 
-  float acc[MAXM][4];
+  float acc[MT][4][4];
 #pragma unroll
-  for (int m = 0; m < MAXM; ++m)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][c][i] = 0.f;
 
-  for (int kc = k_begin; kc < k_end; kc += MM_KCHUNK) {
-    const int kn = min(MM_KCHUNK, k_end - kc);
-    __syncthreads();
-    for (int i = tid; i < MAXM * MM_KCHUNK; i += MM_THREADS) {
-      const int m = i / MM_KCHUNK, kk = i % MM_KCHUNK;
-      xs[m][kk] = (m < mt && kk < kn)
-          ? __bfloat162float(x[(size_t)(m0 + m) * K + kc + kk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = rg; kk < kn; kk += 4) {
-      const int8_t* row = q + (size_t)(kc + kk) * N;
-      float w[4];
-      if (vec) {
-        const char4 v = *reinterpret_cast<const char4*>(row + n0);
-        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-      } else {
+  zero_x_tail(smem, L::STAGE, L::W, MM_XS, MT * 16, mt_rows);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = (n0 + j < N) ? q2f(row[n0 + j]) : 0.f;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < iters)
+      mm_load_stage<MT, VEC>(smem + i * L::STAGE, x, q, K, N, m0, mt_rows,
+                             n_blk, k_begin + i * MM_BK, k_end);
+    cp_async_commit();
+  }
+
+  // This lane's B words: 4 columns 32 warp + 4g .. +3, i.e. byte 4 (g % 4)
+  // of 16-byte chunk 2 warp + g / 4, on rows 4t + e of each k-step (whose
+  // swizzle term is 2t).
+  const int b_off = ((((warp << 1) + (g >> 2)) ^ (t << 1)) << 4) + ((g & 3) << 2);
+
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nx = it + STAGES - 1;
+    if (nx < iters)
+      mm_load_stage<MT, VEC>(smem + (nx % STAGES) * L::STAGE, x, q, K, N,
+                             m0, mt_rows, n_blk, k_begin + nx * MM_BK, k_end);
+    cp_async_commit();
+
+    const uint8_t* wst = smem + (it % STAGES) * L::STAGE;
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(wst + L::W);
+#pragma unroll
+    for (int ks = 0; ks < MM_BK / 16; ++ks) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = *reinterpret_cast<const uint32_t*>(
+            wst + (16 * ks + 4 * t + e) * MM_BN + b_off);
+      // n8 tile c takes byte c of the four words: rows 4t, 4t+1 (logical
+      // k 2t, 2t+1) in b[c][0], rows 4t+2, 4t+3 (2t+8, 2t+9) in b[c][1].
+      uint32_t b[4][2];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        b[c][0] = ft::s8_column_pair(w[0], w[1], c);
+        b[c][1] = ft::s8_column_pair(w[2], w[3], c);
       }
 #pragma unroll
-      for (int m = 0; m < MAXM; ++m) {
-        if (m < mt) {
-          const float xv = xs[m][kk];
+      for (int mt = 0; mt < MT; ++mt) {
+        const __nv_bfloat16* xr = xs + (mt * 16 + g) * MM_XS + 16 * ks + 4 * t;
+        const uint2 lo = *reinterpret_cast<const uint2*>(xr);
+        const uint2 hi = *reinterpret_cast<const uint2*>(xr + 8 * MM_XS);
+        const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+        for (int c = 0; c < 4; ++c) mma_bf16_16816(acc[mt][c], a, b[c]);
+      }
+    }
+  }
+  const int c_l = warp * 32 + 8 * t;
+  if (splits == 1) {
+    const int n_l = n_blk + c_l;
+    const bool full8 = (N & 7) == 0 && n_l + 8 <= N
+                       && (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + g + 8 * h;
+        if (r >= mt_rows) continue;
+        float v[8];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          v[c] = acc[mt][c][2 * h];
+          v[4 + c] = acc[mt][c][2 * h + 1];
+        }
+        __nv_bfloat16* out = y + (size_t)(m0 + r) * N + n_l;
+        if (full8) {
+          const float4 s0 = *reinterpret_cast<const float4*>(s + n_l);
+          const float4 s1 = *reinterpret_cast<const float4*>(s + n_l + 4);
+          *reinterpret_cast<uint4*>(out) = make_uint4(
+              bf16x2_rn(v[0] * s0.x, v[1] * s0.y),
+              bf16x2_rn(v[2] * s0.z, v[3] * s0.w),
+              bf16x2_rn(v[4] * s1.x, v[5] * s1.y),
+              bf16x2_rn(v[6] * s1.z, v[7] * s1.w));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (n_l + j < N) out[j] = __float2bfloat16(v[j] * s[n_l + j]);
         }
       }
     }
+    return;
   }
 
-  // Reduce the four row groups, one x row at a time, then store the block's
-  // partial sums in its split's slice of the workspace.
-  float* part = ws + (size_t)blockIdx.y * M * N;
+  // The splits of this column tile form one thread block cluster. Each
+  // block's sums go to its shared memory (the ring is free by now); each
+  // block then reduces 1/splits of the tile's float4 column groups,
+  // reading every block's sums (all loads in flight at once) and adding
+  // them in split order, so the result does not depend on which block
+  // finishes first.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);   // [MT * 16][MM_PS]
+  mm_store_tile<MT>(part, acc, g, c_l, mt_rows);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int quads = mt_rows * (MM_BN / 4);
+  for (int i = cluster.block_rank() * THREADS + tid; i < quads;
+       i += splits * THREADS) {
+    const int r = i / (MM_BN / 4), c = 4 * (i % (MM_BN / 4));
+    float4 p[MAX_SPLITS];
 #pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    if (m >= mt) break;
-    __syncthreads();
-    if (rg > 0) {
+    for (int j = 0; j < MAX_SPLITS; ++j)
+      if (j < splits)
+        p[j] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, j) + r * MM_PS + c);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) red[rg - 1][cg * 4 + j] = acc[m][j];
-    }
-    __syncthreads();
-    if (rg == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float v = acc[m][j] + red[0][cg * 4 + j] + red[1][cg * 4 + j]
-                        + red[2][cg * 4 + j];
-        if (n0 + j < N) part[(size_t)(m0 + m) * N + n0 + j] = v;
+    for (int j = 0; j < MAX_SPLITS; ++j)
+      if (j < splits) {
+        a.x += p[j].x; a.y += p[j].y; a.z += p[j].z; a.w += p[j].w;
       }
+    const int n = n_blk + c;
+    __nv_bfloat16* out = y + (size_t)(m0 + r) * N + n;
+    const float o[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n + j < N) out[j] = __float2bfloat16(o[j] * s[n + j]);
+  }
+  cluster.sync();   // keep this block's sums until every reader is done
+}
+
+// ---------------------------------------------------------- int8_matmul_t
+
+template <int MT, bool VEC>
+__device__ __forceinline__ void mt_load_stage(
+    uint8_t* stage, const __nv_bfloat16* __restrict__ x,
+    const int8_t* __restrict__ q, int D, int V, int m0, int mt_rows,
+    int v_blk, int d0) {
+  const int tid = threadIdx.x;
+  // Weights: MT_BV rows x 8 chunks of 16 bytes, chunk j of row r stored at
+  // j ^ (4 (r % 2)).
+  for (int c = tid; c < MT_BV * (MT_BK / 16); c += THREADS) {
+    const int r = c >> 3, j = c & 7;
+    const int v = v_blk + r, d = d0 + 16 * j;
+    uint8_t* dst = stage + r * MT_BK + ((j ^ ((r & 1) << 2)) << 4);
+    const int8_t* src = q + (size_t)v * D + d;
+    if (VEC) {
+      const bool in = v < V && d < D;       // D % 16 == 0: whole chunks
+      cp_async16(dst, in ? src : q, in ? 16 : 0);
+    } else {
+      const int cnt = v < V ? min(16, D - d) : 0;
+      uint4 w;
+      w.x = pack4(src, cnt);
+      w.y = pack4(src + 4, cnt - 4);
+      w.z = pack4(src + 8, cnt - 8);
+      w.w = pack4(src + 12, cnt - 12);
+      *reinterpret_cast<uint4*>(dst) = w;
+    }
+  }
+  // x: mt_rows rows x MT_BK bf16, 16 chunks of 8 a row (the rows past M
+  // were zeroed once by zero_x_tail).
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage + MtLayout<MT>::W);
+  for (int c = tid; c < mt_rows * (MT_BK / 8); c += THREADS) {
+    const int r = c >> 4, j = c & 15;
+    const int d = d0 + 8 * j;
+    __nv_bfloat16* dst = xs + r * MT_XS + 8 * j;
+    const __nv_bfloat16* src = x + (size_t)(m0 + r) * D + d;
+    if (VEC) {
+      const bool in = d < D;       // D % 16 == 0: whole chunks
+      cp_async16(dst, in ? src : x, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = d + e < D ? src[e] : __float2bfloat16(0.f);
     }
   }
 }
 
-__global__ void sum_scale_cast_kernel(const float* __restrict__ ws,
-                                      const float* __restrict__ s,
-                                      __nv_bfloat16* __restrict__ y,
-                                      int M, int N, int splits) {
-  const size_t mn = (size_t)M * N;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float acc = 0.f;
-  for (int sp = 0; sp < splits; ++sp) acc += ws[sp * mn + i];
-  y[i] = __float2bfloat16(acc * s[i % N]);
-}
-
-__global__ void __launch_bounds__(MT_THREADS, 1)
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
 mm_t_kernel(const __nv_bfloat16* __restrict__ x,   // [M, D]
             const int8_t* __restrict__ q,          // [V, D]
-            const float* __restrict__ s,            // [V]
+            const float* __restrict__ s,           // [V]
             __nv_bfloat16* __restrict__ y,         // [M, V]
-            int M, int D, int V, int m_tile) {
-  extern __shared__ float xs[];                     // [m_tile, D]
-  const int m0 = blockIdx.y * m_tile;
-  const int mt = min(m_tile, M - m0);
-  for (int i = threadIdx.x; i < mt * D; i += blockDim.x)
-    xs[i] = __bfloat162float(x[(size_t)m0 * D + i]);
-  __syncthreads();
+            int M, int D, int V) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  using L = MtLayout<MT>;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int groups = (V + 31) / 32;
-  const bool vec = (D & 15) == 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int v_blk = blockIdx.x * MT_BV;
+  const int m0 = blockIdx.y * (MT * 16);
+  const int mt_rows = min(MT * 16, M - m0);
+  const int iters = (D + MT_BK - 1) / MT_BK;
 
-  for (int g = blockIdx.x * warps + warp; g < groups; g += gridDim.x * warps) {
-    float out[MAXM];
+  float acc[MT][4][4];
 #pragma unroll
-    for (int m = 0; m < MAXM; ++m) out[m] = 0.f;
-    const int rows = min(32, V - g * 32);
-    const int8_t* group = q + (size_t)g * 32 * D;
-    // MT_ROWS rows at a time: each x value read from shared memory feeds
-    // MT_ROWS fused multiply-adds.
-    for (int r0 = 0; r0 < rows; r0 += MT_ROWS) {
-      float acc[MT_ROWS][MAXM];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int rb = 0; rb < MT_ROWS; ++rb)
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int m = 0; m < MAXM; ++m) acc[rb][m] = 0.f;
-      if (vec) {
-        for (int d = lane * 16; d < D; d += 512) {
-          int4 chunk[MT_ROWS];
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  zero_x_tail(smem, L::STAGE, L::W, MT_XS, MT * 16, mt_rows);
 #pragma unroll
-          for (int rb = 0; rb < MT_ROWS; ++rb)
-            chunk[rb] = r0 + rb < rows
-                ? *reinterpret_cast<const int4*>(group + (size_t)(r0 + rb) * D + d)
-                : make_int4(0, 0, 0, 0);
-          float w[MT_ROWS][16];
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < iters)
+      mt_load_stage<MT, VEC>(smem + i * L::STAGE, x, q, D, V, m0, mt_rows,
+                             v_blk, i * MT_BK);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nx = it + STAGES - 1;
+    if (nx < iters)
+      mt_load_stage<MT, VEC>(smem + (nx % STAGES) * L::STAGE, x, q, D, V, m0,
+                             mt_rows, v_blk, nx * MT_BK);
+    cp_async_commit();
+
+    const uint8_t* wst = smem + (it % STAGES) * L::STAGE;
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(wst + L::W);
 #pragma unroll
-          for (int rb = 0; rb < MT_ROWS; ++rb) {
-            const int words[4] = {chunk[rb].x, chunk[rb].y, chunk[rb].z,
-                                  chunk[rb].w};
+    for (int h = 0; h < 2; ++h) {
+      // n8 tile nt: vocab row 32 warp + 8 nt + g, bytes 64h + 16t .. +15
+      // (chunk 4h + t), i.e. 4 k-steps of this lane.
+      uint32_t b[4][4][2];   // [k-step j][tile nt][reg]
 #pragma unroll
-            for (int e = 0; e < 16; ++e)
-              w[rb][e] = static_cast<float>(
-                  static_cast<int8_t>(words[e >> 2] >> (8 * (e & 3))));
-          }
-#pragma unroll
-          for (int m = 0; m < MAXM; ++m) {
-            if (m < mt) {
-              const float4* xp = reinterpret_cast<const float4*>(xs + m * D + d);
-#pragma unroll
-              for (int e4 = 0; e4 < 4; ++e4) {
-                const float4 xv = xp[e4];
-#pragma unroll
-                for (int rb = 0; rb < MT_ROWS; ++rb) {
-                  float a = acc[rb][m];
-                  a = fmaf(xv.x, w[rb][4 * e4 + 0], a);
-                  a = fmaf(xv.y, w[rb][4 * e4 + 1], a);
-                  a = fmaf(xv.z, w[rb][4 * e4 + 2], a);
-                  a = fmaf(xv.w, w[rb][4 * e4 + 3], a);
-                  acc[rb][m] = a;
-                }
-              }
-            }
-          }
-        }
-      } else {
-        for (int d = lane; d < D; d += 32) {
-          float w[MT_ROWS];
-#pragma unroll
-          for (int rb = 0; rb < MT_ROWS; ++rb)
-            w[rb] = r0 + rb < rows ? q2f(group[(size_t)(r0 + rb) * D + d]) : 0.f;
-#pragma unroll
-          for (int m = 0; m < MAXM; ++m) {
-            if (m < mt) {
-              const float xv = xs[m * D + d];
-#pragma unroll
-              for (int rb = 0; rb < MT_ROWS; ++rb)
-                acc[rb][m] = fmaf(xv, w[rb], acc[rb][m]);
-            }
-          }
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = warp * 32 + nt * 8 + g;
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            wst + r * MT_BK + (((4 * h + t) ^ ((g & 1) << 2)) << 4));
+        s8x4_to_bf16x4(w.x, b[0][nt][0], b[0][nt][1]);
+        s8x4_to_bf16x4(w.y, b[1][nt][0], b[1][nt][1]);
+        s8x4_to_bf16x4(w.z, b[2][nt][0], b[2][nt][1]);
+        s8x4_to_bf16x4(w.w, b[3][nt][0], b[3][nt][1]);
       }
 #pragma unroll
-      for (int rb = 0; rb < MT_ROWS; ++rb) {
+      for (int mt = 0; mt < MT; ++mt) {
+        // Rows g and g + 8, the same 16 bf16: elements 4j .. 4j+3 feed
+        // k-step j (words 2j and 2j + 1).
+        const __nv_bfloat16* xr = xs + (mt * 16 + g) * MT_XS + 64 * h + 16 * t;
+        const uint4 l0 = *reinterpret_cast<const uint4*>(xr);
+        const uint4 l1 = *reinterpret_cast<const uint4*>(xr + 8);
+        const uint4 h0 = *reinterpret_cast<const uint4*>(xr + 8 * MT_XS);
+        const uint4 h1 = *reinterpret_cast<const uint4*>(xr + 8 * MT_XS + 8);
+        const uint32_t lo[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+        const uint32_t hi[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
-        for (int m = 0; m < MAXM; ++m) {
-          if (m < mt) {
-            float a = acc[rb][m];
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t a[4] = {lo[2 * j], hi[2 * j], lo[2 * j + 1],
+                                 hi[2 * j + 1]};
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              a += __shfl_xor_sync(0xffffffffu, a, off);
-            if (lane == r0 + rb) out[m] = a;
-          }
+          for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a, b[j][nt]);
         }
       }
-    }
-    const int v = g * 32 + lane;
-    if (lane < rows) {
-      const float sv = s[v];
-#pragma unroll
-      for (int m = 0; m < MAXM; ++m)
-        if (m < mt) y[(size_t)(m0 + m) * V + v] = __float2bfloat16(out[m] * sv);
     }
   }
+  cp_async_wait<0>();
+
+  // acc[mt][nt]: c[0], c[1] at vocab v, v + 1 of row g; c[2], c[3] of g + 8.
+  const bool pairs = (V & 1) == 0;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int v = v_blk + warp * 32 + nt * 8 + 2 * t;
+    if (v >= V) continue;
+    const float s0 = s[v], s1 = v + 1 < V ? s[v + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + g + 8 * h;
+        if (r >= mt_rows) continue;
+        __nv_bfloat16* out = y + (size_t)(m0 + r) * V + v;
+        const __nv_bfloat16 o0 = __float2bfloat16(acc[mt][nt][2 * h] * s0);
+        const __nv_bfloat16 o1 = __float2bfloat16(acc[mt][nt][2 * h + 1] * s1);
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(out) = __halves2bfloat162(o0, o1);
+        } else {
+          out[0] = o0;
+          if (v + 1 < V) out[1] = o1;
+        }
+      }
+    }
+  }
+}
+
+// Each launcher raises its kernel's dynamic shared memory limit on its
+// first call (outside any CUDA-graph capture that later calls make).
+
+// int8_matmul with its splits (grid.y) as one cluster per column tile.
+template <int MT, bool VEC>
+int launch_mm(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
+              const int8_t* q, const float* s, __nv_bfloat16* y, int M, int K,
+              int N, int k_per_split) {
+  static bool ready = false;
+  constexpr int smem = MmLayout<MT>::SMEM;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mm_kernel<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)   // clusters of up to 16 blocks
+      err = cudaFuncSetAttribute(mm_kernel<MT, VEC>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.y > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, mm_kernel<MT, VEC>, x, q,
+                                             s, y, M, K, N, k_per_split);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <int MT, bool VEC>
+int launch_mm_t(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
+                const int8_t* q, const float* s, __nv_bfloat16* y, int M,
+                int D, int V) {
+  static bool ready = false;
+  constexpr int smem = MtLayout<MT>::SMEM;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mm_t_kernel<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  mm_t_kernel<MT, VEC><<<grid, THREADS, smem, st>>>(x, q, s, y, M, D, V);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b))
+          & 15) == 0;
+}
+
+int m_tiles(int M) {
+  const int tiles = (M + 15) / 16;
+  return tiles < MAX_MT ? tiles : MAX_MT;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16, q [K, N] int8, s [N] f32 -> y [M, N] bf16. ws holds
-// splits * M * N floats, splits = ceil(K / k_per_split); the kernels write
-// all of it before reading it, so it needs no zeroing.
-int ft_int8_matmul(const void* x, const void* q, const void* s, void* ws,
-                   void* y, int M, int K, int N, int k_per_split,
-                   void* stream) {
+// x [M, K] bf16, q [K, N] int8, s [N] f32 -> y [M, N] bf16, in
+// ceil(K / k_per_split) <= 16 splits (k_per_split a multiple of 64).
+int ft_int8_matmul(const void* x, const void* q, const void* s, void* y,
+                   int M, int K, int N, int k_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int splits = (K + k_per_split - 1) / k_per_split;
-  const dim3 grid((N + MM_COLS - 1) / MM_COLS, splits, (M + MAXM - 1) / MAXM);
-  mm_splitk_kernel<<<grid, MM_THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<float*>(ws), M, K, N, k_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = (size_t)M * N;
-  sum_scale_cast_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(s),
-      static_cast<__nv_bfloat16*>(y), M, N, splits);
-  return static_cast<int>(cudaGetLastError());
+  const int mt = m_tiles(M);
+  const int splits = K > 0 ? (K + k_per_split - 1) / k_per_split : 1;
+  if (splits > MAX_SPLITS || k_per_split % MM_BK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + MM_BN - 1) / MM_BN, splits,
+                  (M + mt * 16 - 1) / (mt * 16));
+  const bool vec = (N % 16) == 0 && (K % 8) == 0 && aligned16(x, q);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto qb = static_cast<const int8_t*>(q);
+  auto sb = static_cast<const float*>(s);
+  auto yb = static_cast<__nv_bfloat16*>(y);
+#define FT_MM(MT)                                                       \
+  return vec ? launch_mm<MT, true>(grid, st, xb, qb, sb, yb, M, K, N,   \
+                                   k_per_split)                         \
+             : launch_mm<MT, false>(grid, st, xb, qb, sb, yb, M, K, N,  \
+                                    k_per_split)
+  switch (mt) {
+    case 1: FT_MM(1);
+    case 2: FT_MM(2);
+    case 3: FT_MM(3);
+    default: FT_MM(4);
+  }
+#undef FT_MM
 }
 
 // x [M, D] bf16, q [V, D] int8, s [V] f32 -> y [M, V] bf16.
-// m_tile rows of x per block (<= 16); shared memory m_tile * D * 4 bytes.
 int ft_int8_matmul_t(const void* x, const void* q, const void* s, void* y,
-                     int M, int D, int V, int m_tile, int blocks,
-                     void* stream) {
+                     int M, int D, int V, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)m_tile * D * sizeof(float);
-  // Raise the kernel's shared-memory limit once per size seen (not on every
-  // launch: the call stays out of CUDA-graph captures after the first use).
-  static size_t smem_allowed = 0;
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mm_t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
+  const int mt = m_tiles(M);
+  const dim3 grid((V + MT_BV - 1) / MT_BV, (M + mt * 16 - 1) / (mt * 16));
+  const bool vec = (D % 16) == 0 && aligned16(x, q);
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto qb = static_cast<const int8_t*>(q);
+  auto sb = static_cast<const float*>(s);
+  auto yb = static_cast<__nv_bfloat16*>(y);
+#define FT_MT(MT)                                                           \
+  return vec ? launch_mm_t<MT, true>(grid, st, xb, qb, sb, yb, M, D, V)     \
+             : launch_mm_t<MT, false>(grid, st, xb, qb, sb, yb, M, D, V)
+  switch (mt) {
+    case 1: FT_MT(1);
+    case 2: FT_MT(2);
+    case 3: FT_MT(3);
+    default: FT_MT(4);
   }
-  const dim3 grid(blocks, (M + m_tile - 1) / m_tile);
-  mm_t_kernel<<<grid, MT_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), M, D, V,
-      m_tile);
-  return static_cast<int>(cudaGetLastError());
+#undef FT_MT
 }
 
 }  // extern "C"

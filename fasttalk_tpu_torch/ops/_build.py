@@ -3,8 +3,9 @@
 Each source compiles on first use with ``nvcc`` into its own shared
 library with a plain C interface under ``build/fasttalk_tpu_torch/`` of
 the checkout, and is loaded with ``ctypes`` (no PyTorch headers: a build
-takes seconds). Library names carry a hash of the source, so an edited
-kernel rebuilds and a stale library is never loaded. Every exported C
+takes seconds). Library names carry a hash of the source and of the
+shared headers (``csrc/*.cuh``), so an edited kernel or header rebuilds
+and a stale library is never loaded. Every exported C
 function returns ``cudaGetLastError()``; the wrappers raise on non-zero.
 
 Nothing here runs at import: the CPU tests import every module and this
@@ -44,11 +45,16 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """The source and the library path for ``csrc/<name>.cu``. The hash
+    covers the source, every ``csrc/*.cuh`` header (a source may include
+    any of them) and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str) -> tuple[subprocess.Popen | None, str, str]:

@@ -1,29 +1,33 @@
 """Int8 weight-only decode matmuls: hand-written CUDA kernels and their
 plain versions.
 
-Source notes (the kernels are ``csrc/int8_matmul.cu``):
+Source notes (the kernels are ``csrc/int8_matmul.cu``, with the shared
+mma, conversion and copy pieces in ``csrc/mma_bf16.cuh``; the fragment
+mappings are written out in ``ops/mma_layout.py``):
 
 - ``int8_matmul`` replaces ``fasttalk_tpu/ops/pallas_int8.py::int8_matmul``
   (:89): ``y[M,N] = (x[M,K] @ q[K,N]) * s[N]``, f32 accumulation, the
   scale applied once in f32 and a single cast to x's dtype. It runs the
   seven per-layer matmuls of a decode step (112 launches per step for
   Llama-3.2-1B). Bound: the weight bytes (a [2048, 8192] ``w_gate`` is
-  16.8 MB, about 5 us at 3.35 TB/s). Design: column tiles x split-K blocks
-  so even a [2048, 512] weight fills the card, coalesced 4-byte weight
-  reads along N, x staged in shared memory, f32 register accumulators,
-  each split's partials stored to its own workspace slice and summed in
-  split order, scaled and cast by a second small kernel (so the result
-  does not depend on block scheduling). Any M, K and N (the TPU kernel's
-  128-row and VMEM gates do not apply).
+  16.8 MB, about 5 us at 3.35 TB/s); the multiply-adds run on the bf16
+  tensor cores (``mma.sync`` m16n8k16, f32 accumulators) on the int8 tile
+  converted exactly on chip. Design: 128-column x split-K blocks, weights
+  and x staged through a 4-stage ``cp.async`` ring, a lane's B fragment
+  read as one word from each of 4 weight rows (byte c feeds n8 tile c),
+  up to 4 m16 tiles per block; the (at most 16) splits of a column tile
+  run as one thread block cluster and sum their f32 partial tiles in
+  split order through distributed shared memory: one launch a call, no
+  workspace or counter, and the same bits every call. Any M, K and N
+  (the TPU kernel's 128-row and VMEM gates do not apply).
 - ``int8_matmul_t`` replaces ``pallas_int8.py::int8_matmul_t`` (:127):
   ``y[M,V] = x[M,D] @ (q[V,D] * s[V])^T``, the tied-embedding lm_head,
   without materialising the transpose. Bound: the [128256, 2048] int8
-  table, 262.7 MB (about 78 us); at M=16 its f32 multiply-adds on the
-  CUDA cores take longer than the bytes. Design: one block per SM holds x
-  in dynamic shared memory as f32; warps stream groups of 32 contiguous
-  vocab rows, 4 rows at a time with 16-byte loads (each x value read feeds
-  4 rows), and write each group's outputs as one coalesced store per x
-  row.
+  table, 262.7 MB (about 78 us). Design: a block owns 128 vocab rows and
+  walks D in 128-byte ``cp.async`` stages; a lane reads 16 contiguous
+  bytes of one vocab row (4 k-steps of its B fragment) and, through the
+  same k permutation, 16 contiguous bf16 of x; each accumulator is one
+  output, scaled by s[v] and stored (no cross-lane reduction).
 
 Dispatch rule of every wrapper: a CPU tensor runs the plain version (the
 CPU tests hold it against the JAX kernel); a CUDA tensor launches the
@@ -43,19 +47,21 @@ _I = ctypes.c_int
 _lib_handle: ctypes.CDLL | None = None
 _sm_counts: dict[int, int] = {}
 
-# Shared memory the lm_head kernel may spend on x (f32), under the 227 KB
-# a Hopper block can address.
-_MT_SMEM_BYTES = 200 * 1024
+_MM_COLS = 128         # columns of an int8_matmul block
+_MM_K_STAGE = 64       # weight rows of one ring stage
+_MM_MIN_SPLIT = 128    # weight rows of the shortest split (8 k-steps)
+_MM_MAX_SPLITS = 16    # the splits of a column tile form one cluster
+_MM_BLOCKS_PER_SM = 2  # split-K aims at this many blocks per SM
+_M_TILE = 64           # x rows one block covers (4 m16 tiles)
 
 
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("int8_matmul")
-        lib.ft_int8_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.ft_int8_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.ft_int8_matmul.restype = _I
-        lib.ft_int8_matmul_t.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         _P]
+        lib.ft_int8_matmul_t.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.ft_int8_matmul_t.restype = _I
         _lib_handle = lib
     return _lib_handle
@@ -72,6 +78,16 @@ def _sm_count(device: torch.device) -> int:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _sm_counts[idx]
+
+
+def _split_rows(k: int, tiles: int, sms: int) -> int:
+    """Weight rows per split of ``int8_matmul``: enough splits (at most
+    ``_MM_MAX_SPLITS``, a cluster) for about ``_MM_BLOCKS_PER_SM`` blocks
+    per SM over ``tiles`` column tiles, each a whole number of ring stages
+    and at least ``_MM_MIN_SPLIT`` rows."""
+    splits = min(_MM_MAX_SPLITS, _cdiv(_MM_BLOCKS_PER_SM * sms, tiles))
+    per = _cdiv(_cdiv(k, splits), _MM_K_STAGE) * _MM_K_STAGE
+    return max(_MM_MIN_SPLIT, per)
 
 
 def _check_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -107,20 +123,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     _check_cuda(x, q, s, "int8_matmul")
     m, k = x.shape
     n = q.shape[1]
-    col_blocks = _cdiv(n, 256) * _cdiv(m, 16)
-    # Split K for about two blocks per SM, but give each split at least 64
-    # weight rows: a split reads one byte per row and column and writes
-    # 4 * M bytes of partial sums per column, so for the decode batch
-    # (M <= 16) from 64 rows on the workspace traffic stays at or under the
-    # weight traffic.
-    splits = _cdiv(2 * _sm_count(x.device), col_blocks)
-    k_per_split = max(64, _cdiv(_cdiv(k, splits), 4) * 4)
-    ws = torch.empty((_cdiv(k, k_per_split), m, n), dtype=torch.float32,
-                     device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    tiles = _cdiv(n, _MM_COLS) * _cdiv(m, _M_TILE)
+    k_per_split = _split_rows(k, tiles, _sm_count(x.device))
     err = _lib().ft_int8_matmul(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), ws.data_ptr(), y.data_ptr(),
-        m, k, n, k_per_split, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, k, n,
+        k_per_split, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return y
@@ -148,17 +156,9 @@ def int8_matmul_t(x: torch.Tensor, q: torch.Tensor,
     _check_cuda(x, q, s, "int8_matmul_t")
     m, d = x.shape
     v = q.shape[0]
-    if d % 16 == 0 and q.data_ptr() % 16:
-        raise ValueError("int8_matmul_t: q must be 16-byte aligned")
-    m_tile = next((t for t in (16, 8, 4, 2, 1)
-                   if t * d * 4 <= _MT_SMEM_BYTES), None)
-    if m_tile is None:
-        raise ValueError(f"int8_matmul_t: D={d} exceeds shared memory")
-    m_tile = min(m_tile, m)
     y = torch.empty((m, v), dtype=x.dtype, device=x.device)
     err = _lib().ft_int8_matmul_t(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, d, v,
-        m_tile, _sm_count(x.device),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_matmul_t")
     int8_matmul_t.launches += 1

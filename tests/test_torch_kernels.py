@@ -6,8 +6,9 @@ fixture skips them. On a machine with the card run
     python -m pytest tests/test_torch_kernels.py -m gpu -q
 
 Tolerances: kernel and plain version both accumulate in f32 and cast to
-bf16 once, so they differ by summation order plus at most one bf16
-rounding step of the output. The matmuls (``int8_matmul``,
+bf16 once (the int8 matmuls multiply on the bf16 tensor cores, where every
+int8 weight and bf16 x is exact), so they differ by summation order plus
+at most one bf16 rounding step of the output. The matmuls (``int8_matmul``,
 ``int8_matmul_t``, ``int4_matmul``) are held to 1% of the output's largest
 magnitude. ``decode_attend`` and ``decode_attend_paged`` (bf16 and
 int8 rows) are held slot by slot, to 1% of each slot's own largest output
@@ -69,9 +70,18 @@ def _int8(shape, gen, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(16, 2048, 512), (1, 256, 384),
-                                   (5, 100, 100), (17, 512, 258),
-                                   (40, 64, 1024)])
+@pytest.mark.parametrize("m,k,n", [
+    (16, 2048, 512), (1, 256, 384), (5, 100, 100), (17, 512, 258),
+    (40, 64, 1024),
+    # The four Llama-3.2-1B decode shapes at M = 16 and M = 1.
+    (16, 2048, 2048), (16, 2048, 8192), (16, 8192, 2048), (1, 2048, 2048),
+    (1, 2048, 512), (1, 2048, 8192), (1, 8192, 2048),
+    # M over one, two and four m16 tiles and past one 64-row block.
+    (64, 2048, 512), (17, 1024, 640), (65, 256, 256), (130, 192, 128),
+    # N not a multiple of the 128-column tile (16-aligned and not), K not
+    # a multiple of 16 (and K < 16), K over many splits.
+    (16, 512, 208), (16, 512, 200), (16, 24, 512), (3, 7, 40),
+    (16, 1000, 384), (64, 8192, 256)])
 def test_int8_matmul_matches_plain(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m * k + n)
     q = _int8((k, n), g, cuda)
@@ -83,8 +93,15 @@ def test_int8_matmul_matches_plain(cuda, m, k, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,v,d", [(16, 4096, 2048), (1, 1000, 256),
-                                   (3, 77, 40), (20, 2048, 512)])
+@pytest.mark.parametrize("m,v,d", [
+    (16, 4096, 2048), (1, 1000, 256), (3, 77, 40), (20, 2048, 512),
+    # The full-size lm_head at M = 16 and M = 1.
+    (16, 128256, 2048), (1, 128256, 2048),
+    # M over one, two and four m16 tiles and past one 64-row block; V not
+    # a multiple of the 128-row tile (and odd); D not a multiple of 16 (and
+    # D < 16) or of the 128-byte stage.
+    (17, 1000, 256), (40, 300, 2048), (64, 129, 512), (70, 256, 128),
+    (16, 77, 8), (16, 1001, 200), (16, 500, 1040)])
 def test_int8_matmul_t_matches_plain(cuda, m, v, d):
     g = torch.Generator(device=cuda).manual_seed(m * v + d)
     q = _int8((v, d), g, cuda)
@@ -244,12 +261,19 @@ def test_kernels_give_the_same_bits_on_every_call(cuda):
     """Split-K partials and the attention warps' states are summed in a
     fixed order, so repeated calls agree bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(7)
+    for k, n in ((2048, 512), (8192, 2048)):
+        x = torch.randn((16, k), generator=g, device=cuda).to(torch.bfloat16)
+        q = _int8((k, n), g, cuda)
+        s = torch.rand((n,), generator=g, device=cuda) * 0.02
+        first = int8_matmul(x, q, s)
+        for _ in range(5):
+            assert torch.equal(int8_matmul(x, q, s), first)
     x = torch.randn((16, 2048), generator=g, device=cuda).to(torch.bfloat16)
-    q = _int8((2048, 512), g, cuda)
-    s = torch.rand((512,), generator=g, device=cuda) * 0.02
-    first = int8_matmul(x, q, s)
+    q = _int8((4096, 2048), g, cuda)
+    s = torch.rand((4096,), generator=g, device=cuda) * 0.02
+    first = int8_matmul_t(x, q, s)
     for _ in range(5):
-        assert torch.equal(int8_matmul(x, q, s), first)
+        assert torch.equal(int8_matmul_t(x, q, s), first)
     k = torch.randn((4, 1024, 8, 64), generator=g,
                     device=cuda).to(torch.bfloat16)
     qa = torch.randn((4, 32, 64), generator=g, device=cuda).to(torch.bfloat16)
@@ -273,6 +297,70 @@ def test_kernels_give_the_same_bits_on_every_call(cuda):
             assert torch.equal(decode_attend_paged(
                 q, kp, vp, lengths, tables, block_size=16, k_scale=ks,
                 v_scale=vs), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16, 2048, 2048), (16, 2048, 512),
+                                   (16, 8192, 2048), (1, 2048, 8192),
+                                   (40, 1000, 200)])
+def test_int8_matmul_replays_in_a_cuda_graph(cuda, m, k, n):
+    """Captured in a CUDA graph and replayed three times, the kernel gives
+    an eager call's bits each time (split-K shapes included: a replay
+    carries no state of the previous one)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    q = _int8((k, n), g, cuda)
+    s = torch.rand((n,), generator=g, device=cuda) * 0.02
+    eager = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_matmul(x, q, s)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(int8_matmul(x, q, s), eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,v,d", [(16, 128256, 2048), (1, 1000, 256),
+                                   (40, 77, 40)])
+def test_int8_matmul_t_replays_in_a_cuda_graph(cuda, m, v, d):
+    """The lm_head kernel captured and replayed three times gives an
+    eager call's bits each time."""
+    g = torch.Generator(device=cuda).manual_seed(m + v + d)
+    x = torch.randn((m, d), generator=g, device=cuda).to(torch.bfloat16)
+    q = _int8((v, d), g, cuda)
+    s = torch.rand((v,), generator=g, device=cuda) * 0.02
+    eager = int8_matmul_t(x, q, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_matmul_t(x, q, s)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_takes_unaligned_views(cuda):
+    """Weights or x that are not 16-byte aligned (a view one element in)
+    take the kernel's plain-load staging and give the same result."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((16 * 2048 + 1,), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    q = _int8((2048 * 512 + 1,), g, cuda)
+    s = torch.rand((512,), generator=g, device=cuda) * 0.02
+    xv, qv = x[1:].view(16, 2048), q[1:].view(2048, 512)
+    assert xv.data_ptr() % 16 != 0 and qv.data_ptr() % 16 != 0
+    _close(int8_matmul(xv, qv, s), int8_matmul_plain(xv, qv, s))
+    qt = q[1:].view(512, 2048)
+    st = torch.rand((512,), generator=g, device=cuda) * 0.02
+    _close(int8_matmul_t(xv, qt, st), int8_matmul_t_plain(xv, qt, st))
 
 
 @pytest.mark.gpu
