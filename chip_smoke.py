@@ -9,9 +9,10 @@ no result line):
 1. the card's name and power limit (nvidia-smi); build every CUDA kernel
    of ``fasttalk_tpu_torch/csrc`` with nvcc, one process per source;
 2. each kernel, and each tier of the attention kernel (dense or paged,
-   bf16 or int8 rows), against its plain PyTorch version on the card at
-   the shapes the Llama-3.2-1B decode step gives it, with the tolerance
-   stated, then timed with CUDA graphs beside its plain version, one
+   bf16 or int8 rows; T = 1, 4 and 8 query positions), against its plain
+   PyTorch version on the card at the shapes the Llama-3.2-1B decode step
+   gives it, with the tolerance stated, then timed with CUDA graphs beside
+   its plain version, one
    PyTorch library call computing the same function (where there is one),
    and its bound;
 3. llama3.2:1b at full width (int8 random weights on the card): prefill
@@ -136,14 +137,15 @@ def check_int4_matmul(results: dict) -> None:
     """int4_matmul at the decode-step shapes, G = 128, M = 16 and 1: held to
     1% of the plain version's largest output; timed beside the plain
     version and ``torch.matmul`` on the pre-dequantized bf16 weight; the
-    entry is one decode step at M = 16 (112 calls)."""
+    entry is one decode step at M = 16 (112 calls), with the same step at
+    M = 1 in ``ms_m1`` and ``library_ms_m1``."""
     from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul, int4_matmul_plain
     from fasttalk_tpu_torch.quantization.int4 import unpack_int4
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-            "ops": 0.0}
+            "ops": 0.0, "ms_m1": 0.0, "library_ms_m1": 0.0}
     worst = 0.0
     for (k, n), per_layer in LAYER_MATMULS.items():
         groups = k // INT4_GROUP
@@ -181,19 +183,24 @@ def check_int4_matmul(results: dict) -> None:
             b_ms, by = bound(nbytes, ops)
             log(f"  ms={ms:.6g} plain_ms={plain:.6g} library_ms={lib:.6g} "
                 f"bound_ms={b_ms:.6g} ({by})")
+            calls = per_layer * LAYERS
             if m == SLOTS:
-                calls = per_layer * LAYERS
                 for key, val in (("ms", ms), ("plain_ms", plain),
                                  ("library_ms", lib), ("bytes", nbytes),
                                  ("ops", ops)):
                     step[key] += calls * val
+            else:
+                step["ms_m1"] += calls * ms
+                step["library_ms_m1"] += calls * lib
         del q4s, ss
     b_ms, by = bound(step["bytes"], step["ops"])
     results["int4_matmul"] = {
         "max_abs_err": worst, "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": b_ms, "bound_by": by, "library_ms": step["library_ms"],
+        "ms_m1": step["ms_m1"], "library_ms_m1": step["library_ms_m1"],
         "work": "one decode step at M=16: 112 calls over the 4 (K, N) "
-                f"shapes, group {INT4_GROUP}"}
+                f"shapes, group {INT4_GROUP} (ms_m1, library_ms_m1: the "
+                "same step at M=1)"}
 
 
 def check_int8_matmul(results: dict) -> None:
@@ -331,10 +338,12 @@ def _int8_kv(shape: tuple, granule: int, g: torch.Generator,
 def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
                  seed: int) -> None:
     """One tier of the attention kernel at the decode-step shapes: 16 slots,
-    lengths ``ATTEND_LENGTHS``; int8 at scale granule G = 1 and 8, T = 1
-    and 4; paged through shuffled tables over the pool. Each slot is held
-    to ATTEND_SLOT_TOL of its own largest output; the reported entry is one
-    decode step (16 layer calls) at T = 1 and G = 1 (the served default)."""
+    lengths ``ATTEND_LENGTHS``; int8 at scale granule G = 1 and 8, T = 1,
+    4 and 8 (T*G = 4, 16 and 32 query rows a KV head: one m16 tile, and two);
+    paged through shuffled tables over the pool. Each slot is held to
+    ATTEND_SLOT_TOL of its own largest output; T = 1 and 4 are timed. The
+    reported entry is one decode step (16 layer calls) at T = 1 and G = 1
+    (the served default), with the same step at T = 4 in ``ms_t4``."""
     from fasttalk_tpu_torch.ops import cuda_attention as ca
     from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 
@@ -382,7 +391,7 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
 
         plain_fn = (ca.decode_attend_paged_plain if paged
                     else ca.decode_attend_plain)
-        for t in (1, 4):
+        for t in (1, 4, 8):
             lens = [max(t, n) for n in ATTEND_LENGTHS]
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             q = torch.randn((SLOTS, t, NQ, HEAD_DIM), generator=g,
@@ -403,6 +412,8 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
                 fail(f"{label} disagrees with its plain version: slot gaps "
                      f"{gaps.tolist()} > {ATTEND_SLOT_TOL}")
             worst = max(worst, err)
+            if t == 8:
+                continue
             ms = time_ms(lambda i: call(i, q, lengths, None), 50)
             plain = time_ms(lambda i: call(i, q, lengths, plain_fn), 5)
             lib = None
@@ -446,7 +457,10 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
                                  f"lengths {lens}"
                                  + (", scale granule 1" if int8 else "")
                                  + (f", {BLOCK}-token blocks" if paged
-                                    else "")}
+                                    else "")
+                                 + "; ms_t4: the same step at T=4"}
+            elif t == 4 and granule in (0, 1):
+                entry["ms_t4"] = LAYERS * ms
         del kv
     entry["max_abs_err"] = worst
     results[name] = entry
@@ -851,7 +865,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("ms_m1", "library_ms_m1") if k in r},
+            **{k: r[k] for k in ("ms_m1", "library_ms_m1", "ms_t4")
+               if k in r},
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],

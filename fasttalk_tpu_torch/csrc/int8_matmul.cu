@@ -68,11 +68,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cooperative_groups.h>
-
 #include "mma_bf16.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -80,6 +76,7 @@ using ft::cp_async16;
 using ft::cp_async_commit;
 using ft::cp_async_wait;
 using ft::mma_bf16_16816;
+using ft::pack4;
 using ft::s8x4_to_bf16x4;
 
 constexpr int THREADS = 128;   // 4 warps, both kernels
@@ -113,36 +110,6 @@ struct MtLayout {
   static constexpr int STAGE = W + MT * 16 * MT_XS * 2;
   static constexpr int SMEM = STAGES * STAGE;
 };
-
-__device__ __forceinline__ uint32_t pack4(const int8_t* p, int n) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (e < n) w |= static_cast<uint32_t>(static_cast<uint8_t>(p[e])) << (8 * e);
-  return w;
-}
-
-// Two floats rounded to bf16 as one word, a in the low half.
-__device__ __forceinline__ uint32_t bf16x2_rn(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Zero x rows mt_rows .. 16 MT - 1 (stride xs bf16) of every stage once:
-// the stage loads write only the rows below M, so the mma reads zeros for
-// the m16 tile's missing rows.
-__device__ __forceinline__ void zero_x_tail(uint8_t* smem, int stage_bytes,
-                                            int x_off, int xs, int rows,
-                                            int mt_rows) {
-  const int per_row = xs / 8;   // 16-byte pieces of a row
-  const int per_stage = (rows - mt_rows) * per_row;
-  for (int i = threadIdx.x; i < STAGES * per_stage; i += THREADS) {
-    const int st = i / per_stage, rem = i % per_stage;
-    const int r = mt_rows + rem / per_row, j = rem % per_row;
-    *reinterpret_cast<uint4*>(smem + st * stage_bytes + x_off
-                              + (r * xs + 8 * j) * 2) = make_uint4(0, 0, 0, 0);
-  }
-}
 
 // ------------------------------------------------------------ int8_matmul
 
@@ -191,27 +158,6 @@ __device__ __forceinline__ void mm_load_stage(
   }
 }
 
-// This lane's 8 sums of each row (columns 8t .. 8t+7 of its warp's 32)
-// into a [MT * 16][MM_PS] float tile of shared memory. Tile c's
-// accumulators: c[0], c[1] at columns 8t + c, 8t + 4 + c of row g; c[2],
-// c[3] the same of row g + 8.
-template <int MT>
-__device__ __forceinline__ void mm_store_tile(float* tile, const float (&acc)[MT][4][4],
-                                              int g, int c_l, int mt_rows) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = mt * 16 + g + 8 * h;
-      if (r >= mt_rows) continue;
-      float4* p = reinterpret_cast<float4*>(tile + r * MM_PS + c_l);
-      p[0] = make_float4(acc[mt][0][2 * h], acc[mt][1][2 * h],
-                         acc[mt][2][2 * h], acc[mt][3][2 * h]);
-      p[1] = make_float4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
-                         acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]);
-    }
-}
-
 template <int MT, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 mm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
@@ -225,7 +171,6 @@ mm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n_blk = blockIdx.x * MM_BN;
-  const int splits = gridDim.y;
   const int m0 = blockIdx.z * (MT * 16);
   const int mt_rows = min(MT * 16, M - m0);
   const int k_begin = blockIdx.y * k_per_split;
@@ -240,7 +185,8 @@ mm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][c][i] = 0.f;
 
-  zero_x_tail(smem, L::STAGE, L::W, MM_XS, MT * 16, mt_rows);
+  ft::zero_x_tail<THREADS, STAGES>(smem, L::STAGE, L::W, MM_XS, MT * 16,
+                                   mt_rows);
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < iters)
@@ -291,78 +237,8 @@ mm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
       }
     }
   }
-  const int c_l = warp * 32 + 8 * t;
-  if (splits == 1) {
-    const int n_l = n_blk + c_l;
-    const bool full8 = (N & 7) == 0 && n_l + 8 <= N
-                       && (reinterpret_cast<uintptr_t>(s) & 15) == 0;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + g + 8 * h;
-        if (r >= mt_rows) continue;
-        float v[8];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          v[c] = acc[mt][c][2 * h];
-          v[4 + c] = acc[mt][c][2 * h + 1];
-        }
-        __nv_bfloat16* out = y + (size_t)(m0 + r) * N + n_l;
-        if (full8) {
-          const float4 s0 = *reinterpret_cast<const float4*>(s + n_l);
-          const float4 s1 = *reinterpret_cast<const float4*>(s + n_l + 4);
-          *reinterpret_cast<uint4*>(out) = make_uint4(
-              bf16x2_rn(v[0] * s0.x, v[1] * s0.y),
-              bf16x2_rn(v[2] * s0.z, v[3] * s0.w),
-              bf16x2_rn(v[4] * s1.x, v[5] * s1.y),
-              bf16x2_rn(v[6] * s1.z, v[7] * s1.w));
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (n_l + j < N) out[j] = __float2bfloat16(v[j] * s[n_l + j]);
-        }
-      }
-    }
-    return;
-  }
-
-  // The splits of this column tile form one thread block cluster. Each
-  // block's sums go to its shared memory (the ring is free by now); each
-  // block then reduces 1/splits of the tile's float4 column groups,
-  // reading every block's sums (all loads in flight at once) and adding
-  // them in split order, so the result does not depend on which block
-  // finishes first.
-  cp_async_wait<0>();
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(smem);   // [MT * 16][MM_PS]
-  mm_store_tile<MT>(part, acc, g, c_l, mt_rows);
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int quads = mt_rows * (MM_BN / 4);
-  for (int i = cluster.block_rank() * THREADS + tid; i < quads;
-       i += splits * THREADS) {
-    const int r = i / (MM_BN / 4), c = 4 * (i % (MM_BN / 4));
-    float4 p[MAX_SPLITS];
-#pragma unroll
-    for (int j = 0; j < MAX_SPLITS; ++j)
-      if (j < splits)
-        p[j] = *reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(part, j) + r * MM_PS + c);
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < MAX_SPLITS; ++j)
-      if (j < splits) {
-        a.x += p[j].x; a.y += p[j].y; a.z += p[j].z; a.w += p[j].w;
-      }
-    const int n = n_blk + c;
-    __nv_bfloat16* out = y + (size_t)(m0 + r) * N + n;
-    const float o[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (n + j < N) out[j] = __float2bfloat16(o[j] * s[n + j]);
-  }
-  cluster.sync();   // keep this block's sums until every reader is done
+  ft::splitk_epilogue<MT, MM_BN, THREADS, MAX_SPLITS>(smem, acc, y, s, m0,
+                                                      mt_rows, N, n_blk);
 }
 
 // ---------------------------------------------------------- int8_matmul_t
@@ -437,7 +313,8 @@ mm_t_kernel(const __nv_bfloat16* __restrict__ x,   // [M, D]
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  zero_x_tail(smem, L::STAGE, L::W, MT_XS, MT * 16, mt_rows);
+  ft::zero_x_tail<THREADS, STAGES>(smem, L::STAGE, L::W, MT_XS, MT * 16,
+                                   mt_rows);
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < iters)
@@ -530,34 +407,9 @@ template <int MT, bool VEC>
 int launch_mm(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
               const int8_t* q, const float* s, __nv_bfloat16* y, int M, int K,
               int N, int k_per_split) {
-  static bool ready = false;
-  constexpr int smem = MmLayout<MT>::SMEM;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mm_kernel<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)   // clusters of up to 16 blocks
-      err = cudaFuncSetAttribute(mm_kernel<MT, VEC>,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
-                                 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ready = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = grid.y;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = grid.y > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, mm_kernel<MT, VEC>, x, q,
-                                             s, y, M, K, N, k_per_split);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return ft::launch_split_clusters<mm_kernel<MT, VEC>>(
+      grid, THREADS, MmLayout<MT>::SMEM, st, x, q, s, y, M, K, N,
+      k_per_split);
 }
 
 template <int MT, bool VEC>

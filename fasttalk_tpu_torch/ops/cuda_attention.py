@@ -16,13 +16,18 @@ per-slot ``lengths`` (keys visible to the block's last query; query t sees
 ``length - (T - 1) + t`` keys), online softmax in f32. In the port it IS
 the decode attention (the JAX package gates its kernels behind
 TPU_USE_PALLAS_ATTENTION). Bound: the bytes of each slot's live K/V rows,
-plus their scales on the int8 tier. Design: one block per (KV head, slot,
-group of 16 query rows); the key loop stops at the slot's live length (the
-TPU kernel's block-revisit pruning becomes a loop bound); 8 warps take
-32-key tiles, lane = key for the scores (each lane finds its own key's row,
-through the table when paged) and lane = head-dim element for P @ V; int8
-rows are scaled in f32 after the load; warp states merge once at the end in
-warp order.
+plus their scales on the int8 tier. Design (flash-decoding on the tensor
+cores): the key axis is split into 64-key chunks, ``splits`` blocks per
+(KV head, slot, group of 16 query rows) taking every ``splits``-th chunk,
+so long and short slots spread over the card alike whatever the lengths
+(``splits`` keeps the grid to one wave of resident blocks);
+in a block each of 4 warps takes 16 keys of a chunk through its own
+``cp.async`` ring; QK^T and P.V run on ``mma.sync`` m16n8k16 (the query
+rows are the m16 tile; int8 K/V converted exactly to bf16; P split into
+bf16 hi + lo; V^T through ``ldmatrix.trans``), the online softmax in f32;
+warps merge in warp order and the splits, one thread block cluster,
+combine in split order through distributed shared memory: one launch a
+call, no workspace, the same bits on every call.
 
 Dispatch rule: a CPU tensor runs the plain version; a CUDA tensor launches
 the kernel or raises.
@@ -35,6 +40,7 @@ import ctypes
 import torch
 
 from fasttalk_tpu_torch.ops import _build
+from fasttalk_tpu_torch.ops.cuda_int8 import _cdiv, _sm_count
 from fasttalk_tpu_torch.ops.attention import (gather_paged_rows,
                                               paged_gather_indices)
 
@@ -44,6 +50,9 @@ _L = ctypes.c_longlong
 _lib_handle: ctypes.CDLL | None = None
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+CHUNK = 64             # keys a block takes at a time
+MAX_SPLITS = 8         # the splits of a (head, slot, row group): a cluster
+_resident: dict[tuple[bool, bool, int], int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,14 +60,43 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("decode_attention")
         lib.ft_decode_attend.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                         _I, _I, _I, _I, _L, _L, _I, _P]
+                                         _I, _I, _I, _I, _L, _L, _I, _I, _P]
         lib.ft_decode_attend.restype = _I
         lib.ft_decode_attend_paged.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
                                                _I, _I, _I, _I, _I, _I, _I, _I,
-                                               _P]
+                                               _I, _P]
         lib.ft_decode_attend_paged.restype = _I
+        lib.ft_decode_attend_resident.argtypes = [_I, _I, _I, _P]
+        lib.ft_decode_attend_resident.restype = _I
         _lib_handle = lib
     return _lib_handle
+
+
+def key_splits(keys: int, blocks: int, sms: int, per_sm: int) -> int:
+    """How many blocks split the key axis of each (KV head, slot, row
+    group): as many as keep the call's grid to one wave, ``per_sm``
+    resident blocks on each of ``sms`` SMs over the ``blocks`` (head,
+    slot, row group) triples (more splits only add blocks that wait, each
+    with its fixed cost), no more than the ``CHUNK``-key chunks of
+    ``keys`` addressable keys, at most ``MAX_SPLITS`` (one cluster).
+    Shapes alone decide it, never the lengths on the card, so a call needs
+    no host read."""
+    return max(1, min(MAX_SPLITS, _cdiv(keys, CHUNK),
+                      per_sm * sms // max(1, blocks)))
+
+
+def _splits(keys: int, blocks: int, device: torch.device, int8: bool,
+            paged: bool, d: int) -> int:
+    """``key_splits`` for a call, with the kernel instance's resident blocks
+    per SM asked of the CUDA runtime once."""
+    key = (int8, paged, d)
+    if key not in _resident:
+        got = ctypes.c_int(0)
+        _build.check(_lib().ft_decode_attend_resident(
+            int(int8), int(paged), d, ctypes.byref(got)),
+            "decode_attend occupancy")
+        _resident[key] = max(1, got.value)
+    return key_splits(keys, blocks, _sm_count(device), _resident[key])
 
 
 def _horizons(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -199,7 +237,10 @@ def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
         lengths.data_ptr(), out.data_ptr(), b, t, g, nkv, d, s, k.stride(0),
-        s_bstride, max(sg, 1), torch.cuda.current_stream(q.device).cuda_stream)
+        s_bstride, max(sg, 1),
+        _splits(s, nkv * b * _cdiv(t * g, 16), q.device, k_scale is not None,
+                False, d),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attend")
     decode_attend.launches += 1
     if k_scale is not None:
@@ -258,6 +299,8 @@ def decode_attend_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v_scale.data_ptr() if v_scale is not None else None,
         lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), b, t, g, nkv,
         d, tables.shape[1], block_size, max(sg, 1),
+        _splits(tables.shape[1] * block_size, nkv * b * _cdiv(t * g, 16),
+                q.device, k_scale is not None, True, d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attend_paged")
     decode_attend_paged.launches += 1

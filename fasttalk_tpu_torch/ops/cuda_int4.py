@@ -1,7 +1,9 @@
 """Int4 weight-only decode matmul: the hand-written CUDA kernel and its
 plain version.
 
-Source notes (the kernel is ``csrc/int4_matmul.cu``):
+Source notes (the kernel is ``csrc/int4_matmul.cu``, with the mma,
+conversion and copy pieces of ``csrc/mma_bf16.cuh``; the fragment mapping
+is written out in ``ops/mma_layout.py``):
 
 - ``int4_matmul`` replaces ``fasttalk_tpu/ops/pallas_int8.py::int4_matmul``
   (:242, body ``_mm4_kernel`` :208): ``y[M,N] = x[M,K] @ W`` with
@@ -11,14 +13,14 @@ Source notes (the kernel is ``csrc/int4_matmul.cu``):
   dtype, no scale after the dot (the group scale varies along K). It runs
   the seven per-layer matmuls of a decode step under ``WEIGHT_QUANT=int4``
   (112 launches per step for Llama-3.2-1B). Bound: the packed bytes plus
-  the f32 group scales (0.517 GB per Llama-3.2-1B decode step, about
-  0.154 ms at 3.35 TB/s). Design: ``int8_matmul``'s, with two weight rows
-  per byte: 256-column tiles x split-K blocks (each split at least 64 rows
-  and even, so no split cuts a nibble pair), x staged in shared memory as
-  f32, each thread reading 4 packed bytes of one row (8 weights: 2 rows x
-  4 columns), the group scales re-read only when the group changes, each
-  split's partials stored to its own workspace slice and summed in split
-  order by a second kernel that casts once (same bits on every call).
+  the f32 group scales (0.517 GB per Llama-3.2-1B decode step at M = 16,
+  0.161 ms at 3.35 TB/s). Design: ``int8_matmul``'s with nibbles in place
+  of bytes: bf16 ``mma.sync`` m16n8k16 with f32 accumulators, a packed
+  byte is exactly the mma's k pair of one column (B register), converted
+  exactly on chip and scaled by one bf16x2 multiply (the one rounding of
+  the TPU kernel); 128-column x split-K blocks whose (at most 16) splits
+  sum in split order through a thread block cluster's distributed shared
+  memory: one launch a call, no workspace, the same bits on every call.
 
 Dispatch rule: a CPU tensor runs the plain version (the CPU tests hold it
 against the JAX kernel); a CUDA tensor launches the kernel or raises.
@@ -32,20 +34,24 @@ import ctypes
 import torch
 
 from fasttalk_tpu_torch.ops import _build
-from fasttalk_tpu_torch.ops.cuda_int8 import _cdiv, _sm_count
+from fasttalk_tpu_torch.ops.cuda_int8 import _cdiv, _sm_count, _split_rows
 from fasttalk_tpu_torch.quantization.int4 import unpack_int4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _lib_handle: ctypes.CDLL | None = None
 
+_COLS = 128            # columns of a block
+_K_STAGE = 128         # weight rows of one ring stage (64 packed rows)
+_M_TILE = 64           # x rows one block covers (4 m16 tiles)
+
 
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("int4_matmul")
-        lib.ft_int4_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _P]
+        lib.ft_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P]
         lib.ft_int4_matmul.restype = _I
         _lib_handle = lib
     return _lib_handle
@@ -99,20 +105,12 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
         raise ValueError("int4_matmul: x, q4 and s must be contiguous")
     m, k = x.shape
     n = q4.shape[1]
-    if n % 4 == 0 and q4.data_ptr() % 4:
-        raise ValueError("int4_matmul: q4 must be 4-byte aligned")
-    col_blocks = _cdiv(n, 256) * _cdiv(m, 16)
-    # Split K for about two blocks per SM; each split takes at least 64
-    # weight rows, a multiple of 4 (so never half a nibble pair).
-    splits = _cdiv(2 * _sm_count(x.device), col_blocks)
-    k_per_split = max(64, _cdiv(_cdiv(k, splits), 4) * 4)
-    ws = torch.empty((_cdiv(k, k_per_split), m, n), dtype=torch.float32,
-                     device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    tiles = _cdiv(n, _COLS) * _cdiv(m, _M_TILE)
+    k_per_split = _split_rows(k, tiles, _sm_count(x.device), _K_STAGE)
     err = _lib().ft_int4_matmul(
-        x.data_ptr(), q4.data_ptr(), s.data_ptr(), ws.data_ptr(),
-        y.data_ptr(), m, k, n, group, k_per_split,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), q4.data_ptr(), s.data_ptr(), y.data_ptr(), m, k, n,
+        group, k_per_split, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int4_matmul")
     int4_matmul.launches += 1
     return y

@@ -80,13 +80,15 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def _split_rows(k: int, tiles: int, sms: int) -> int:
-    """Weight rows per split of ``int8_matmul``: enough splits (at most
+def _split_rows(k: int, tiles: int, sms: int,
+                stage: int = _MM_K_STAGE) -> int:
+    """Weight rows per split of a split-K matmul (``int8_matmul``, and
+    ``int4_matmul`` with its 128-row stages): enough splits (at most
     ``_MM_MAX_SPLITS``, a cluster) for about ``_MM_BLOCKS_PER_SM`` blocks
-    per SM over ``tiles`` column tiles, each a whole number of ring stages
-    and at least ``_MM_MIN_SPLIT`` rows."""
+    per SM over ``tiles`` column tiles, each a whole number of ``stage``-row
+    ring stages and at least ``_MM_MIN_SPLIT`` rows."""
     splits = min(_MM_MAX_SPLITS, _cdiv(_MM_BLOCKS_PER_SM * sms, tiles))
-    per = _cdiv(_cdiv(k, splits), _MM_K_STAGE) * _MM_K_STAGE
+    per = _cdiv(_cdiv(k, splits), stage) * stage
     return max(_MM_MIN_SPLIT, per)
 
 

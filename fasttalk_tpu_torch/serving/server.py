@@ -3,12 +3,20 @@
 Counterpart of the main path of ``fasttalk_tpu/serving/server.py``
 (:522-1056), the same wire protocol on ``/ws/llm``:
 
-  client -> server: start_session, user_message, cancel, end_session
-  server -> client: session_started, session_configured, token,
-                    response_complete, cancelled, session_ended, error
+  client -> server: start_session, update_config, user_message, cancel,
+                    end_session
+  server -> client: session_started, session_configured, config_updated,
+                    token, response_complete, cancelled, session_ended,
+                    error
 
 plus HTTP GET ``/health`` and ``/models`` (which reports the KV layout,
-quantization and block size). Token frames carry the delta in ``data``.
+quantization and block size). Token frames carry the delta in ``data``;
+with the session key ``tts_chunking`` they carry speakable chunks instead
+(``"speakable": true``, cut by ``text_processor.extract_speakable_chunk``
+and flushed at the end, as the JAX server does). Session keys of features
+the port does not carry yet (``priority``, ``deadline_s``, ``structured``,
+``journey``) are refused with an ``invalid_config`` frame that names the
+key: they are never dropped without a word, and never reach the engine.
 An engine terminal error whose code is a shed (``kv_blocks_exhausted``)
 reaches the client as a ``rate_limit_error`` frame with ``retry_after``
 and does not count against the circuit breaker. A generation runs as an
@@ -29,6 +37,7 @@ from aiohttp import WSCloseCode, WSMsgType, web
 from fasttalk_tpu_torch import __version__
 from fasttalk_tpu_torch.engine.engine import EngineBase, GenerationParams
 from fasttalk_tpu_torch.serving.conversation import ConversationManager
+from fasttalk_tpu_torch.serving.text_processor import extract_speakable_chunk
 from fasttalk_tpu_torch.utils.config import Config
 from fasttalk_tpu_torch.utils.errors import (ENGINE_SHED_CODES,
                                              AdmissionRejected,
@@ -45,8 +54,16 @@ PROVIDER = "torch"
 class WebSocketLLMServer:
     # Generation-config keys a client may set per session.
     _GEN_KEYS = ("temperature", "top_p", "top_k", "max_tokens", "stop",
-                 "repeat_penalty", "presence_penalty", "frequency_penalty",
-                 "ignore_eos")
+                 "tts_chunking", "repeat_penalty", "presence_penalty",
+                 "frequency_penalty", "ignore_eos")
+    # Session keys of the JAX server whose feature the port does not carry
+    # yet: key -> the feature, named in the invalid_config frame.
+    _UNSUPPORTED_KEYS = {
+        "priority": "the admission scheduler (priority classes)",
+        "deadline_s": "the admission scheduler (queue deadlines)",
+        "structured": "structured decoding",
+        "journey": "observability (the per-token journey)",
+    }
 
     def __init__(self, config: Config, engine: EngineBase):
         self.config = config
@@ -152,18 +169,33 @@ class WebSocketLLMServer:
             await self._send_error(ws, "invalid_json", "Invalid JSON format")
             return
         msg_type = message.get("type")
-        if msg_type == "start_session":
+        if msg_type in ("start_session", "update_config"):
             cfg = message.get("config", {}) or {}
+            refused = [k for k in self._UNSUPPORTED_KEYS if k in cfg]
+            if refused:
+                # The whole message is refused, so no part of it applies.
+                await self._send_error(ws, "invalid_config", "; ".join(
+                    f"session key {k!r} asks for "
+                    f"{self._UNSUPPORTED_KEYS[k]}: not implemented yet in "
+                    "fasttalk_tpu_torch" for k in refused))
+                return
             gen = {k: cfg[k] for k in self._GEN_KEYS if k in cfg}
             if isinstance(gen.get("stop"), str):
                 gen["stop"] = [gen["stop"]]
-            self.conversations.create_session(
-                session_id,
-                system_prompt=cfg.get("system_prompt",
-                                      self.config.system_prompt),
-                gen_config=gen)
-            await self._send(ws, {"type": "session_configured",
-                                  "config": cfg, "provider": PROVIDER})
+            if msg_type == "start_session":
+                self.conversations.create_session(
+                    session_id,
+                    system_prompt=cfg.get("system_prompt",
+                                          self.config.system_prompt),
+                    gen_config=gen)
+                await self._send(ws, {"type": "session_configured",
+                                      "config": cfg, "provider": PROVIDER})
+            else:
+                if "system_prompt" in cfg:
+                    gen["system_prompt"] = cfg["system_prompt"]
+                self.conversations.update_config(session_id, gen)
+                await self._send(ws, {"type": "config_updated",
+                                      "success": True, "config": cfg})
         elif msg_type == "user_message":
             text = message.get("text", "")
             if not text:
@@ -219,8 +251,10 @@ class WebSocketLLMServer:
             stop=[s for s in stop if isinstance(s, str) and s],
             repeat_penalty=float(over.get("repeat_penalty",
                                           c.default_repeat_penalty)),
-            presence_penalty=float(over.get("presence_penalty", 0.0)),
-            frequency_penalty=float(over.get("frequency_penalty", 0.0)),
+            presence_penalty=float(over.get("presence_penalty",
+                                            c.default_presence_penalty)),
+            frequency_penalty=float(over.get("frequency_penalty",
+                                             c.default_frequency_penalty)),
             ignore_eos=ignore_eos)
 
     async def _generate(self, session_id: str,
@@ -229,6 +263,9 @@ class WebSocketLLMServer:
         self._cur_request[session_id] = request_id
         start = time.monotonic()
         full_text, stats, finish_reason = "", {}, "stop"
+        state = self.conversations.get(session_id)
+        tts = bool(state.gen_config.get("tts_chunking")) if state else False
+        tts_buffer = ""
         try:
             try:
                 params = self._gen_params(session_id)
@@ -243,8 +280,16 @@ class WebSocketLLMServer:
                 etype = event["type"]
                 if etype == "token":
                     full_text += event["text"]
-                    await self._send(ws, {"type": "token",
-                                          "data": event["text"]})
+                    if tts:
+                        tts_buffer += event["text"]
+                        chunk, tts_buffer = extract_speakable_chunk(tts_buffer)
+                        if chunk:
+                            await self._send(ws, {"type": "token",
+                                                  "data": chunk,
+                                                  "speakable": True})
+                    else:
+                        await self._send(ws, {"type": "token",
+                                              "data": event["text"]})
                 elif etype in ("done", "cancelled"):
                     stats = event.get("stats", {})
                     finish_reason = ("cancelled" if etype == "cancelled"
@@ -255,6 +300,9 @@ class WebSocketLLMServer:
                         # rate-limit frame with retry_after, not a fault.
                         raise AdmissionRejected.from_shed_event(event)
                     raise LLMServiceError(event.get("error", "engine error"))
+            if tts and tts_buffer:
+                await self._send(ws, {"type": "token", "data": tts_buffer,
+                                      "speakable": True})
             self.breaker.record_success()
             tokens = int(stats.get("tokens_generated") or 0)
             self.conversations.add_assistant_message(

@@ -133,6 +133,12 @@ class Config:
     default_top_k: int = field(default_factory=lambda: _env_int("DEFAULT_TOP_K", 40))
     default_repeat_penalty: float = field(
         default_factory=lambda: _env_float("DEFAULT_REPEAT_PENALTY", 1.1))
+    # Session defaults of the OpenAI-style additive penalties, in [-2, 2]
+    # (fasttalk_tpu/utils/config.py :164-167, :848-851).
+    default_presence_penalty: float = field(
+        default_factory=lambda: _env_float("DEFAULT_PRESENCE_PENALTY", 0.0))
+    default_frequency_penalty: float = field(
+        default_factory=lambda: _env_float("DEFAULT_FREQUENCY_PENALTY", 0.0))
     session_timeout: int = field(default_factory=lambda: _env_int("SESSION_TIMEOUT", 3600))
     # Share of the card's memory the weights and the KV cache may take.
     hbm_util: float = field(
@@ -240,6 +246,10 @@ class Config:
             errs.append("DEFAULT_MAX_TOKENS must be > 0")
         if not 0.0 < self.default_repeat_penalty <= 2.0:
             errs.append("DEFAULT_REPEAT_PENALTY must be in (0, 2]")
+        if not -2.0 <= self.default_presence_penalty <= 2.0:
+            errs.append("default_presence_penalty must be in [-2, 2]")
+        if not -2.0 <= self.default_frequency_penalty <= 2.0:
+            errs.append("default_frequency_penalty must be in [-2, 2]")
         if not 0.0 < self.hbm_util <= 1.0:
             errs.append("TPU_HBM_UTILIZATION must be in (0, 1]")
         if self.kv_quant not in ("none", "int8"):

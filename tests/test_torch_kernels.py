@@ -123,11 +123,16 @@ def _int4_case(m, k, n, group, gen, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n,group", [
     (16, 2048, 2048, 128), (16, 2048, 512, 128), (16, 2048, 8192, 128),
-    (16, 8192, 2048, 128), (1, 2048, 512, 128), (16, 2048, 512, 64),
-    (5, 256, 258, 64), (40, 192, 1024, 64), (3, 96, 7, 2)])
+    (16, 8192, 2048, 128), (1, 2048, 512, 128), (1, 2048, 2048, 128),
+    (1, 2048, 8192, 128), (1, 8192, 2048, 128), (16, 2048, 512, 64),
+    (5, 256, 258, 64), (40, 192, 1024, 64), (3, 96, 7, 2),
+    (17, 1024, 640, 128), (64, 2048, 512, 128), (130, 512, 256, 32),
+    (16, 1000, 384, 8), (16, 2046, 200, 6)])
 def test_int4_matmul_matches_plain(cuda, m, k, n, group):
-    """The four Llama-3.2-1B decode shapes at G = 128, G = 64, and ragged
-    shapes: N % 4 != 0, M over one 16-row tile, small K and G."""
+    """The four Llama-3.2-1B decode shapes at G = 128 (M = 16 and 1), G =
+    64, and ragged shapes: N % 4 != 0 and N % 16 != 0, M over one, two and
+    four 16-row tiles and past a 64-row block, K not a multiple of the
+    128-row stage, G below a 16-row k-step and not a multiple of 4."""
     g = torch.Generator(device=cuda).manual_seed(m * k + n + group)
     x, q4, s = _int4_case(m, k, n, group, g, cuda)
     before = int4_matmul.launches
@@ -142,6 +147,28 @@ def test_int4_matmul_gives_the_same_bits_on_every_call(cuda):
     first = int4_matmul(x, q4, s)
     for _ in range(5):
         assert torch.equal(int4_matmul(x, q4, s), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16, 17, 64])
+@pytest.mark.parametrize("k,n", [(2048, 8192), (8192, 2048)])
+def test_int4_matmul_replays_in_a_cuda_graph(cuda, m, k, n):
+    """Captured in a CUDA graph and replayed three times, the kernel gives
+    an eager call's bits each time (its splits meet in a cluster, so a
+    replay carries no state of the previous one)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x, q4, s = _int4_case(m, k, n, 128, g, cuda)
+    eager = int4_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int4_matmul(x, q4, s)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(int4_matmul(x, q4, s), eager)
 
 
 @pytest.mark.gpu
@@ -344,6 +371,51 @@ def test_int8_matmul_t_replays_in_a_cuda_graph(cuda, m, v, d):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 4, 5])
+@pytest.mark.parametrize("paged,int8", [(False, False), (False, True),
+                                        (True, False), (True, True)])
+def test_decode_attend_replays_in_a_cuda_graph(cuda, paged, int8, t):
+    """Each attention tier captured in a CUDA graph and replayed three
+    times gives an eager call's bits each time, at T*G = 4, 16 and 20 (two
+    row groups): the key splits meet in a cluster, so a replay carries no
+    state of the previous one, and the split count depends on shapes only."""
+    g = torch.Generator(device=cuda).manual_seed(29 * t + 2 * paged + int8)
+    b, nq, nkv, d, bs, nb = 6, 32, 8, 64, 16, 64
+    q, kp, vp, ks, vs, tables = _paged_case(
+        g, cuda, b=b, t=t, nq=nq, nkv=nkv, d=d, bs=bs, nb=nb,
+        pool_blocks=b * nb + 3, int8=int8)
+    lengths = torch.tensor([t, 63, 64, 65, 700, nb * bs], dtype=torch.int32,
+                           device=cuda)
+    if paged:
+        def call():
+            return decode_attend_paged(q, kp, vp, lengths, tables,
+                                       block_size=bs, k_scale=ks, v_scale=vs)
+    else:
+        # The same rows as a dense [B, S, ...] cache.
+        shape = (b, nb * bs)
+        idx = (tables.long()[:, :, None] * bs
+               + torch.arange(bs, device=cuda)).reshape(-1)
+        kd, vd = kp[idx].view(*shape, nkv, d), vp[idx].view(*shape, nkv, d)
+        ksd = None if ks is None else ks[idx].view(*shape, -1)
+        vsd = None if vs is None else vs[idx].view(*shape, -1)
+
+        def call():
+            return decode_attend(q, kd, vd, lengths, k_scale=ksd,
+                                 v_scale=vsd)
+    eager = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(call(), eager)
 
 
 @pytest.mark.gpu
