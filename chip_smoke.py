@@ -11,35 +11,46 @@ no result line):
 2. each kernel, and each tier of the attention kernel (dense or paged,
    bf16 or int8 rows; T = 1, 4 and 8 query positions), against its plain
    PyTorch version on the card at the shapes the Llama-3.2-1B decode step
-   gives it, with the tolerance stated, then timed with CUDA graphs beside
-   its plain version, one
-   PyTorch library call computing the same function (where there is one),
-   and its bound;
+   and the speculative verify block (16 slots x 8 positions: 128 matmul
+   rows, attention at T = 8) give it, with the tolerance stated, then
+   timed with CUDA graphs beside its plain version, one PyTorch library
+   call computing the same function (where there is one), and its bound;
 3. llama3.2:1b at full width (int8 random weights on the card): prefill
    plus decode steps through the kernels against the same forward through
    the plain versions, by logits and greedy tokens, on the dense bf16 cache
    and on the paged int8 pool; then the same with int4 random weights
    (WEIGHT_QUANT=int4, group 128) on the dense bf16 cache;
 4. the trained tinychat checkpoint (read in place from
-   ``fasttalk_tpu/assets``) with int8 weights, on the dense bf16 cache and
-   on the paged int8 pool, and with int4 weights on the dense bf16 cache:
-   the greedy answer to "what color is the sky?";
+   ``fasttalk_tpu/assets``), the greedy answer to "what color is the sky?"
+   with TPU_SPEC_DECODE=ngram equal to the one with it off, with int8
+   weights on the dense and the paged bf16 cache and with int4 weights;
+   and with int8 weights on the paged int8 pool (spec off);
 5. the WebSocket server in-process through ``build_engine`` (full-width
    llama3.2:1b, int8, 16 slots, max_len 2048, prefill chunk 512, dense
-   bf16 KV) with 16 concurrent sessions;
+   bf16 KV, the JAX engine's defaults: TPU_SPEC_DECODE=auto, shared
+   prefix, batched prefill) with 16 concurrent sessions; the burst must
+   run a batched prefill call;
 6. the same server on the paged int8 pool (KV_LAYOUT=paged,
    KV_QUANT=int8, max_len 8192, 16-token blocks, 2048 pool blocks: a
-   quarter of the dense layout's rows) with 16 concurrent sessions;
-7. the two other tiers served briefly (dense int8, paged bf16);
-8. WEIGHT_QUANT=int4 served as in phase 5 (full-width llama3.2:1b, 16
-   slots, max_len 2048, prefill chunk 512, dense bf16 KV) with 16
-   concurrent sessions: the layer matmuls run ``int4_matmul`` and
-   ``int8_matmul`` must launch no time.
+   quarter of the dense layout's rows; spec off, as int8 KV requires) with
+   16 concurrent sessions;
+7. the two other tiers served briefly (dense int8 with spec off, paged
+   bf16);
+8. WEIGHT_QUANT=int4 served as in phase 5: the layer matmuls run
+   ``int4_matmul`` and ``int8_matmul`` must launch no time;
+9. speculative decoding (TPU_SPEC_DECODE=ngram, greedy) served on the
+   dense bf16 cache (16 sessions x 64 tokens) and on the paged bf16 pool
+   (16 tokens), and the dense run again with spec off: the attention
+   kernel must launch at T = 8 on both tiers and drafts must be accepted;
+   one verify step and one plain step of the served engine are timed with
+   CUDA graphs.
 
-In phases 5-8 the kernels' launch counts are zeroed just before the
+In phases 5-9 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
-launched. The line before the last is one JSON object listing the kernels;
-the last line is ``{"ok": true, "device": {...}}``.
+launched. Each served phase logs decode tok/s, TTFT p50/p99 from the
+``done`` frames, batched prefill calls, shared-prefix tokens and decode
+calls by kind. The line before the last is one JSON object listing the
+kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -69,6 +80,10 @@ LAYER_MATMULS = {(2048, 2048): 2, (2048, 512): 2, (2048, 8192): 2,
                  (8192, 2048): 1}
 LAYERS, SLOTS, VOCAB, HIDDEN = 16, 16, 128256, 2048
 NQ, NKV, HEAD_DIM, MAX_LEN = 32, 8, 64, 2048
+# The speculative verify block: TPU_SPEC_DRAFT (7) drafts + 1 positions, so
+# its matmuls take SLOTS * VERIFY_T = 128 rows and attention T = 8.
+VERIFY_T = 8
+VERIFY_ROWS = SLOTS * VERIFY_T
 
 
 def log(msg: str) -> None:
@@ -134,18 +149,20 @@ INT4_GROUP = 128               # WEIGHT_QUANT_GROUP of the int4 tier
 
 
 def check_int4_matmul(results: dict) -> None:
-    """int4_matmul at the decode-step shapes, G = 128, M = 16 and 1: held to
-    1% of the plain version's largest output; timed beside the plain
-    version and ``torch.matmul`` on the pre-dequantized bf16 weight; the
-    entry is one decode step at M = 16 (112 calls), with the same step at
-    M = 1 in ``ms_m1`` and ``library_ms_m1``."""
+    """int4_matmul at the decode-step shapes, G = 128, M = 16, 1 and 128:
+    held to 1% of the plain version's largest output; timed beside the
+    plain version and ``torch.matmul`` on the pre-dequantized bf16 weight;
+    the entry is one decode step at M = 16 (112 calls), with the same step
+    at M = 1 in ``ms_m1`` and ``library_ms_m1`` and the verify block's
+    M = 128 in ``ms_m128``, ``library_ms_m128`` and ``bound_ms_m128``."""
     from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul, int4_matmul_plain
     from fasttalk_tpu_torch.quantization.int4 import unpack_int4
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-            "ops": 0.0, "ms_m1": 0.0, "library_ms_m1": 0.0}
+            "ops": 0.0, "ms_m1": 0.0, "library_ms_m1": 0.0, "ms_m128": 0.0,
+            "library_ms_m128": 0.0, "bytes_m128": 0.0, "ops_m128": 0.0}
     worst = 0.0
     for (k, n), per_layer in LAYER_MATMULS.items():
         groups = k // INT4_GROUP
@@ -156,7 +173,7 @@ def check_int4_matmul(results: dict) -> None:
                              dtype=torch.uint8) for _ in range(n_cp)]
         ss = [torch.rand((groups, n), generator=g, device=dev) * 0.02 + 1e-3
               for _ in range(n_cp)]
-        for m in (SLOTS, 1):
+        for m in (SLOTS, 1, VERIFY_ROWS):
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             got = int4_matmul(x, q4s[0], ss[0]).float()
             ref = int4_matmul_plain(x, q4s[0], ss[0]).float()
@@ -189,36 +206,46 @@ def check_int4_matmul(results: dict) -> None:
                                  ("library_ms", lib), ("bytes", nbytes),
                                  ("ops", ops)):
                     step[key] += calls * val
-            else:
+            elif m == 1:
                 step["ms_m1"] += calls * ms
                 step["library_ms_m1"] += calls * lib
+            else:
+                for key, val in (("ms_m128", ms), ("library_ms_m128", lib),
+                                 ("bytes_m128", nbytes), ("ops_m128", ops)):
+                    step[key] += calls * val
         del q4s, ss
     b_ms, by = bound(step["bytes"], step["ops"])
     results["int4_matmul"] = {
         "max_abs_err": worst, "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": b_ms, "bound_by": by, "library_ms": step["library_ms"],
         "ms_m1": step["ms_m1"], "library_ms_m1": step["library_ms_m1"],
+        "ms_m128": step["ms_m128"], "library_ms_m128": step["library_ms_m128"],
+        "bound_ms_m128": bound(step["bytes_m128"], step["ops_m128"])[0],
         "work": "one decode step at M=16: 112 calls over the 4 (K, N) "
                 f"shapes, group {INT4_GROUP} (ms_m1, library_ms_m1: the "
-                "same step at M=1)"}
+                "same step at M=1; *_m128: the verify block's 128 rows)"}
 
 
 def check_int8_matmul(results: dict) -> None:
-    """int8_matmul at the decode-step shapes, M = 16 and 1: held to 1% of
-    the plain version's largest output; timed beside the plain version and
-    ``torch.matmul`` on the dequantized bf16 weight. The entry is one decode
-    step at M = 16 (112 calls), with the same step at M = 1 in ``ms_m1``
-    and ``library_ms_m1``, and every shape's figures in ``shapes``."""
+    """int8_matmul at the decode-step shapes, M = 16, 1 and 128: held to 1%
+    of the plain version's largest output; timed beside the plain version
+    and ``torch.matmul`` on the dequantized bf16 weight. The entry is one
+    decode step at M = 16 (112 calls), with the same step at M = 1 in
+    ``ms_m1`` and ``library_ms_m1``, the verify block's M = 128 in
+    ``ms_m128``, ``library_ms_m128`` and ``bound_ms_m128``, and every
+    shape's figures in ``shapes``."""
     from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_plain
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bytes": 0.0, "ops": 0.0, "ms_m1": 0.0, "library_ms_m1": 0.0}
+            "bytes": 0.0, "ops": 0.0, "ms_m1": 0.0, "library_ms_m1": 0.0,
+            "ms_m128": 0.0, "library_ms_m128": 0.0, "bytes_m128": 0.0,
+            "ops_m128": 0.0}
     shapes = []
     worst = 0.0
     for (k, n), per_layer in LAYER_MATMULS.items():
-        for m in (SLOTS, 1):
+        for m in (SLOTS, 1, VERIFY_ROWS):
             n_cp = copies_for(k * n)
             qs = [torch.randint(-127, 128, (k, n), generator=g, device=dev,
                                 dtype=torch.int8) for _ in range(n_cp)]
@@ -256,23 +283,31 @@ def check_int8_matmul(results: dict) -> None:
                                  ("library_ms", lib), ("bound_ms", b_ms),
                                  ("bytes", nbytes), ("ops", ops)):
                     step[key] += calls * val
-            else:
+            elif m == 1:
                 step["ms_m1"] += calls * ms
                 step["library_ms_m1"] += calls * lib
+            else:
+                for key, val in (("ms_m128", ms), ("library_ms_m128", lib),
+                                 ("bytes_m128", nbytes), ("ops_m128", ops)):
+                    step[key] += calls * val
     b_ms, by = bound(step["bytes"], step["ops"])
     results["int8_matmul"] = {
         "max_abs_err": worst, "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": b_ms, "bound_by": by, "library_ms": step["library_ms"],
         "ms_m1": step["ms_m1"], "library_ms_m1": step["library_ms_m1"],
+        "ms_m128": step["ms_m128"], "library_ms_m128": step["library_ms_m128"],
+        "bound_ms_m128": bound(step["bytes_m128"], step["ops_m128"])[0],
         "shapes": shapes,
         "work": "one decode step at M=16: 112 calls over the 4 (K, N) "
-                "shapes (ms_m1, library_ms_m1: the same step at M=1)"}
+                "shapes (ms_m1, library_ms_m1: the same step at M=1; "
+                "*_m128: the verify block's 128 rows)"}
 
 
 def check_int8_matmul_t(results: dict) -> None:
     """int8_matmul_t over the full lm_head table at M = 16 (the decode
-    step) and M = 1 (a prefill chunk), held and timed as check_int8_matmul
-    does, beside ``F.linear`` on the dequantized bf16 table."""
+    step), M = 1 (a prefill chunk) and M = 128 (the verify block), held and
+    timed as check_int8_matmul does, beside ``F.linear`` on the dequantized
+    bf16 table."""
     from fasttalk_tpu_torch.ops.cuda_int8 import (int8_matmul_t,
                                                   int8_matmul_t_plain)
 
@@ -283,7 +318,7 @@ def check_int8_matmul_t(results: dict) -> None:
     s = torch.rand((VOCAB,), generator=g, device=dev) * 0.02 + 1e-3
     worst = 0.0
     entry, shapes = None, []
-    for m in (SLOTS, 1):
+    for m in (SLOTS, 1, VERIFY_ROWS):
         x = torch.randn((m, HIDDEN), generator=g, device=dev).to(torch.bfloat16)
         got = int8_matmul_t(x, q, s).float()
         ref = int8_matmul_t_plain(x, q, s).float()
@@ -313,9 +348,12 @@ def check_int8_matmul_t(results: dict) -> None:
                      "bound_by": by, "library_ms": lib,
                      "work": "one call at M=16 (the decode step's lm_head; "
                              "ms_m1, library_ms_m1: one call at M=1, a "
-                             "prefill chunk's)"}
-        else:
+                             "prefill chunk's; *_m128: the verify block's)"}
+        elif m == 1:
             entry["ms_m1"], entry["library_ms_m1"] = ms, lib
+        else:
+            entry["ms_m128"], entry["library_ms_m128"] = ms, lib
+            entry["bound_ms_m128"] = b_ms
     entry["max_abs_err"] = worst
     entry["shapes"] = shapes
     results["int8_matmul_t"] = entry
@@ -341,9 +379,11 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
     lengths ``ATTEND_LENGTHS``; int8 at scale granule G = 1 and 8, T = 1,
     4 and 8 (T*G = 4, 16 and 32 query rows a KV head: one m16 tile, and two);
     paged through shuffled tables over the pool. Each slot is held to
-    ATTEND_SLOT_TOL of its own largest output; T = 1 and 4 are timed. The
-    reported entry is one decode step (16 layer calls) at T = 1 and G = 1
-    (the served default), with the same step at T = 4 in ``ms_t4``."""
+    ATTEND_SLOT_TOL of its own largest output; T = 1, 4 and 8 are timed.
+    The reported entry is one decode step (16 layer calls) at T = 1 and
+    G = 1 (the served default), with the same step at T = 4 in ``ms_t4``
+    and at T = 8 (the verify block) in ``ms_t8``, ``library_ms_t8`` and
+    ``bound_ms_t8``."""
     from fasttalk_tpu_torch.ops import cuda_attention as ca
     from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 
@@ -412,8 +452,6 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
                 fail(f"{label} disagrees with its plain version: slot gaps "
                      f"{gaps.tolist()} > {ATTEND_SLOT_TOL}")
             worst = max(worst, err)
-            if t == 8:
-                continue
             ms = time_ms(lambda i: call(i, q, lengths, None), 50)
             plain = time_ms(lambda i: call(i, q, lengths, plain_fn), 5)
             lib = None
@@ -458,9 +496,14 @@ def check_attend(results: dict, name: str, *, paged: bool, int8: bool,
                                  + (", scale granule 1" if int8 else "")
                                  + (f", {BLOCK}-token blocks" if paged
                                     else "")
-                                 + "; ms_t4: the same step at T=4"}
+                                 + "; ms_t4, *_t8: the same step at T=4 "
+                                   "and T=8"}
             elif t == 4 and granule in (0, 1):
                 entry["ms_t4"] = LAYERS * ms
+            elif granule in (0, 1):
+                entry["ms_t8"] = LAYERS * ms
+                entry["bound_ms_t8"] = LAYERS * b_ms
+                entry["library_ms_t8"] = None if lib is None else LAYERS * lib
         del kv
     entry["max_abs_err"] = worst
     results[name] = entry
@@ -581,7 +624,11 @@ def check_full_width_model(weight_quant: str, tiers: tuple[str, ...]) -> None:
 
 # ------------------------------------------------------------- phase 4/5
 
-def check_tinychat(weight_quant: str = "int8", **kv) -> None:
+def check_tinychat(weight_quant: str = "int8", **kv) -> tuple[str, dict]:
+    """The greedy answer of the trained tinychat checkpoint to "what color
+    is the sky?" through ``build_engine`` with ``weight_quant`` and the
+    Config settings ``kv``; fails unless it names blue. Returns the text
+    and the engine's stats."""
     from fasttalk_tpu_torch.engine.engine import GenerationParams
     from fasttalk_tpu_torch.engine.factory import build_engine
     from fasttalk_tpu_torch.utils.config import Config
@@ -611,13 +658,28 @@ def check_tinychat(weight_quant: str = "int8", **kv) -> None:
         text, final = asyncio.run(asyncio.wait_for(run(), timeout=120))
     finally:
         engine.shutdown()
-    log(f"tinychat {weight_quant} greedy, KV {kv or 'dense bf16'}: {text!r} "
+    log(f"tinychat {weight_quant} greedy, {kv or 'dense bf16 KV'}: {text!r} "
         f"({final.get('finish_reason')})")
     if final.get("type") != "done" or "blue" not in text.lower():
         fail(f"tinychat answer is wrong: {text!r} {final}")
+    return text, engine.get_stats()
 
 
-async def drive_sessions(port: int, n: int, max_tokens: int) -> dict:
+def check_tinychat_spec(weight_quant: str = "int8", **kv) -> None:
+    """Greedy tinychat with TPU_SPEC_DECODE=ngram gives the tokens of
+    TPU_SPEC_DECODE=off (speculative decoding is a throughput transform),
+    and verify blocks really ran."""
+    plain, _ = check_tinychat(weight_quant, spec_decode="off", **kv)
+    spec, stats = check_tinychat(weight_quant, spec_decode="ngram", **kv)
+    if spec != plain:
+        fail(f"tinychat {weight_quant} {kv}: ngram greedy {spec!r} differs "
+             f"from plain {plain!r}")
+    if stats["spec"]["verify_blocks"] <= 0:
+        fail(f"tinychat {weight_quant} {kv}: no verify block ran")
+
+
+async def drive_sessions(port: int, n: int, max_tokens: int,
+                         temperature: float = 0.7) -> dict:
     import aiohttp
 
     prompts = ["Tell me about the ocean.", "What is a good breakfast?",
@@ -625,15 +687,15 @@ async def drive_sessions(port: int, n: int, max_tokens: int) -> dict:
                "Why is the sky blue?", "Give me three tips for sleep.",
                "What is your favourite book?", "How do plants grow?"]
 
-    async def one(i: int, http) -> tuple[int, list[str]]:
+    async def one(i: int, http) -> tuple[int, list[str], float | None]:
         errors = []
-        tokens = 0
+        tokens, ttft = 0, None
         async with http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm") as ws:
             first = json.loads((await ws.receive()).data)
             if first["type"] != "session_started":
                 errors.append(str(first))
             await ws.send_json({"type": "start_session", "config": {
-                "max_tokens": max_tokens, "temperature": 0.7,
+                "max_tokens": max_tokens, "temperature": temperature,
                 "ignore_eos": True}})
             json.loads((await ws.receive()).data)
             await ws.send_json({"type": "user_message",
@@ -644,19 +706,21 @@ async def drive_sessions(port: int, n: int, max_tokens: int) -> dict:
                     continue
                 if m["type"] == "response_complete":
                     tokens = m["stats"]["tokens_generated"]
+                    ttft = m["stats"]["ttft_ms"]
                 else:
                     errors.append(json.dumps(m))
                 break
             await ws.send_json({"type": "end_session"})
             json.loads((await ws.receive()).data)
-        return tokens, errors
+        return tokens, errors, ttft
 
     async with aiohttp.ClientSession() as http:
         t0 = time.monotonic()
         res = await asyncio.gather(*(one(i, http) for i in range(n)))
         wall = time.monotonic() - t0
     return {"sessions": n, "tokens": sum(r[0] for r in res),
-            "errors": [e for r in res for e in r[1]], "wall_s": wall}
+            "errors": [e for r in res for e in r[1]], "wall_s": wall,
+            "ttft_ms": sorted(r[2] for r in res if r[2] is not None)}
 
 
 def serve_main_path(drive, max_len: int = MAX_LEN, weight_quant: str = "int8",
@@ -708,6 +772,83 @@ def serve_main_path(drive, max_len: int = MAX_LEN, weight_quant: str = "int8",
         engine.shutdown()
 
 
+def pct(values: list[float], q: float) -> float | None:
+    """Nearest-rank percentile (None for no values)."""
+    if not values:
+        return None
+    return sorted(values)[min(len(values) - 1,
+                              max(0, math.ceil(q / 100 * len(values)) - 1))]
+
+
+def stat_delta(before: dict, after: dict) -> dict:
+    """What the engine did between two ``get_stats()``: decode calls by
+    kind, host enqueue time, verify blocks and drafts, batched prefill and
+    shared-prefix rows."""
+    d = {k: after[k] - before[k] for k in (
+        "decode_calls", "decode_steps", "decode_host_s",
+        "batched_prefill_calls", "batched_prefill_rows",
+        "prefix_tokens_shared")}
+    sa, sb = after["spec"], before["spec"]
+    for k in ("calls", "steps", "host_s", "verify_blocks", "accepted",
+              "drafted"):
+        d["spec_" + k if k in ("calls", "steps", "host_s") else k] = \
+            sa[k] - sb[k]
+    d["plain_calls"] = d["decode_calls"] - d["spec_calls"]
+    blocks = d["verify_blocks"]
+    d["tokens_per_verify"] = ((d["accepted"] + blocks) / blocks
+                              if blocks else None)
+    d["spec_host_ms_per_call"] = (1e3 * d["spec_host_s"] / d["spec_calls"]
+                                  if d["spec_calls"] else None)
+    d["plain_host_ms_per_call"] = (
+        1e3 * (d["decode_host_s"] - d["spec_host_s"]) / d["plain_calls"]
+        if d["plain_calls"] else None)
+    return d
+
+
+def time_verify_step(engine) -> dict:
+    """Device ms of one speculative step (draft, the T = 8 verify block
+    through the kernels, accept) against one plain decode step, both on the
+    served engine's weights and cache at its 16 slots, each slot at
+    position 200 of a 512-key bucket with a random token history, sampling
+    at temperature 0.7 with repeat penalty 1.1; CUDA-graph timed (the
+    engine is stopped first, so nothing else runs on the card). The ratio
+    is what a verify step costs in plain steps (TPU_SPEC_BREAKEVEN)."""
+    from fasttalk_tpu_torch.engine.decode_steps import (DecodeState,
+                                                        plain_steps,
+                                                        spec_steps)
+
+    engine.shutdown()
+    s, dev, kv_len = engine.num_slots, engine.device, 512
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def state() -> DecodeState:
+        def full(value, dtype):
+            return torch.full((s,), value, dtype=dtype, device=dev)
+        hist = torch.randint(0, 1000, (s, engine.max_len + 1), generator=g,
+                             device=dev)
+        return DecodeState(
+            cur=hist[:, 199].clone(), pos=full(200, torch.int64),
+            active=full(True, torch.bool), temps=full(0.7, torch.float32),
+            topks=full(40, torch.int64), topps=full(0.9, torch.float32),
+            reps=full(1.1, torch.float32), press=full(0.0, torch.float32),
+            freqs=full(0.0, torch.float32),
+            counts=torch.zeros((s, engine.sample_vocab), dtype=torch.int32,
+                               device=dev),
+            history=hist, gen=None, rows=torch.arange(s, device=dev))
+
+    kw = dict(sample_vocab=engine.sample_vocab,
+              method=engine.sampling_method)
+    st = state()
+    verify = time_ms(lambda i: spec_steps(
+        engine.params, engine.cfg, engine.cache, st, 1, kv_len,
+        VERIFY_T - 1, **kw), 10)
+    st = state()
+    plain = time_ms(lambda i: plain_steps(
+        engine.params, engine.cfg, engine.cache, st, 1, kv_len, **kw), 10)
+    return {"verify_step_ms": verify, "plain_step_ms": plain,
+            "verify_over_plain": verify / plain}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -754,9 +895,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_full_width_model("int4", ("dense bf16",))
     torch.cuda.empty_cache()
-    check_tinychat()
-    check_tinychat(kv_layout="paged", kv_quant="int8")
-    check_tinychat(weight_quant="int4")
+    # Phase 4: greedy tinychat, speculative against plain on dense bf16,
+    # paged bf16 and int4 weights; the int8 KV tier decodes plain (spec
+    # with int8 KV is refused, as in the JAX package).
+    check_tinychat_spec()
+    check_tinychat_spec(kv_layout="paged")
+    check_tinychat_spec(weight_quant="int4")
+    check_tinychat(kv_layout="paged", kv_quant="int8", spec_decode="off")
 
     # Launch counters of every kernel and attention tier: (wrapper, the
     # count of this tier's launches).
@@ -773,28 +918,59 @@ def main() -> int:
     }
 
     def served_phase(label: str, attend: str, sessions: int, max_tokens: int,
-                     weight_quant: str = "int8", **kw) -> dict:
+                     weight_quant: str = "int8", temperature: float = 0.7,
+                     batched: bool = False, multi: str | None = None,
+                     timed: bool = False, **kw) -> dict:
         """Serve one weight and KV tier; the counts are zeroed just before
         the sessions and read just after. Every kernel of the path (the
         tier's layer matmul, the lm_head and the tier's attention) must have
-        launched, and the other tier's layer matmul no time."""
+        launched, and the other tier's layer matmul no time. ``batched``:
+        the burst must have run a batched prefill call; ``multi``: that
+        attention tier must have launched at T = 8 (the verify block) and
+        drafts must have been accepted; ``timed``: also time one verify step
+        against one plain step on the card (``time_verify_step``)."""
         async def measured(engine, port: int) -> dict:
             for fn in (int8_matmul, int8_matmul_t, int4_matmul, decode_attend,
                        decode_attend_paged):
                 fn.launches = 0
+                fn.launches_multi = 0
             decode_attend.launches_int8 = 0
             decode_attend_paged.launches_int8 = 0
-            out = await drive_sessions(port, sessions, max_tokens)
+            before = engine.get_stats()
+            out = await drive_sessions(port, sessions, max_tokens,
+                                       temperature)
             out["launches"] = {k: c() for k, c in counters.items()}
-            out["engine"] = engine.get_stats()
+            out["launches_multi"] = {
+                "decode_attend": decode_attend.launches_multi,
+                "decode_attend_paged": decode_attend_paged.launches_multi}
+            out["engine"] = after = engine.get_stats()
+            out["delta"] = stat_delta(before, after)
+            if timed:
+                out["step_ms"] = time_verify_step(engine)
             return out
 
         served = serve_main_path(measured, weight_quant=weight_quant, **kw)
         served["tok_s"] = served["tokens"] / served["wall_s"]
+        d = served["delta"]
         log(f"{label}: served {served['sessions']} concurrent WS sessions: "
             f"{served['tokens']} tokens in {served['wall_s']:.6g} s "
             f"({served['tok_s']:.6g} decode tok/s), error frames: "
             f"{len(served['errors'])}")
+        ttft = served["ttft_ms"]
+        served["ttft_p50_ms"] = pct(ttft, 50)
+        served["ttft_p99_ms"] = pct(ttft, 99)
+        log(f"  TTFT p50 {served['ttft_p50_ms']} ms, p99 "
+            f"{served['ttft_p99_ms']} ms over {len(ttft)} done frames; "
+            f"batched prefill calls {d['batched_prefill_calls']} "
+            f"({d['batched_prefill_rows']} rows), shared-prefix tokens "
+            f"{d['prefix_tokens_shared']}; decode calls {d['decode_calls']} "
+            f"({d['spec_calls']} speculative, {d['plain_calls']} plain)")
+        if d["spec_calls"]:
+            log(f"  speculative: {d['verify_blocks']} verify blocks, "
+                f"{d['tokens_per_verify']:.6g} tokens a block, accepted "
+                f"{d['accepted']} of {d['drafted']} drafts; host ms a call: "
+                f"speculative {d['spec_host_ms_per_call']:.6g}, plain "
+                f"{d['plain_host_ms_per_call']}")
         blocks = served["engine"].get("kv_blocks")
         if blocks:
             log(f"  kv_blocks after the sessions: in use {blocks['in_use']} "
@@ -815,22 +991,50 @@ def main() -> int:
             fail(f"{label}: {other_mm} launched "
                  f"{served['launches'][other_mm]} times on the "
                  f"{weight_quant} path")
+        if batched and d["batched_prefill_calls"] <= 0:
+            fail(f"{label}: the burst ran no batched prefill call")
+        if multi is not None:
+            log(f"  T={VERIFY_T} launches: {served['launches_multi']}")
+            if served["launches_multi"][multi] <= 0:
+                fail(f"{label}: {multi} never launched at T={VERIFY_T}")
+            if d["accepted"] <= 0:
+                fail(f"{label}: no draft was accepted")
+        if timed:
+            log(f"  device ms a step (CUDA graph): {served['step_ms']}")
         return served
 
+    # Phases 5 and 8 serve the JAX engine's defaults (TPU_SPEC_DECODE=auto,
+    # TPU_SHARED_PREFIX on, batched prefill); the int8 KV tiers (6, 7a)
+    # decode plain, as the JAX package requires.
     served = served_phase("phase 5 (dense bf16 KV)", "decode_attend",
-                          SLOTS, 64)
+                          SLOTS, 64, batched=True)
     paged = served_phase(
         "phase 6 (paged int8 KV, 2048 blocks of 16)",
         "decode_attend_paged[int8]", SLOTS, 64, max_len=8192,
         kv_layout="paged", kv_quant="int8", kv_block_size=BLOCK,
-        kv_pool_blocks=2048)
+        kv_pool_blocks=2048, spec_decode="off")
     dense8 = served_phase("phase 7a (dense int8 KV)", "decode_attend[int8]",
-                          SLOTS, 16, kv_quant="int8")
+                          SLOTS, 16, kv_quant="int8", spec_decode="off")
     paged16 = served_phase("phase 7b (paged bf16 KV)", "decode_attend_paged",
                            SLOTS, 16, kv_layout="paged",
                            kv_block_size=BLOCK)
     int4 = served_phase("phase 8 (WEIGHT_QUANT=int4, dense bf16 KV)",
-                        "decode_attend", SLOTS, 64, weight_quant="int4")
+                        "decode_attend", SLOTS, 64, weight_quant="int4",
+                        batched=True)
+    # Phase 9: speculative decoding at full width, greedy, every call a
+    # verify block (ngram); the same sessions plain for the comparison.
+    spec9 = served_phase("phase 9a (TPU_SPEC_DECODE=ngram, greedy, dense "
+                         "bf16 KV)", "decode_attend", SLOTS, 64,
+                         temperature=0.0, multi="decode_attend", timed=True,
+                         spec_decode="ngram")
+    plain9 = served_phase("phase 9b (TPU_SPEC_DECODE=off, greedy, dense "
+                          "bf16 KV)", "decode_attend", SLOTS, 64,
+                          temperature=0.0, spec_decode="off")
+    spec9p = served_phase("phase 9c (TPU_SPEC_DECODE=ngram, greedy, paged "
+                          "bf16 KV)", "decode_attend_paged", SLOTS, 16,
+                          temperature=0.0, multi="decode_attend_paged",
+                          spec_decode="ngram", kv_layout="paged",
+                          kv_block_size=BLOCK)
     launches = {"int8_matmul": served["launches"]["int8_matmul"],
                 "int8_matmul_t": served["launches"]["int8_matmul_t"],
                 "int4_matmul": int4["launches"]["int4_matmul"],
@@ -841,6 +1045,10 @@ def main() -> int:
                     paged16["launches"]["decode_attend_paged"],
                 "decode_attend_paged[int8]":
                     paged["launches"]["decode_attend_paged[int8]"]}
+    # Phase 9's verify-block launches of the two bf16 attention tiers.
+    launches_t8 = {
+        "decode_attend": spec9["launches_multi"]["decode_attend"],
+        "decode_attend_paged": spec9p["launches_multi"]["decode_attend_paged"]}
     attention_src = "fasttalk_tpu_torch/csrc/decode_attention.cu"
     sources = {"int8_matmul": ("fasttalk_tpu_torch/csrc/int8_matmul.cu",
                                "fasttalk_tpu/ops/pallas_int8.py:89"),
@@ -865,15 +1073,26 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("ms_m1", "library_ms_m1", "ms_t4")
+            **{k: r[k] for k in ("ms_m1", "library_ms_m1", "ms_t4",
+                                 "ms_m128", "library_ms_m128",
+                                 "bound_ms_m128", "ms_t8", "library_ms_t8",
+                                 "bound_ms_t8")
                if k in r},
+            **({"launches_t8": launches_t8[name]}
+               if name in launches_t8 else {}),
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
-                "wall_s": x["wall_s"], "decode_tok_s": x["tok_s"]}
+                "wall_s": x["wall_s"], "decode_tok_s": x["tok_s"],
+                "ttft_p50_ms": x["ttft_p50_ms"],
+                "ttft_p99_ms": x["ttft_p99_ms"], **x["delta"],
+                **({"step_ms": x["step_ms"]} if "step_ms" in x else {})}
         for label, x in (("dense_bf16", served), ("paged_int8", paged),
                          ("dense_int8", dense8), ("paged_bf16", paged16),
-                         ("int4_dense_bf16", int4))}}),
+                         ("int4_dense_bf16", int4),
+                         ("spec_ngram_dense_bf16", spec9),
+                         ("spec_off_dense_bf16", plain9),
+                         ("spec_ngram_paged_bf16", spec9p))}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,41 @@
 """The serving engine: continuous batching over fixed decode slots.
 
 Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
-(``TPUEngine``, :373):
+(``TPUEngine``, :373), with its serving defaults:
 
 - **One engine thread** owns every device interaction; asyncio callers
   talk to it through a command queue, and token deltas travel back with
   ``loop.call_soon_threadsafe`` onto per-request ``asyncio.Queue``s.
-- **FIFO admission into slots.** Sessions pin slots (engine/slots.py), so
-  a follow-up turn prefills only the token delta after its resident
-  prefix.
-- **Chunked prefill**, one chunk per loop iteration, so running sessions
-  keep streaming while a long prompt prefills.
-- **K decode steps per call**, with the per-slot decode state (current
-  token, positions, sampling parameters, penalty counts, the generator)
-  kept on the device between steps and calls. Up to ``pipeline_depth``
-  calls are enqueued on the CUDA stream before the host reads the oldest
-  call's tokens (an asynchronous copy into pinned memory plus an event).
-  Host mirrors of the slot state are reconciled at retirement and patched
-  onto the device only when the slot set changes.
+- **Admission through the scheduler** (scheduling/scheduler.py, JAX
+  ``_admit`` :4074): priority classes with bulk aging, round-robin across
+  sessions, queue deadlines enforced before a request touches the card, a
+  bounded queue that sheds with ``retry_after`` (``AdmissionRejected``
+  from ``generate``), and a graceful drain (``begin_drain``).
+- **Prefill.** Sessions pin slots (engine/slots.py), so a follow-up turn
+  prefills only the token delta after its resident prefix. A burst of
+  admissions whose remaining prompts each fit one bucket prefills as one
+  ``[group, bucket]`` forward per bucket with every first token sampled in
+  one call (JAX ``_prefill_batched`` :4491, ``_prefill_group`` :4522);
+  longer prompts prefill one chunk per loop iteration, so running
+  sessions keep streaming.
+- **Shared prefix** (``TPU_SHARED_PREFIX``): a fresh slot copies the
+  longest prefix resident in another slot instead of prefilling it (JAX
+  ``_stamp_prefix`` :2343), and a burst of fresh prompts prefills its
+  longest prompt first and copies the shared rows to the others (JAX
+  ``_prefill_batched_shared`` :4421).
+- **K decode steps per call**, with the per-slot decode state kept on the
+  device between steps and calls (engine/decode_steps.py). Up to
+  ``pipeline_depth`` calls are enqueued on the CUDA stream before the host
+  reads the oldest call's tokens (an asynchronous copy into pinned memory
+  plus an event). Host mirrors of the slot state are reconciled at
+  retirement and patched onto the device only when the slot set changes.
+- **Speculative decoding** (``TPU_SPEC_DECODE``; JAX :2175-2340,
+  :4814-5115): drafts by prompt lookup over each slot's device history,
+  a verify block of draft + 1 positions, the longest sampled-equal prefix
+  accepted. "ngram" makes every call speculative; "auto" takes a
+  speculative call while the EMA of tokens per verify block clears the
+  break-even and a plain (history-keeping) call otherwise, with a probe
+  every 16 calls.
 - Retire/detokenize, stop strings, EOS, ``max_tokens``, ``cancel`` and
   ``release_session`` behave as in the JAX engine.
 - **Weight tiers**: bf16, int8, or int4 group-wise leaves for the seven
@@ -33,14 +51,15 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   the request ends with ``code="kv_blocks_exhausted"`` and ``retry_after``.
   Before each decode call every running slot's blocks are ensured out to
   where the device can be by the end of it (the host mirrors lag the
-  in-flight calls); a prefill chunk ensures ``start + bucket`` and runs as
+  in-flight calls); a prefill ensures ``start + bucket`` and runs as
   gather -> dense ``forward`` -> scatter of the chunk's rows. Blocks go
   back on session eviction and release, and past the trusted rows when a
-  request finishes or a prompt diverges from the resident history.
+  request finishes or a prompt diverges from the resident history. The
+  shared-prefix copy moves rows between the two slots' blocks (the JAX
+  engine aliases the blocks instead).
 
-Speculative decoding, host KV offload, the radix cache, shared-prefix
-aliasing, structured decoding and a device mesh are not part of this
-engine (utils/config.py rejects them by name).
+Host KV offload, the radix cache, structured decoding and a device mesh
+are not part of this engine (utils/config.py rejects them by name).
 """
 
 from __future__ import annotations
@@ -57,28 +76,36 @@ from typing import Any, AsyncGenerator
 import numpy as np
 import torch
 
-from fasttalk_tpu_torch.engine.slots import Slot, SlotManager
+from fasttalk_tpu_torch.engine.decode_steps import (DecodeState, plain_steps,
+                                                    spec_steps)
+from fasttalk_tpu_torch.engine.slots import Slot, SlotManager, _lcp
 from fasttalk_tpu_torch.engine.tokenizer import StreamDetokenizer, Tokenizer
 from fasttalk_tpu_torch.kvcache.blocks import BlockAllocator, blocks_for
 from fasttalk_tpu_torch.models.configs import ModelConfig
-from fasttalk_tpu_torch.models.llama import (KVCache, forward, forward_decode,
-                                             init_cache, init_paged_cache)
+from fasttalk_tpu_torch.models.llama import (KVCache, forward, init_cache,
+                                             init_paged_cache)
 from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 from fasttalk_tpu_torch.ops.kv_quant import granule_dim
-from fasttalk_tpu_torch.ops.sampling import apply_penalties, sample_tokens
+from fasttalk_tpu_torch.ops.sampling import sample_tokens
 from fasttalk_tpu_torch.quantization.int4 import (group_size_of, is_int4,
                                                   validate_group)
+from fasttalk_tpu_torch.scheduling.scheduler import RequestScheduler
 from fasttalk_tpu_torch.utils.config import resolve_device
-from fasttalk_tpu_torch.utils.errors import ErrorCategory, LLMServiceError
+from fasttalk_tpu_torch.utils.errors import (AdmissionRejected, ErrorCategory,
+                                             LLMServiceError)
 from fasttalk_tpu_torch.utils.logger import get_logger
+from fasttalk_tpu_torch.utils.metrics import get_metrics
 
 log = get_logger("engine")
 
 _KV_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
-# Candidate preselection of the sampler: block-max ("fast"), the JAX
-# engine's serving default; greedy top-1 is exact either way.
-_SAMPLING = "fast"
+
+
+def _kv_bucket(need: int, max_len: int) -> int:
+    """The smallest KV bucket holding ``need`` rows (``max_len`` past the
+    last bucket that fits the cache)."""
+    return next((b for b in _KV_BUCKETS if need <= b <= max_len), max_len)
 
 
 @dataclass
@@ -92,6 +119,11 @@ class GenerationParams:
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
     ignore_eos: bool = False
+    # Admission class and queue TTL (scheduling/scheduler.py):
+    # "interactive" admits before "bulk"; deadline_s bounds the wait in the
+    # admission queue (None = the scheduler's default).
+    priority: str = "interactive"
+    deadline_s: float | None = None
 
     def __post_init__(self) -> None:
         if not (math.isfinite(self.repeat_penalty)
@@ -104,6 +136,19 @@ class GenerationParams:
             raise ValueError("frequency_penalty must be finite")
         if self.max_tokens <= 0:
             raise ValueError(f"max_tokens must be > 0, got {self.max_tokens}")
+        if self.priority not in ("interactive", "bulk"):
+            raise ValueError(
+                f"priority must be 'interactive' or 'bulk', "
+                f"got {self.priority!r}")
+        if self.deadline_s is not None:
+            try:
+                ok = math.isfinite(self.deadline_s) and self.deadline_s > 0
+            except TypeError:
+                ok = False
+            if not ok:
+                raise ValueError(
+                    f"deadline_s must be a positive number, "
+                    f"got {self.deadline_s!r}")
 
 
 @dataclass(eq=False)
@@ -115,7 +160,7 @@ class _Request:
     out_queue: asyncio.Queue
     loop: asyncio.AbstractEventLoop
     submitted_at: float = field(default_factory=time.monotonic)
-    admitted_at: float = 0.0
+    admitted_at: float | None = None
     detok: StreamDetokenizer | None = None
     slot: Slot | None = None
     generated: int = 0
@@ -126,6 +171,8 @@ class _Request:
     cancelled: bool = False
     finished: bool = False
     prefill_tokens: int = 0
+    spec_accepted: int = 0     # accepted draft tokens
+    spec_drafted: int = 0      # drafts offered to verification
 
 
 @dataclass
@@ -135,6 +182,11 @@ class _PrefillState:
     start: int
     todo: list[int]
     last_logits: Any = None
+
+
+# One admitted request bound for a batched prefill: (request, slot, rows
+# already resident, the tokens to prefill).
+_Item = tuple[_Request, Slot, int, list[int]]
 
 
 class EngineBase:
@@ -167,6 +219,14 @@ class EngineBase:
     def shutdown(self) -> None:
         raise NotImplementedError
 
+    def begin_drain(self) -> None:
+        """Graceful drain: refuse new submissions (with retry_after) while
+        queued and running requests finish. No-op by default."""
+
+    def pending_requests(self) -> int:
+        """Requests still queued or running (drain progress)."""
+        return 0
+
 
 class _HostCopy:
     """A device tensor's copy to the host, started without waiting: on
@@ -191,8 +251,32 @@ class _HostCopy:
         return self._host.numpy()
 
 
+@dataclass
+class _Call:
+    """One in-flight decode call. ``promise``: tokens it is expected to
+    give each request (sizes further dispatches); ``advance``: positions it
+    is expected to advance (sizes a speculative call's KV bucket);
+    ``max_advance``: the most it can advance (sizes a plain call's bucket,
+    whose steps have no n_out column to drop a gated slot's token, and the
+    paged tier's block horizon)."""
+
+    copy: _HostCopy
+    promise: float
+    advance: int
+    max_advance: int
+    snapshot: list[tuple[int, _Request]]
+
+
 class TorchEngine(EngineBase):
     """The port's engine. Owns params, KV cache, tokenizer, decode loop."""
+
+    # Shared prefixes round down to this granule (JAX ``_STAMP_GRANULE``);
+    # the slot scan's minimum share is the same 16 tokens.
+    _STAMP_GRANULE = 16
+    # Intra-burst sharing engages only from this common prefix on (JAX
+    # ``_INTRA_SHARE_MIN``): below it the extra prefill wave costs more
+    # than the rows it saves.
+    _INTRA_SHARE_MIN = 64
 
     def __init__(self, model_cfg: ModelConfig, params: Any,
                  tokenizer: Tokenizer, *, device: str | torch.device | None = None,
@@ -201,6 +285,13 @@ class TorchEngine(EngineBase):
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  context_window: int | None = None,
                  steps_per_call: int = 32, pipeline_depth: int = 2,
+                 sampling_method: str = "fast",
+                 spec_decode: str = "off", spec_draft_len: int = 7,
+                 spec_breakeven: float = 1.45,
+                 shared_prefix: bool = True,
+                 queue_bound: int = 256,
+                 default_deadline_s: float = 30.0,
+                 bulk_aging_s: float = 5.0,
                  kv_quant: str = "none", kv_quant_granule: str = "token",
                  kv_layout: str = "dense", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, kv_reserve_policy: str = "fixed",
@@ -220,6 +311,10 @@ class TorchEngine(EngineBase):
         self.steps_per_call = max(1, steps_per_call)
         self.steps_burst = min(8, self.steps_per_call)
         self.pipeline_depth = max(1, pipeline_depth)
+        if sampling_method not in ("fast", "exact"):
+            raise ValueError(f"sampling_method must be fast|exact, "
+                             f"got {sampling_method!r}")
+        self.sampling_method = sampling_method
         # Sampling is restricted to ids the tokenizer can decode (random
         # weights of a 128k-vocab model paired with a 32k tokenizer).
         self.sample_vocab = min(model_cfg.vocab_size,
@@ -244,10 +339,31 @@ class TorchEngine(EngineBase):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', "
                              f"got {kv_layout!r}")
+        if spec_decode not in ("off", "ngram", "auto"):
+            raise ValueError(f"spec_decode must be off|ngram|auto, "
+                             f"got {spec_decode!r}")
         self.kv_quant = kv_quant == "int8"
+        if self.kv_quant and spec_decode != "off":
+            raise ValueError(
+                "KV_QUANT=int8 is incompatible with speculative "
+                "decoding (the spec carry does not thread the "
+                "scale arrays through the verify block) — set "
+                "TPU_SPEC_DECODE=off")
         self.kv_scale_granule = (granule_dim(kv_quant_granule,
                                              model_cfg.num_kv_heads)
                                  if self.kv_quant else 1)
+        # Speculative decoding: "ngram" = every call speculative, "auto" =
+        # per call from the measured acceptance EMA (tokens per verify
+        # block) against the break-even, with a probe call every
+        # ``_spec_probe_every`` plain calls; "off" = plain calls only.
+        self.spec_mode = spec_decode
+        self.spec_draft = max(1, spec_draft_len) if spec_decode != "off" \
+            else 0
+        self.spec_breakeven = spec_breakeven
+        self._spec_probe_every = 16
+        self._spec_probe_countdown = 1  # probe on the first call
+        self._spec_ema = 1.0
+        self.shared_prefix = shared_prefix
         self.paged = kv_layout == "paged"
         self.kv_block_size = int(kv_block_size)
         self._kv_blocks: BlockAllocator | None = None
@@ -274,14 +390,17 @@ class TorchEngine(EngineBase):
             self.cache = init_cache(model_cfg, num_slots, self.max_len, dtype,
                                     self.device, quantized=self.kv_quant,
                                     scale_granule=self.kv_scale_granule)
-        self._service_ema_s = 0.0
         self.slots = SlotManager(num_slots, self.max_len,
                                  on_unpin=self._on_slot_unpin)
-        self._rows = torch.arange(num_slots, device=self.device)
         self._reset_decode_state()
 
         self._commands: queue.Queue = queue.Queue()
-        self._waiting: deque[_Request] = deque()
+        # Admission control (scheduling/scheduler.py): submissions go into
+        # the scheduler from the asyncio side, so a shed is synchronous;
+        # the engine thread pops.
+        self._sched = RequestScheduler(
+            queue_bound=queue_bound, default_deadline_s=default_deadline_s,
+            bulk_aging_s=bulk_aging_s, slots=num_slots)
         self._prefilling: list[_PrefillState] = []
         self._running: dict[int, _Request] = {}
         self._by_id: dict[str, _Request] = {}
@@ -294,9 +413,37 @@ class TorchEngine(EngineBase):
         self.decode_calls = 0
         self.decode_steps = 0
         self.decode_host_s = 0.0   # host time spent enqueueing decode calls
+        self.spec_calls = 0        # of the decode calls, speculative ones
+        self.spec_steps = 0
+        self.spec_host_s = 0.0
+        self.spec_accepted = 0     # accepted drafts over retired blocks
+        self.spec_drafted = 0
+        self.spec_blocks = 0       # verify blocks that emitted tokens
+        self.batched_prefill_calls = 0
+        self.batched_prefill_rows = 0
+        self.prefix_tokens_shared = 0
+        m = get_metrics()
+        self._m_tokens = m.counter("engine_tokens_generated_total",
+                                   "tokens generated by the engine")
+        self._m_requests = m.counter("engine_requests_total",
+                                     "generation requests accepted")
+        self._m_ttft = m.histogram("engine_ttft_ms", "time to first token")
+        self._m_queue_wait = m.histogram(
+            "queue_wait_ms", "wait from request submit to slot admission")
+        self._m_prefix = m.counter("engine_prefix_tokens_reused_total",
+                                   "prompt tokens served from resident KV")
+        self._m_shared = m.counter(
+            "engine_shared_prefix_tokens_total",
+            "prompt tokens served by cross-slot KV copy instead of "
+            "prefill")
+        self._m_spec = m.histogram(
+            "engine_spec_tokens_per_verify",
+            "tokens emitted per speculative verify block (accepted "
+            "drafts + 1); 1 means no draft accepted",
+            buckets=tuple(range(1, max(2, self.spec_draft + 2))))
 
     def _reset_decode_state(self) -> None:
-        s, dev = self.num_slots, self.device
+        s = self.num_slots
         self._positions = np.zeros((s,), np.int64)
         self._active_mask = np.zeros((s,), bool)
         self._temps = np.zeros((s,), np.float32)
@@ -305,27 +452,20 @@ class TorchEngine(EngineBase):
         self._reps = np.ones((s,), np.float32)
         self._press = np.zeros((s,), np.float32)
         self._freqs = np.zeros((s,), np.float32)
-        self._cur_dev = torch.zeros((s,), dtype=torch.int64, device=dev)
-        self._pos_dev = torch.zeros((s,), dtype=torch.int64, device=dev)
-        self._active_dev = torch.zeros((s,), dtype=torch.bool, device=dev)
-        self._temps_dev = torch.zeros((s,), dtype=torch.float32, device=dev)
-        self._topks_dev = torch.zeros((s,), dtype=torch.int64, device=dev)
-        self._topps_dev = torch.ones((s,), dtype=torch.float32, device=dev)
-        self._reps_dev = torch.ones((s,), dtype=torch.float32, device=dev)
-        self._press_dev = torch.zeros((s,), dtype=torch.float32, device=dev)
-        self._freqs_dev = torch.zeros((s,), dtype=torch.float32, device=dev)
-        # Per-slot emitted-token counts (penalty state), maintained on the
-        # device by the decode steps and zeroed when a slot is patched.
-        self._counts_dev = torch.zeros((s, self.sample_vocab),
-                                       dtype=torch.int32, device=dev)
-        self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed(self.seed)
+        # The device side: current tokens, positions, sampling parameters,
+        # penalty counts (zeroed when a slot is patched), the generator and
+        # (speculative decoding) the draft history.
+        self._dev = DecodeState.zeros(
+            s, self.sample_vocab, self.max_len if self.spec_draft else 0,
+            self.device, self.seed)
         self._dirty_slots: set[int] = set()
-        # In-flight decode calls: (host copy of tokens [K, S], steps,
-        # (slot, request) pairs running at dispatch).
-        self._inflight: deque[tuple[_HostCopy, int,
-                                    list[tuple[int, _Request]]]] = deque()
-        self._pending_firsts: deque[tuple[_HostCopy, _Request, int]] = deque()
+        # slot -> its tokens, to upload into the draft history.
+        self._dirty_history: dict[int, list[int]] = {}
+        self._inflight: deque[_Call] = deque()
+        # First tokens awaiting their host copy: (copy, [(row in the copy,
+        # slot, request)]).
+        self._pending_firsts: deque[
+            tuple[_HostCopy, list[tuple[int, int, _Request]]]] = deque()
 
     # ---------------- public (asyncio side) ----------------
 
@@ -354,7 +494,9 @@ class TorchEngine(EngineBase):
                        messages: list[dict], params: GenerationParams,
                        ) -> AsyncGenerator[dict, None]:
         """Stream events: {"type": "token", "text": ...} per delta, then a
-        terminal {"type": "done"|"error"|"cancelled", ...}."""
+        terminal {"type": "done"|"error"|"cancelled", ...}. A shed at
+        admission raises ``AdmissionRejected`` (with ``retry_after``)
+        before any event."""
         if not self.check_connection():
             raise LLMServiceError("Engine is not running (call start())",
                                   category=ErrorCategory.CONNECTION)
@@ -369,8 +511,24 @@ class TorchEngine(EngineBase):
                        out_queue=asyncio.Queue(),
                        loop=asyncio.get_running_loop(),
                        detok=StreamDetokenizer(self.tokenizer))
+        self._m_requests.inc()
+        # Registered before the submit, so an immediate cancel() cannot
+        # race the engine thread's command drain.
         self._by_id[request_id] = req
-        self._commands.put(("submit", req))
+        try:
+            # A paged pool that cannot hold the prompt now makes the wait
+            # about one service time longer (JAX _paged_wait_penalty);
+            # the host-offload discount is 0 until that tier is ported.
+            self._sched.submit(request_id, session_id,
+                               priority=params.priority,
+                               deadline_s=params.deadline_s, payload=req,
+                               wait_discount_s=-self._paged_wait_penalty(
+                                   len(prompt)))
+        except AdmissionRejected:
+            self._by_id.pop(request_id, None)
+            req.finished = True
+            raise
+        self._commands.put(("kick", None))  # wake the engine thread
         terminal = False
         try:
             while True:
@@ -395,6 +553,23 @@ class TorchEngine(EngineBase):
     def release_session(self, session_id: str) -> None:
         self._commands.put(("release", session_id))
 
+    def begin_drain(self) -> None:
+        """Stop admitting new submissions (they shed with retry_after);
+        queued and running requests run to completion."""
+        self._sched.begin_drain()
+        if self._started:
+            self._commands.put(("kick", None))
+
+    def pending_requests(self) -> int:
+        """Requests not yet terminal (queued, prefilling or running)."""
+        return len(self._by_id)
+
+    def scheduler_debug(self) -> dict:
+        """The scheduler's state and its queued entries (position,
+        priority, remaining deadline)."""
+        return {"stats": self._sched.stats(),
+                "queued": self._sched.snapshot()}
+
     def get_model_info(self) -> dict:
         return {
             "kv_layout": "paged" if self.paged else "dense",
@@ -415,13 +590,24 @@ class TorchEngine(EngineBase):
         }
 
     def get_stats(self) -> dict:
-        out = {"slots": self.slots.stats(), "waiting": len(self._waiting),
+        out = {"slots": self.slots.stats(), "waiting": len(self._sched),
+               "scheduler": self._sched.stats(),
                "prefilling": len(self._prefilling),
                "running": len(self._running),
                "tokens_generated": self.tokens_generated,
                "decode_calls": self.decode_calls,
                "decode_steps": self.decode_steps,
-               "decode_host_s": self.decode_host_s}
+               "decode_host_s": self.decode_host_s,
+               "batched_prefill_calls": self.batched_prefill_calls,
+               "batched_prefill_rows": self.batched_prefill_rows,
+               "prefix_tokens_shared": self.prefix_tokens_shared,
+               "spec": {"mode": self.spec_mode, "draft": self.spec_draft,
+                        "ema_tokens_per_verify": self._spec_ema,
+                        "calls": self.spec_calls, "steps": self.spec_steps,
+                        "host_s": self.spec_host_s,
+                        "verify_blocks": self.spec_blocks,
+                        "accepted": self.spec_accepted,
+                        "drafted": self.spec_drafted}}
         if self.paged:
             used = sum(min(s.kv_written, len(s.tokens))
                        for s in self.slots.slots)
@@ -441,7 +627,21 @@ class TorchEngine(EngineBase):
                     and not self._prefilling and not self._pending_firsts
                 if not self._drain_commands(block=idle):
                     break
-                if self._waiting:
+                if len(self._sched):
+                    if not self._running and not self._inflight \
+                            and not self._prefilling:
+                        # Burst coalescing (JAX _run): from idle, the first
+                        # request of a concurrent burst lands a few ms
+                        # before the rest; a short grace gathers the burst
+                        # into one admission group, one batched prefill.
+                        stop = False
+                        for _ in range(2):
+                            time.sleep(0.003)
+                            if not self._drain_commands(block=False):
+                                stop = True
+                                break
+                        if stop:
+                            break
                     self._admit()
                 if self._prefilling:
                     self._advance_prefill()
@@ -471,7 +671,7 @@ class TorchEngine(EngineBase):
             self._emit(req, {"type": "error", "error": reason,
                              "code": "internal_error"})
         self._by_id.clear()
-        self._waiting.clear()
+        self._sched.clear()
         self._prefilling.clear()
         self._running.clear()
         self._inflight.clear()
@@ -487,53 +687,84 @@ class TorchEngine(EngineBase):
             block = False
             if cmd == "stop":
                 return False
-            if cmd == "submit":
-                self._waiting.append(arg)
-            elif cmd == "cancel":
+            if cmd == "cancel":
                 req = self._by_id.get(arg)
                 if req is not None:
                     req.cancelled = True
-                    if req in self._waiting:
-                        self._waiting.remove(req)
-                        self._finish(req, "cancelled")
+                    if self._sched.cancel(arg) is not None:
+                        self._finish(req, "cancelled")  # still queued
             elif cmd == "release":
                 slot = self.slots.lookup(arg)
                 if slot is not None and slot.active:
                     self._release_after.add(arg)
                 else:
                     self.slots.release_session(arg)
+            # "kick": a submission landed in the scheduler; just wake.
+
+    def _expire_queued(self) -> None:
+        """End every queued request past its deadline with a terminal
+        event before it touches the card (JAX _expire_queued :4047)."""
+        now = time.monotonic()
+        for entry in self._sched.take_expired():
+            req = entry.payload
+            if req is None or req.finished:
+                continue
+            self._finish(
+                req, "error",
+                error=f"request expired after {now - req.submitted_at:.1f}s "
+                f"in the admission queue (deadline "
+                f"{entry.deadline - entry.submitted_at:.1f}s)",
+                code="deadline_expired",
+                retry_after=self._sched.retry_after())
 
     def _admit(self) -> None:
-        """Move waiting requests, oldest first, into free slots. A request
-        whose session is still generating waits without blocking others."""
+        """Move queued requests into free slots, in the scheduler's order
+        (priority class with bulk aging, round-robin across sessions,
+        deadlines enforced). A request whose session is still generating
+        is skipped without blocking others. Requests whose remaining prompt
+        fits one prefill bucket prefill together (``_prefill_batched``);
+        longer ones take the chunked path."""
+        self._expire_queued()
+        # From idle nobody waits behind a long prefill, so one batched
+        # call may take prompts up to the 1024 bucket (JAX :4088-4101).
+        idle = not self._running and not self._inflight \
+            and not self._prefilling
+        allowed = max(self.prefill_chunk, 1024) if idle \
+            else self.prefill_chunk
+        batch: list[_Item] = []
         busy = {s.session_id for s in self.slots.slots
                 if s.active and s.session_id is not None}
-        keep: deque[_Request] = deque()
-        while self._waiting:
-            req = self._waiting.popleft()
+        while True:
+            entry = self._sched.pop(busy)
+            if entry is None:
+                break
+            req = entry.payload
             if req.finished:
                 continue
             if req.cancelled:
                 self._finish(req, "cancelled")
                 continue
-            if req.session_id in busy:
-                keep.append(req)
-                continue
             slot = self.slots.acquire(req.session_id)
             if slot is None:  # every slot is decoding
-                keep.append(req)
-                keep.extend(self._waiting)
-                self._waiting.clear()
+                self._sched.requeue_front(entry)
                 break
+            # Reserved now: activation follows the prefill, and an
+            # unreserved slot could be evicted by the next acquire.
             req.slot = slot
-            req.admitted_at = time.monotonic()
             slot.active = True
             busy.add(req.session_id)
+            req.admitted_at = time.monotonic()
+            self._m_queue_wait.observe(
+                (req.admitted_at - req.submitted_at) * 1000)
             prompt = req.prompt_tokens
             reused = self.slots.reuse_prefix(slot, prompt)
             if self.paged:
                 # Blocks past the trusted rows (a diverged history) go back.
                 self._kv_blocks.truncate(slot.index, slot.kv_written)
+            if reused:
+                self._m_prefix.inc(reused)
+            if not reused and self.shared_prefix:
+                reused = self._share_from_other_slot(slot, prompt)
             todo = prompt[reused:]
             req.prefill_tokens = len(todo)
             if reused + len(todo) > self.usable_len:
@@ -543,12 +774,224 @@ class TorchEngine(EngineBase):
             if self.paged and not self._paged_admissible(slot, req, reused,
                                                          len(todo)):
                 continue  # shed with retry_after: the blocks do not fit
-            self._prefilling.append(_PrefillState(req=req, slot=slot,
-                                                  start=reused, todo=todo))
-        self._waiting = keep
+            bucket = next((b for b in _PREFILL_BUCKETS if b >= len(todo)),
+                          None)
+            if bucket is not None and len(todo) <= allowed \
+                    and reused + bucket <= self.max_len:
+                batch.append((req, slot, reused, todo))
+            else:
+                self._prefilling.append(_PrefillState(
+                    req=req, slot=slot, start=reused, todo=todo))
+        if batch:
+            if self.shared_prefix and len(batch) >= 2:
+                self._prefill_batched_shared(batch)
+            else:
+                self._prefill_batched(batch)
+        # Entries the pop found expired end now: the queue may be empty,
+        # and no later iteration would come back for them.
+        self._expire_queued()
+
+    # ---------------- shared prefix ----------------
+
+    def _share_from_other_slot(self, slot: Slot, prompt: list[int]) -> int:
+        """Cross-session stamp: copy the longest prefix resident in another
+        slot onto this fresh one. Dense shares round down to the stamp
+        granule; paged shares copy every shared row (the count JAX's block
+        aliasing serves). The source's rows [0, share) are stable: its own
+        writes go to positions at or past its kept length. Returns the
+        prompt tokens now resident."""
+        src, share = self.slots.best_shared_prefix(slot, prompt)
+        if src is None:
+            return 0
+        if not self.paged:
+            share -= share % self._STAMP_GRANULE
+        if share < self._STAMP_GRANULE or not self._copy_prefix(src, slot,
+                                                                 share):
+            return 0
+        slot.tokens = list(prompt[:share])
+        slot.kv_written = share
+        self._count_shared(share)
+        return share
+
+    def _count_shared(self, rows: int) -> None:
+        self.prefix_tokens_shared += rows
+        self._m_shared.inc(rows)
+
+    def _copy_prefix(self, src: Slot, dst: Slot, rows: int) -> bool:
+        """Copy the source slot's leading ``rows`` KV rows (and their scale
+        rows on the int8 tier) onto ``dst``; on the paged tier through the
+        two block tables into blocks of dst's own (False when the pool
+        cannot hold them). PyTorch has no executable family to bound, so
+        one slice copy serves any length (JAX decomposes the share into
+        power-of-two chunks, :2362-2379)."""
+        if self.paged:
+            if not self._kv_blocks.ensure(dst.index, rows):
+                return False
+            read = self._paged_read_indices(src.index, rows)
+            write = self._paged_read_indices(dst.index, rows)
+            for pool in self.cache:
+                if pool is not None:
+                    pool[:, write] = pool[:, read]
+            return True
+        for part in self.cache:
+            if part is not None:
+                part[:, dst.index, :rows] = part[:, src.index, :rows]
+        return True
+
+    def _prefill_batched_shared(self, batch: list[_Item]) -> None:
+        """Intra-burst shared prefix (JAX :4421): when fresh admissions of
+        one burst share a long leading prefix, prefill the longest prompt
+        first, copy the shared rows onto the others, and batch-prefill only
+        their deltas. A share that cannot shrink a member's prefill bucket
+        is skipped (two waves would be slower than one)."""
+        fresh = [item for item in batch if item[2] == 0]
+        members: list[tuple[_Item, int]] = []
+        leader = None
+        if len(fresh) >= 2:
+            leader = max(fresh, key=lambda it: len(it[0].prompt_tokens))
+            lp = leader[0].prompt_tokens
+            for item in fresh:
+                if item is leader:
+                    continue
+                pt = item[0].prompt_tokens
+                share = _lcp(lp, pt, min(len(lp), len(pt) - 1))
+                share -= share % self._STAMP_GRANULE
+                if share < self._INTRA_SHARE_MIN:
+                    continue
+                full_b = next(b for b in _PREFILL_BUCKETS if b >= len(pt))
+                delta_b = next(b for b in _PREFILL_BUCKETS
+                               if b >= max(1, len(pt) - share))
+                if delta_b < full_b and share + delta_b <= self.max_len:
+                    members.append((item, share))
+        if not members:
+            self._prefill_batched(batch)
+            return
+        member_ids = {id(it) for it, _ in members}
+        self._prefill_batched([it for it in batch if id(it) not in member_ids])
+        lreq, lslot = leader[0], leader[1]
+        second: list[_Item] = []
+        for (req, slot, _, _), share in members:
+            if req.finished:
+                continue
+            # Re-clamp to what the leader wrote, and re-check that the
+            # (possibly larger) delta's bucket still fits at its start.
+            share = min(share, lslot.kv_written)
+            share -= share % self._STAMP_GRANULE
+            delta_b = next((b for b in _PREFILL_BUCKETS
+                            if b >= max(1, len(req.prompt_tokens) - share)),
+                           None)
+            if lreq.finished or share < self._INTRA_SHARE_MIN \
+                    or delta_b is None or share + delta_b > self.max_len \
+                    or not self._copy_prefix(lslot, slot, share):
+                second.append((req, slot, 0, req.prompt_tokens))
+                continue
+            slot.tokens = list(req.prompt_tokens[:share])
+            slot.kv_written = share
+            req.prefill_tokens = len(req.prompt_tokens) - share
+            self._count_shared(share)
+            second.append((req, slot, share, req.prompt_tokens[share:]))
+        if second:
+            self._prefill_batched(second)
+
+    # ---------------- prefill ----------------
+
+    def _prefill_batched(self, batch: list[_Item]) -> None:
+        """Prefill single-bucket prompts in one forward per bucket, at most
+        ``num_slots`` rows a group; an error ends only its group."""
+        by_bucket: dict[int, list[_Item]] = {}
+        for item in batch:
+            bucket = next(b for b in _PREFILL_BUCKETS
+                          if b >= max(1, len(item[3])))
+            by_bucket.setdefault(bucket, []).append(item)
+        for bucket, group in sorted(by_bucket.items()):
+            while group:
+                sub, group = group[:self.num_slots], group[self.num_slots:]
+                try:
+                    self._prefill_group(bucket, sub)
+                except Exception as e:
+                    log.error(f"batched prefill failed: {e}", exc_info=True)
+                    for req, _, _, _ in sub:
+                        self._finish(req, "error", error=str(e))
+
+    def _prefill_group(self, bucket: int, sub: list[_Item]) -> None:
+        """One ``[group, bucket]`` forward and one first-token sample for a
+        same-bucket group. The target slots' first ``ctx`` rows are
+        gathered (dense: by slot; paged: through each row's table), the
+        chunk's rows scattered back; each row writes from its own start.
+        PyTorch needs no fixed group shape, so the group has no padding
+        rows (JAX pads to 1 or num_slots to bound its executables)."""
+        if self.paged:
+            # Blocks for every row's padded write horizon before anything
+            # is built: a row the pool cannot hold sheds here and the rest
+            # of the group proceeds (JAX :4533-4552).
+            kept = []
+            for item in sub:
+                if self._kv_blocks.ensure(item[1].index, item[2] + bucket):
+                    kept.append(item)
+                else:
+                    self._paged_exhausted_finish(
+                        item[0], "KV block pool exhausted during "
+                                 "batched prefill")
+            sub = kept
+            if not sub:
+                return
+        g, dev = len(sub), self.device
+        tokens = np.zeros((g, bucket), np.int64)
+        for j, (_, _, _, todo) in enumerate(sub):
+            tokens[j, :len(todo)] = todo
+        starts = [start for _, _, start, _ in sub]
+        ctx = _kv_bucket(max(starts) + bucket, self.max_len)
+        starts_t = torch.tensor(starts, device=dev)
+        positions = starts_t[:, None] + torch.arange(bucket, device=dev)[None]
+        rows = torch.arange(g, device=dev)[:, None]
+        if self.paged:
+            read = torch.stack([self._paged_read_indices(slot.index, ctx)
+                                for _, slot, _, _ in sub])
+            view = KVCache(*(None if x is None else x[:, read]
+                             for x in self.cache))
+        else:
+            slot_idx = torch.tensor([slot.index for _, slot, _, _ in sub],
+                                    device=dev)
+            view = KVCache(*(None if x is None else x[:, slot_idx, :ctx]
+                             for x in self.cache))
+        logits, _ = forward(
+            self.params, self.cfg, torch.from_numpy(tokens).to(dev),
+            positions, view, starts_t, blockwise=True,
+            logits_indices=torch.tensor([len(todo) - 1
+                                         for _, _, _, todo in sub],
+                                        device=dev))
+        # Only the chunk's rows go back: the gathered copy holds the rest
+        # unchanged.
+        for part, full in zip(view, self.cache):
+            if full is None:
+                continue
+            new = part[:, rows, positions]
+            if self.paged:
+                full[:, read.gather(1, positions)] = new
+            else:
+                full[:, slot_idx[:, None], positions] = new
+        firsts = sample_tokens(
+            logits[:, 0, :self.sample_vocab], self._dev.gen,
+            torch.tensor([r.params.temperature for r, _, _, _ in sub],
+                         dtype=torch.float32, device=dev),
+            torch.tensor([r.params.top_k for r, _, _, _ in sub],
+                         dtype=torch.int64, device=dev),
+            torch.tensor([r.params.top_p for r, _, _, _ in sub],
+                         dtype=torch.float32, device=dev),
+            method=self.sampling_method)
+        self.batched_prefill_calls += 1
+        self.batched_prefill_rows += g
+        entries = []
+        for j, (req, slot, start, todo) in enumerate(sub):
+            self._dev.cur[slot.index] = firsts[j]
+            slot.tokens.extend(todo)
+            slot.kv_written = start + len(todo)
+            self._activate(req, slot)
+            entries.append((j, slot.index, req))
+        self._defer_first(firsts, entries)
 
     def _advance_prefill(self) -> None:
-        """Run ONE chunk of the oldest in-progress prefill."""
+        """Run ONE chunk of the oldest in-progress long prefill."""
         keep: list[_PrefillState] = []
         for st in self._prefilling:
             if st.req.finished:
@@ -593,15 +1036,14 @@ class TorchEngine(EngineBase):
                 return  # next chunk on a later iteration
             self._prefilling.pop(0)
             first = sample_tokens(
-                st.last_logits[None, :self.sample_vocab], self._gen,
+                st.last_logits[None, :self.sample_vocab], self._dev.gen,
                 self._dev_scalar(req.params.temperature, torch.float32),
                 self._dev_scalar(req.params.top_k, torch.int64),
                 self._dev_scalar(req.params.top_p, torch.float32),
-                method=_SAMPLING)
-            self._cur_dev[slot.index] = first[0]
+                method=self.sampling_method)
+            self._dev.cur[slot.index] = first[0]
             self._activate(req, slot)
-            req.first_pending = True
-            self._pending_firsts.append((_HostCopy(first), req, slot.index))
+            self._defer_first(first, [(0, slot.index, req)])
         except Exception as e:
             log.error(f"prefill failed for {req.request_id}: {e}",
                       exc_info=True)
@@ -624,9 +1066,7 @@ class TorchEngine(EngineBase):
         runs over it, and the chunk's rows start..start+bucket scatter
         back through the table (their blocks were ensured by the caller).
         """
-        ctx = next((b for b in _KV_BUCKETS
-                    if b >= start + bucket and b <= self.max_len),
-                   self.max_len)
+        ctx = _kv_bucket(start + bucket, self.max_len)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(chunk)] = chunk
         tokens = torch.from_numpy(padded).to(self.device)
@@ -667,19 +1107,34 @@ class TorchEngine(EngineBase):
         self._press[s] = req.params.presence_penalty
         self._freqs[s] = req.params.frequency_penalty
         self._dirty_slots.add(s)
+        if self.spec_draft:
+            # Every row fed so far (reused, copied and prefilled alike)
+            # goes into the slot's draft history at the next patch.
+            self._dirty_history[s] = list(slot.tokens)
+
+    def _defer_first(self, firsts: torch.Tensor,
+                     entries: list[tuple[int, int, _Request]]) -> None:
+        """Queue first sampled tokens for emission once their copy to the
+        host lands."""
+        for _, _, req in entries:
+            req.first_pending = True
+        self._pending_firsts.append((_HostCopy(firsts), entries))
 
     def _drain_firsts(self, block: bool) -> None:
         while self._pending_firsts:
-            copy, req, s = self._pending_firsts[0]
+            copy, entries = self._pending_firsts[0]
             if not block and not copy.done():
                 return
             self._pending_firsts.popleft()
-            tok = int(copy.result()[0])
-            req.first_pending = False
-            if req.finished or self._running.get(s) is not req:
-                continue
-            self._consume_token(req, tok)
-            self._flush_emit(req)
+            arr = copy.result()
+            for j, s, req in entries:
+                req.first_pending = False
+                if req.finished or self._running.get(s) is not req:
+                    continue
+                self._consume_token(req, int(arr[j]))
+                self._flush_emit(req)
+
+    # ---------------- decode ----------------
 
     def _should_dispatch(self) -> bool:
         """Dispatch another K-step call only if some running request can
@@ -687,10 +1142,10 @@ class TorchEngine(EngineBase):
         if self._pending_firsts and self._running and all(
                 req.first_pending for req in self._running.values()):
             return False
-        promised: dict[int, int] = {}
-        for _, steps, snap in self._inflight:
-            for _, req in snap:
-                promised[id(req)] = promised.get(id(req), 0) + steps
+        promised: dict[int, float] = {}
+        for call in self._inflight:
+            for _, req in call.snapshot:
+                promised[id(req)] = promised.get(id(req), 0) + call.promise
         return any(
             req.params.max_tokens - req.generated
             - (1 if req.first_pending else 0) > promised.get(id(req), 0)
@@ -698,7 +1153,21 @@ class TorchEngine(EngineBase):
 
     def _patch_slot_state(self) -> None:
         """Apply changed host mirrors onto the device decode state with one
-        small upload; in-flight calls are ordered before it on the stream."""
+        small upload (and the draft history of newly activated slots with
+        one more); in-flight calls are ordered before it on the stream."""
+        st = self._dev
+        if self._dirty_history:
+            idx = sorted(self._dirty_history)
+            longest = max(len(self._dirty_history[s]) for s in idx)
+            rows = np.zeros((len(idx), max(1, longest)), np.int64)
+            for i, s in enumerate(idx):
+                toks = self._dirty_history[s]
+                rows[i, :len(toks)] = toks
+            self._dirty_history.clear()
+            ii = torch.as_tensor(idx, device=self.device)
+            st.history[ii] = 0
+            st.history[ii, :rows.shape[1]] = torch.from_numpy(rows).to(
+                self.device)
         if not self._dirty_slots:
             return
         idx = sorted(self._dirty_slots)
@@ -710,91 +1179,133 @@ class TorchEngine(EngineBase):
                           axis=1).astype(np.float64)
         vals = torch.from_numpy(packed).to(self.device)
         ii = torch.as_tensor(idx, device=self.device)
-        self._pos_dev[ii] = vals[:, 0].to(torch.int64)
-        self._active_dev[ii] = vals[:, 1] > 0.5
-        self._temps_dev[ii] = vals[:, 2].to(torch.float32)
-        self._topks_dev[ii] = vals[:, 3].to(torch.int64)
-        self._topps_dev[ii] = vals[:, 4].to(torch.float32)
-        self._reps_dev[ii] = vals[:, 5].to(torch.float32)
-        self._press_dev[ii] = vals[:, 6].to(torch.float32)
-        self._freqs_dev[ii] = vals[:, 7].to(torch.float32)
-        self._counts_dev[ii] = 0
+        st.pos[ii] = vals[:, 0].to(torch.int64)
+        st.active[ii] = vals[:, 1] > 0.5
+        st.temps[ii] = vals[:, 2].to(torch.float32)
+        st.topks[ii] = vals[:, 3].to(torch.int64)
+        st.topps[ii] = vals[:, 4].to(torch.float32)
+        st.reps[ii] = vals[:, 5].to(torch.float32)
+        st.press[ii] = vals[:, 6].to(torch.float32)
+        st.freqs[ii] = vals[:, 7].to(torch.float32)
+        st.counts[ii] = 0
 
-    def _decode_steps(self, steps: int, kv_len: int,
-                      table: torch.Tensor | None = None) -> torch.Tensor:
-        """K decode steps on the device; returns the sampled tokens [K, S].
-        Nothing here waits for the device. ``table`` [S, kv_len / bs] is
-        the paged tier's block table."""
-        toks = torch.empty((steps, self.num_slots), dtype=torch.int64,
-                           device=self.device)
-        cur, pos = self._cur_dev, self._pos_dev
-        for k in range(steps):
-            # A slot that finished mid-pipeline keeps "decoding" until the
-            # host reconciles; keep it off the attention horizon.
-            act = self._active_dev & (pos < kv_len)
-            # Count the token being FED: every emitted token is counted
-            # exactly once at sampling time.
-            self._counts_dev.index_put_((self._rows, cur),
-                                        act.to(torch.int32), accumulate=True)
-            logits, _ = forward_decode(
-                self.params, self.cfg, cur, pos, self.cache, act,
-                attn_len=kv_len, block_table=table,
-                block_size=self.kv_block_size if self.paged else 0)
-            lg = apply_penalties(logits[:, :self.sample_vocab],
-                                 self._counts_dev, self._reps_dev,
-                                 self._press_dev, self._freqs_dev)
-            cur = sample_tokens(lg, self._gen, self._temps_dev,
-                                self._topks_dev, self._topps_dev,
-                                method=_SAMPLING)
-            pos = pos + act.to(pos.dtype)
-            toks[k] = cur
-        self._cur_dev, self._pos_dev = cur, pos
-        return toks
+    def _spec_call_wanted(self) -> bool:
+        """Per-call speculative/plain choice (JAX :4814): "ngram" always;
+        "auto" while the EMA of tokens per verify block clears the
+        break-even, else plain with a probe every ``_spec_probe_every``
+        calls so the EMA follows the workload."""
+        if self.spec_mode == "ngram":
+            return True
+        if self._spec_ema >= self.spec_breakeven:
+            return True
+        self._spec_probe_countdown -= 1
+        if self._spec_probe_countdown <= 0:
+            self._spec_probe_countdown = self._spec_probe_every
+            return True
+        return False
 
     def _dispatch_decode(self) -> None:
         """Launch one K-step decode call; does not wait for results."""
-        steps = (self.steps_burst if self._waiting or self._prefilling
+        steps = (self.steps_burst if len(self._sched) or self._prefilling
                  or any(r.first_pending for r in self._running.values())
                  else self.steps_per_call)
+        t = self.spec_draft + 1
+        worst_adv = steps * t
         # Paged: blocks first, so that a shed's deactivation reaches this
         # very call through the patch below.
-        if self.paged and not self._paged_prepare_decode(steps):
+        if self.paged and not self._paged_prepare_decode(worst_adv):
             return  # every running request was shed for blocks
         self._patch_slot_state()
         active = list(self._running)
         snapshot = list(self._running.items())
-        # Device positions lead the host mirrors by the in-flight calls'
-        # advances; size the KV bucket for where the device can be at the
-        # end of this call.
-        base = int(self._positions[active].max()) \
-            + sum(n for _, n, _ in self._inflight)
-        kv_len = next((b for b in _KV_BUCKETS
-                       if b >= base + steps and b <= self.max_len),
-                      self.max_len)
+        top = int(self._positions[active].max())
+        kw = dict(sample_vocab=self.sample_vocab, method=self.sampling_method,
+                  block_size=self.kv_block_size if self.paged else 0)
+        if self.spec_draft and self._spec_call_wanted():
+            # The KV bucket holds the EMA-expected advance and at least one
+            # whole verify block past every slot's position: with less, the
+            # in-call gate (pos + T <= kv_len) would mask every step and
+            # the same empty call would be dispatched forever (JAX
+            # :4865-4890). Underestimates are safe: a slot without room
+            # sits the step out and gives n_out = 0.
+            exp_adv = int(steps * min(float(t), max(1.0, self._spec_ema)
+                                      + 1.0))
+            need = top + sum(c.advance for c in self._inflight) \
+                + max(exp_adv, t)
+            if need <= self.max_len:
+                kv_len = _kv_bucket(need, self.max_len)
+                t0 = time.perf_counter()
+                toks = spec_steps(self.params, self.cfg, self.cache,
+                                  self._dev, steps, kv_len, self.spec_draft,
+                                  table=self._decode_table(kv_len), **kw)
+                dt = time.perf_counter() - t0
+                self.decode_host_s += dt
+                self.spec_host_s += dt
+                self.decode_calls += 1
+                self.decode_steps += steps
+                self.spec_calls += 1
+                self.spec_steps += steps
+                # Promise the EMA-expected tokens: promising ``steps``
+                # would queue up to T times too many calls.
+                self._inflight.append(_Call(
+                    _HostCopy(toks),
+                    promise=steps * min(float(t), max(1.0, self._spec_ema)),
+                    advance=exp_adv, max_advance=worst_adv,
+                    snapshot=snapshot))
+                return
+        # A plain step emits a token for every slot, so its bucket must hold
+        # the most the calls ahead of it can advance.
+        kv_len = _kv_bucket(top + sum(c.max_advance for c in self._inflight)
+                            + steps, self.max_len)
         t0 = time.perf_counter()
-        table = (self._paged_table(kv_len // self.kv_block_size,
-                                   list(range(self.num_slots)))
-                 if self.paged else None)
-        toks = self._decode_steps(steps, kv_len, table)
+        toks = plain_steps(self.params, self.cfg, self.cache, self._dev,
+                           steps, kv_len, table=self._decode_table(kv_len),
+                           **kw)
         self.decode_host_s += time.perf_counter() - t0
         self.decode_calls += 1
         self.decode_steps += steps
-        self._inflight.append((_HostCopy(toks), steps, snapshot))
+        self._inflight.append(_Call(_HostCopy(toks), promise=steps,
+                                    advance=steps, max_advance=steps,
+                                    snapshot=snapshot))
+
+    def _decode_table(self, kv_len: int) -> torch.Tensor | None:
+        return (self._paged_table(kv_len // self.kv_block_size,
+                                  list(range(self.num_slots)))
+                if self.paged else None)
 
     def _retire_oldest(self) -> None:
-        """Wait for the oldest in-flight call and consume its tokens."""
-        copy, _, snapshot = self._inflight.popleft()
+        """Wait for the oldest in-flight call and consume its tokens. A
+        speculative call's [K, S, T + 1] rows give their first ``n_out``
+        tokens (the last column)."""
+        call = self._inflight.popleft()
+        snapshot = call.snapshot
         if any(req.first_pending for _, req in snapshot):
             self._drain_firsts(block=True)
-        res = copy.result()
+        res = call.copy.result()
         if self._pending_firsts:
             self._drain_firsts(block=False)
         for k in range(res.shape[0]):
             for s, req in snapshot:
                 if req.finished or self._running.get(s) is not req:
                     continue  # ended earlier, or the slot was re-admitted
-                self._positions[s] += 1
-                self._consume_token(req, int(res[k, s]))
+                if res.ndim == 2:
+                    self._positions[s] += 1
+                    self._consume_token(req, int(res[k, s]))
+                    continue
+                n = int(res[k, s, -1])
+                if n:
+                    self._m_spec.observe(n)
+                    self._spec_ema = 0.9 * self._spec_ema + 0.1 * n
+                    req.spec_accepted += n - 1
+                    req.spec_drafted += self.spec_draft
+                    self.spec_accepted += n - 1
+                    self.spec_drafted += self.spec_draft
+                    self.spec_blocks += 1
+                for i in range(n):
+                    if req.finished or self._running.get(s) is not req:
+                        break
+                    self._positions[s] += 1
+                    self._consume_token(req, int(res[k, s, i]))
         for _, req in snapshot:
             self._flush_emit(req)
 
@@ -810,8 +1321,11 @@ class TorchEngine(EngineBase):
         slot.tokens.append(token_id)
         req.generated += 1
         self.tokens_generated += 1
+        self._m_tokens.inc()
         if req.first_token_at is None:
             req.first_token_at = time.monotonic()
+            self._m_ttft.observe(
+                (req.first_token_at - req.submitted_at) * 1000)
         delta = req.detok.push(token_id)
         if delta:
             self._stream_text(req, delta)
@@ -854,6 +1368,10 @@ class TorchEngine(EngineBase):
             if req.finished:
                 return
             req.finished = True
+        if req.admitted_at is not None:
+            # Admission-to-finish time feeds the scheduler's service-time
+            # EMA (wait estimates, retry_after).
+            self._sched.note_service_time(time.monotonic() - req.admitted_at)
         slot = req.slot
         if slot is not None:
             decoding = self._running.get(slot.index) is req
@@ -903,24 +1421,23 @@ class TorchEngine(EngineBase):
             self._emit(req, event)
             return
         duration = time.monotonic() - req.submitted_at
-        if reason != "cancelled":
-            self._service_ema_s = (duration if not self._service_ema_s else
-                                   0.8 * self._service_ema_s + 0.2 * duration)
         ttft_ms = ((req.first_token_at or time.monotonic())
                    - req.submitted_at) * 1000
+        stats = {
+            "tokens_generated": req.generated,
+            "processing_time_ms": duration * 1000,
+            "tokens_per_second": (req.generated / duration
+                                  if duration > 0 else 0.0),
+            "ttft_ms": ttft_ms,
+            "prompt_tokens": len(req.prompt_tokens),
+            "prefill_tokens": req.prefill_tokens,
+        }
+        if req.spec_drafted:
+            stats["spec_accepted"] = req.spec_accepted
+            stats["spec_drafted"] = req.spec_drafted
         self._emit(req, {
             "type": "cancelled" if reason == "cancelled" else "done",
-            "finish_reason": reason,
-            "stats": {
-                "tokens_generated": req.generated,
-                "processing_time_ms": duration * 1000,
-                "tokens_per_second": (req.generated / duration
-                                      if duration > 0 else 0.0),
-                "ttft_ms": ttft_ms,
-                "prompt_tokens": len(req.prompt_tokens),
-                "prefill_tokens": req.prefill_tokens,
-            },
-        })
+            "finish_reason": reason, "stats": stats})
 
     def _flush_emit(self, req: _Request) -> None:
         """Send the text batched during one retirement as one token event."""
@@ -994,27 +1511,43 @@ class TorchEngine(EngineBase):
                  f"{self.kv_pool_blocks})")
         return False
 
-    def _paged_exhausted_finish(self, req: _Request, error: str) -> None:
-        """End a request for want of blocks, as load shedding: roughly one
-        service time must pass for a running generation to free its
-        blocks."""
-        self._finish(req, "error", error=error, code="kv_blocks_exhausted",
-                     retry_after=round(max(0.5, self._service_ema_s), 2))
+    def _paged_retry_after(self) -> float:
+        """Back-off of a block shed: about one service time must pass for
+        a running generation to finish and free its blocks."""
+        ema = self._sched.stats().get("service_time_ema_s") or 0.0
+        return round(max(0.5, float(ema)), 2)
 
-    def _paged_prepare_decode(self, steps: int) -> bool:
-        """Ensure every running slot's blocks out to the write horizon of
-        the next decode call: its host position plus the in-flight calls'
-        steps plus this call's. On exhaustion, shed the most recently
-        admitted request (its session is released, so its blocks free)
-        and retry. Returns False when nothing is left to run."""
-        lead = sum(n for _, n, _ in self._inflight) + steps
+    def _paged_wait_penalty(self, prompt_len: int) -> float:
+        """The block-pressure term of the scheduler's wait estimate (asyncio
+        side; a racy read is fine for an estimate): when the pool cannot
+        hold this prompt now, a running generation must finish first."""
+        if not self.paged:
+            return 0.0
+        if blocks_for(prompt_len, self.kv_block_size) \
+                <= self._kv_blocks.available():
+            return 0.0
+        return self._paged_retry_after()
+
+    def _paged_exhausted_finish(self, req: _Request, error: str) -> None:
+        """End a request for want of blocks, as load shedding."""
+        self._finish(req, "error", error=error, code="kv_blocks_exhausted",
+                     retry_after=self._paged_retry_after())
+
+    def _paged_prepare_decode(self, worst_adv: int) -> bool:
+        """Ensure every running slot's blocks out to the worst-case write
+        horizon of the next decode call: its host position plus the most
+        the in-flight calls and this one (``worst_adv``: steps x verify
+        block) can advance. On exhaustion, shed the most recently admitted
+        request (its session is released, so its blocks free) and retry.
+        Returns False when nothing is left to run."""
+        lead = sum(c.max_advance for c in self._inflight) + worst_adv
         while self._running:
             victim: _Request | None = None
             for s in self._running:
                 horizon = min(self.max_len, int(self._positions[s]) + lead)
                 if not self._kv_blocks.ensure(s, horizon):
                     victim = max(self._running.values(),
-                                 key=lambda r: r.admitted_at)
+                                 key=lambda r: r.admitted_at or 0.0)
                     break
             if victim is None:
                 return True

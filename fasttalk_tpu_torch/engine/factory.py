@@ -7,7 +7,9 @@ prepared-weight cache of the checkpoint under MODEL_PATH or load the
 checkpoint and write that cache (or random-initialise on the device when
 there is no checkpoint), quantize to the WEIGHT_QUANT tier (int8, or int4
 group-wise for the seven layer matmuls), load the tokenizer, and build the
-``TorchEngine`` with the weight and KV tier settings.
+``TorchEngine`` with the weight and KV tier settings, the sampling method,
+speculative decoding, shared-prefix reuse and the admission scheduler's
+settings (``fasttalk_tpu/engine/factory.py`` :395-402).
 """
 
 from __future__ import annotations
@@ -208,6 +210,7 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
              f"dtype={cfg.dtype}, weight_quant={tier}"
              + (f" (group {group})" if tier == "int4" else "") + ", "
              f"kv_layout={cfg.kv_layout}, kv_quant={cfg.kv_quant}, "
+             f"spec_decode={cfg.spec_decode}, "
              f"kv_cache={acct['kv_cache_bytes'] / 2**30:.3f} GiB")
     return TorchEngine(
         model_cfg, params, tokenizer, device=dev,
@@ -216,6 +219,14 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         context_window=min(cfg.default_context_window, cfg.max_model_len),
         steps_per_call=cfg.decode_steps_per_call,
         pipeline_depth=cfg.pipeline_depth,
+        sampling_method=cfg.sampling,
+        spec_decode=cfg.spec_decode,
+        spec_draft_len=cfg.spec_draft_len,
+        spec_breakeven=cfg.spec_breakeven,
+        shared_prefix=cfg.shared_prefix,
+        queue_bound=cfg.sched_queue_bound,
+        default_deadline_s=cfg.sched_default_deadline_s,
+        bulk_aging_s=cfg.sched_bulk_aging_s,
         kv_quant=cfg.kv_quant, kv_quant_granule=cfg.kv_quant_granule,
         kv_layout=cfg.kv_layout, kv_block_size=cfg.kv_block_size,
         kv_pool_blocks=acct["kv_pool_blocks"],

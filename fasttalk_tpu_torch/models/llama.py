@@ -14,7 +14,9 @@ buffers instead). Norms, softmax and rope run in float32.
   K/V columns scatter into the cache (masked rows write nothing) and
   attention reads the ``attn_len`` slice through the hand-written
   ``decode_attend`` kernel, or, with a ``block_table``, the paged pool
-  through ``decode_attend_paged`` (ops/cuda_attention.py).
+  through ``decode_attend_paged`` (ops/cuda_attention.py); the layer
+  matmuls and the lm_head take the block's B*T rows through the decode
+  kernels (ops/quant.py), a T=1 step and a T=draft+1 verify block alike.
 
 Two KV tiers compose with both layouts. The int8 tier (``KV_QUANT=int8``,
 ops/kv_quant.py) stores int8 rows plus f32 row scales: fresh rows quantize
@@ -185,17 +187,21 @@ def _write_rows(cache_layer: torch.Tensor, new: torch.Tensor,
     cache_layer[rows, cols] = new.to(cache_layer.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+         decode: bool = False) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    gate = torch.nn.functional.silu(qmm(h, lp["w_gate"]).to(torch.float32))
-    up = qmm(h, lp["w_up"]).to(torch.float32)
-    return x + qmm((gate * up).to(x.dtype), lp["w_down"])
+    gate = torch.nn.functional.silu(
+        qmm(h, lp["w_gate"], decode).to(torch.float32))
+    up = qmm(h, lp["w_up"], decode).to(torch.float32)
+    return x + qmm((gate * up).to(x.dtype), lp["w_down"], decode)
 
 
 def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
-         inv_freq: torch.Tensor) -> tuple[torch.Tensor, ...]:
+         inv_freq: torch.Tensor,
+         decode: bool = False) -> tuple[torch.Tensor, ...]:
     b, t = h.shape[:2]
-    q, k, v = qmm(h, lp["wq"]), qmm(h, lp["wk"]), qmm(h, lp["wv"])
+    q, k, v = (qmm(h, lp["wq"], decode), qmm(h, lp["wk"], decode),
+               qmm(h, lp["wv"], decode))
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
@@ -205,11 +211,12 @@ def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
             apply_rope(k, positions, inv_freq), v)
 
 
-def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor,
+          decode: bool = False) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if cfg.tie_embeddings:
-        return matmul_tied(x, params["embed"]).to(torch.float32)
-    return qmm(x, params["lm_head"]).to(torch.float32)
+        return matmul_tied(x, params["embed"], decode).to(torch.float32)
+    return qmm(x, params["lm_head"], decode).to(torch.float32)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -315,7 +322,7 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, pos_mat, inv_freq)
+        q, k, v = _qkv(h, lp, cfg, pos_mat, inv_freq, decode=True)
         sk = sv = None
         if kvq:
             g = cache.k_scale.shape[-1]
@@ -342,9 +349,9 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
                 lengths,
                 k_scale=cache.k_scale[i][:, :attn_len] if kvq else None,
                 v_scale=cache.v_scale[i][:, :attn_len] if kvq else None)
-        x = x + qmm(o.reshape(b, t, cfg.q_dim), lp["wo"])
-        x = _mlp(x, lp, cfg)
-    return _head(params, cfg, x), cache
+        x = x + qmm(o.reshape(b, t, cfg.q_dim), lp["wo"], decode=True)
+        x = _mlp(x, lp, cfg, decode=True)
+    return _head(params, cfg, x, decode=True), cache
 
 
 def forward_decode(params: Params, cfg: ModelConfig, cur: torch.Tensor,

@@ -245,6 +245,8 @@ def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode_attend.launches += 1
     if k_scale is not None:
         decode_attend.launches_int8 += 1
+    if t > 1:
+        decode_attend.launches_multi += 1
     return out[:, 0] if single else out
 
 
@@ -306,12 +308,18 @@ def decode_attend_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode_attend_paged.launches += 1
     if k_scale is not None:
         decode_attend_paged.launches_int8 += 1
+    if t > 1:
+        decode_attend_paged.launches_multi += 1
     return out[:, 0] if single else out
 
 
 # Launch counts: ``launches`` counts every launch of the wrapper's kernel,
-# ``launches_int8`` those of the int8-row tier among them.
+# ``launches_int8`` those of the int8-row tier among them and
+# ``launches_multi`` those with more than one query position (the
+# speculative verify block).
 decode_attend.launches = 0
 decode_attend.launches_int8 = 0
+decode_attend.launches_multi = 0
 decode_attend_paged.launches = 0
 decode_attend_paged.launches_int8 = 0
+decode_attend_paged.launches_multi = 0

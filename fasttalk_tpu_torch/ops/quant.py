@@ -10,10 +10,11 @@ The int4 tier's leaves ``{"q4": uint8[..., in/2, out], "s": f32[...,
 in/G, out]}`` (fasttalk_tpu_torch/quantization/int4.py) take the seven
 layer matmuls.
 
-Decode (T=1) matmuls on a CUDA tensor run the hand-written kernels of
-``ops/cuda_int8.py`` and ``ops/cuda_int4.py``; prefill (T>1) stays
-``(x @ q.to(x.dtype)) * s`` (int8) or the dequantized product (int4) via
-``torch.matmul``, as the JAX package leaves it to XLA.
+Decode matmuls (a T=1 step, and the speculative verify block, whose
+[B, T, in] activations go in as [B*T, in] rows: ``decode=True``) run the
+hand-written kernels of ``ops/cuda_int8.py`` and ``ops/cuda_int4.py``;
+prefill (T>1) stays ``(x @ q.to(x.dtype)) * s`` (int8) or the dequantized
+product (int4) via ``torch.matmul``, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -83,23 +84,43 @@ def quantize_params(params: dict) -> dict:
     return out
 
 
-def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """``x @ w`` for a plain, int8 or int4 weight leaf; x is [B, T, in]."""
+def _dequant_int4(x: torch.Tensor, w: dict) -> torch.Tensor:
+    group = (2 * w["q4"].shape[-2]) // w["s"].shape[-2]
+    wd = unpack_int4(w["q4"]).to(x.dtype)
+    return x @ (wd * w["s"].to(x.dtype).repeat_interleave(group, -2))
+
+
+def _kernel_rows(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """The decode route: x [M, in] rows through the int8/int4 kernels (on
+    the CPU their plain versions; int4 takes the dequantized product
+    there, as the JAX package's XLA path does)."""
+    x = x.contiguous()
+    if "q4" in w:
+        return int4_matmul(x, w["q4"], w["s"]) if x.is_cuda \
+            else _dequant_int4(x, w)
+    if "qt" in w:
+        return int8_matmul_t(x, w["qt"], w["s"])
+    return int8_matmul(x, w["q"], w["s"])
+
+
+def _decode_route(x: torch.Tensor, decode: bool) -> bool:
+    return decode or (x.dim() == 3 and x.shape[1] == 1)
+
+
+def matmul(x: torch.Tensor, w: Any, decode: bool = False) -> torch.Tensor:
+    """``x @ w`` for a plain, int8 or int4 weight leaf; x is [B, T, in].
+    A quantized leaf takes the kernels for a T=1 step or when ``decode``
+    is set (the verify block), the dequantized product otherwise."""
     if isinstance(w, dict):
+        if _decode_route(x, decode):
+            b, t = x.shape[:2]
+            return _kernel_rows(x.reshape(b * t, x.shape[-1]),
+                                w).view(b, t, -1)
         if "q4" in w:
-            if x.is_cuda and x.dim() == 3 and x.shape[1] == 1:
-                return int4_matmul(x[:, 0].contiguous(), w["q4"],
-                                   w["s"])[:, None]
-            group = (2 * w["q4"].shape[-2]) // w["s"].shape[-2]
-            wd = unpack_int4(w["q4"]).to(x.dtype)
-            return x @ (wd * w["s"].to(x.dtype).repeat_interleave(group, -2))
+            return _dequant_int4(x, w)
         if "qt" in w:
-            if x.dim() == 3 and x.shape[1] == 1:
-                return int8_matmul_t(x[:, 0], w["qt"], w["s"])[:, None]
             out = x @ w["qt"].to(x.dtype).T
             return out * w["s"].to(x.dtype)
-        if x.dim() == 3 and x.shape[1] == 1:
-            return int8_matmul(x[:, 0].contiguous(), w["q"], w["s"])[:, None]
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
 
@@ -113,11 +134,14 @@ def embed_lookup(emb: Any, tokens: torch.Tensor,
     return emb[tokens]
 
 
-def matmul_tied(x: torch.Tensor, emb: Any) -> torch.Tensor:
-    """``x @ embed.T`` — the tied-embedding lm_head ([.., D] @ [V, D].T)."""
+def matmul_tied(x: torch.Tensor, emb: Any,
+                decode: bool = False) -> torch.Tensor:
+    """``x @ embed.T`` — the tied-embedding lm_head ([.., D] @ [V, D].T);
+    a quantized table takes ``int8_matmul_t`` on the decode route."""
     if isinstance(emb, dict):
-        if x.dim() == 3 and x.shape[1] == 1:
-            return int8_matmul_t(x[:, 0].contiguous(), emb["q"],
-                                 emb["s"])[:, None]
+        if _decode_route(x, decode):
+            b, t = x.shape[:2]
+            return int8_matmul_t(x.reshape(b * t, x.shape[-1]).contiguous(),
+                                 emb["q"], emb["s"]).view(b, t, -1)
         return (x @ emb["q"].to(x.dtype).T) * emb["s"].to(x.dtype)
     return x @ emb.T

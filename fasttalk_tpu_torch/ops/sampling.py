@@ -22,13 +22,23 @@ def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
     """Repetition / presence / frequency penalties against per-row
     emitted-token counts [B, V], applied to the full logits row.
     repeat/presence/frequency are [B]. Returns float32 logits."""
-    lg = logits.to(torch.float32)
-    counts_f = counts.to(torch.float32)
+    return penalize_values(logits.to(torch.float32),
+                           counts.to(torch.float32), repeat[:, None],
+                           presence[:, None], frequency[:, None])
+
+
+def penalize_values(lg: torch.Tensor, counts_f: torch.Tensor,
+                    repeat: torch.Tensor, presence: torch.Tensor,
+                    frequency: torch.Tensor) -> torch.Tensor:
+    """The penalty formula on float tensors of any ranks that broadcast
+    together (``fasttalk_tpu/ops/sampling.py::penalize_values`` :62). The
+    speculative verify block penalises its [S, T, V] logits against the
+    [S, 1, V] base counts with it, then re-applies it to the few draft
+    entries whose within-block counts differ."""
     seen = counts_f > 0
-    rep = torch.where(seen, repeat[:, None], torch.ones_like(lg))
+    rep = torch.where(seen, repeat, torch.ones_like(repeat))
     lg = torch.where(lg > 0, lg / rep, lg * rep)
-    return lg - presence[:, None] * seen.to(torch.float32) \
-        - frequency[:, None] * counts_f
+    return lg - presence * seen.to(torch.float32) - frequency * counts_f
 
 
 def _select_candidates(logits: torch.Tensor, max_candidates: int,
@@ -61,7 +71,8 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator | None,
                   method: str = "exact") -> torch.Tensor:
     """One token id per row of ``logits`` [B, V] (int64 [B]).
 
-    temperature <= 1e-4 selects greedy argmax for that row; top_k == 0
+    temperature <= 1e-4 selects greedy argmax for that row (the lowest
+    id among equal maxima, as ``jax.lax.top_k`` orders ties); top_k == 0
     disables the top-k filter for that row."""
     b = logits.shape[0]
     max_candidates = min(max_candidates, logits.shape[-1])
@@ -85,6 +96,5 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator | None,
                    dtype=torch.float32)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
     sampled_pos = torch.argmax(vals / safe_t + gumbel, dim=-1)
-    pos = torch.where(temperature <= 1e-4, torch.zeros_like(sampled_pos),
-                      sampled_pos)
-    return torch.gather(top_idx, 1, pos[:, None])[:, 0]
+    sampled = torch.gather(top_idx, 1, sampled_pos[:, None])[:, 0]
+    return torch.where(temperature <= 1e-4, logits.argmax(dim=-1), sampled)

@@ -9,19 +9,27 @@ Counterpart of the main path of ``fasttalk_tpu/serving/server.py``
                     token, response_complete, cancelled, session_ended,
                     error
 
-plus HTTP GET ``/health`` and ``/models`` (which reports the KV layout,
+plus HTTP GET ``/`` (service banner), ``/health`` (with the scheduler's
+overload state), ``/stats`` (the engine's stats, its ``scheduler`` section
+included, and process-lifetime totals), ``/metrics`` (Prometheus text of
+``utils/metrics.py``) and ``/models`` (which reports the KV layout,
 quantization and block size). Token frames carry the delta in ``data``;
 with the session key ``tts_chunking`` they carry speakable chunks instead
 (``"speakable": true``, cut by ``text_processor.extract_speakable_chunk``
-and flushed at the end, as the JAX server does). Session keys of features
-the port does not carry yet (``priority``, ``deadline_s``, ``structured``,
-``journey``) are refused with an ``invalid_config`` frame that names the
-key: they are never dropped without a word, and never reach the engine.
-An engine terminal error whose code is a shed (``kv_blocks_exhausted``)
-reaches the client as a ``rate_limit_error`` frame with ``retry_after``
-and does not count against the circuit breaker. A generation runs as an
-asyncio task, so ``cancel`` is received mid-stream; per-session config
-from ``start_session`` applies to every generation of the session.
+and flushed at the end, as the JAX server does). The session keys
+``priority`` and ``deadline_s`` reach the engine's ``GenerationParams``
+(admission class and queue deadline). Session keys of features the port
+does not carry yet (``structured``, ``journey``) are refused with an
+``invalid_config`` frame that names the key: they are never dropped
+without a word, and never reach the engine. A shed at admission
+(``AdmissionRejected``: queue full, wait past the deadline, draining) and
+an engine terminal error whose code is a shed (``deadline_expired``,
+``kv_blocks_exhausted``) reach the client as a ``rate_limit_error`` frame
+with ``retry_after`` and do not count against the circuit breaker. A
+generation runs as an asyncio task, so ``cancel`` is received mid-stream;
+per-session config from ``start_session`` applies to every generation of
+the session. On shutdown (``serve``) the server drains: new submissions
+shed, and running generations get ``SCHED_DRAIN_TIMEOUT_S`` to finish.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from fasttalk_tpu_torch.utils.errors import (ENGINE_SHED_CODES,
                                              CircuitBreakerOpen,
                                              ErrorCategory, LLMServiceError)
 from fasttalk_tpu_torch.utils.logger import get_logger
+from fasttalk_tpu_torch.utils.metrics import get_metrics
 
 log = get_logger("serving.server")
 
@@ -55,12 +64,10 @@ class WebSocketLLMServer:
     # Generation-config keys a client may set per session.
     _GEN_KEYS = ("temperature", "top_p", "top_k", "max_tokens", "stop",
                  "tts_chunking", "repeat_penalty", "presence_penalty",
-                 "frequency_penalty", "ignore_eos")
+                 "frequency_penalty", "ignore_eos", "priority", "deadline_s")
     # Session keys of the JAX server whose feature the port does not carry
     # yet: key -> the feature, named in the invalid_config frame.
     _UNSUPPORTED_KEYS = {
-        "priority": "the admission scheduler (priority classes)",
-        "deadline_s": "the admission scheduler (queue deadlines)",
         "structured": "structured decoding",
         "journey": "observability (the per-token journey)",
     }
@@ -81,10 +88,26 @@ class WebSocketLLMServer:
         self._gen_tasks: dict[str, asyncio.Task] = {}
         self._cur_request: dict[str, str] = {}
         self.app = web.Application()
+        self.app.router.add_get("/", self._http_root)
         self.app.router.add_get("/health", self._http_health)
+        self.app.router.add_get("/stats", self._http_stats)
+        self.app.router.add_get("/metrics", self._http_metrics)
         self.app.router.add_get("/models", self._http_models)
         self.app.router.add_get("/ws/llm", self.handle_websocket)
         self.app.on_cleanup.append(self._on_cleanup)
+
+    async def drain(self) -> None:
+        """Graceful drain (the JAX server's shutdown, :229-238): new
+        submissions shed with retry_after from here on, while generations
+        already streaming (or queued) get up to SCHED_DRAIN_TIMEOUT_S to
+        finish. ``serve`` runs it before the app shuts down; the drain is
+        the engine's for good, so an app that shares its engine with others
+        (tests) is cleaned up without it."""
+        self.engine.begin_drain()
+        pending = [t for t in self._gen_tasks.values() if not t.done()]
+        if pending and self.config.sched_drain_timeout_s > 0:
+            await asyncio.wait(pending,
+                               timeout=self.config.sched_drain_timeout_s)
 
     async def _on_cleanup(self, app: web.Application) -> None:
         tasks = list(self._gen_tasks.values())
@@ -98,10 +121,26 @@ class WebSocketLLMServer:
 
     # ---------------- HTTP ----------------
 
+    async def _http_root(self, request: web.Request) -> web.Response:
+        return web.json_response({
+            "service": "FastTalk-TPU LLM Service",
+            "status": "ready",
+            "version": __version__,
+            "provider": PROVIDER,
+            "model": self._model_name(),
+        })
+
     async def _http_health(self, request: web.Request) -> web.Response:
         ok = self.engine.check_connection()
+        stats = self.engine.get_stats()
+        status = "healthy" if ok else "unhealthy"
+        # The overload state (pressured, shedding, draining) shows before
+        # the cliff; it does not change the status code.
+        sched = stats.get("scheduler")
+        if ok and sched is not None and sched.get("state") != "healthy":
+            status = sched["state"]
         return web.json_response({
-            "status": "healthy" if ok else "unhealthy",
+            "status": status,
             "provider": PROVIDER,
             "version": __version__,
             "model": self._model_name(),
@@ -109,8 +148,31 @@ class WebSocketLLMServer:
             "active_connections": len(self._connections),
             "active_sessions": self.conversations.get_session_count(),
             "circuit_breaker": self.breaker.to_dict(),
-            "engine": self.engine.get_stats(),
+            "engine": stats,
+            **({"scheduler": sched} if sched is not None else {}),
         }, status=200 if ok else 503)
+
+    async def _http_stats(self, request: web.Request) -> web.Response:
+        m = get_metrics()
+        return web.json_response({
+            "connections": {"active": len(self._connections)},
+            "conversations": self.conversations.get_statistics(),
+            "engine": self.engine.get_stats(),
+            "lifetime": {  # process-lifetime totals
+                "tokens_generated":
+                    m.counter("engine_tokens_generated_total").value,
+                "requests": m.counter("engine_requests_total").value,
+                "ttft_ms": m.histogram("engine_ttft_ms").summary(),
+                "uptime_seconds": m.uptime(),
+            },
+            "provider": PROVIDER,
+        })
+
+    async def _http_metrics(self, request: web.Request) -> web.Response:
+        text = await asyncio.to_thread(get_metrics().prometheus)
+        return web.Response(text=text,
+                            content_type="text/plain; version=0.0.4",
+                            charset="utf-8")
 
     async def _http_models(self, request: web.Request) -> web.Response:
         return web.json_response(self.engine.get_model_info())
@@ -255,7 +317,12 @@ class WebSocketLLMServer:
                                             c.default_presence_penalty)),
             frequency_penalty=float(over.get("frequency_penalty",
                                              c.default_frequency_penalty)),
-            ignore_eos=ignore_eos)
+            ignore_eos=ignore_eos,
+            # Admission class and queue deadline (GenerationParams checks
+            # both; a bad value is an invalid_config frame).
+            priority=str(over.get("priority", c.sched_default_priority)),
+            deadline_s=(float(over["deadline_s"])
+                        if over.get("deadline_s") is not None else None))
 
     async def _generate(self, session_id: str,
                         ws: web.WebSocketResponse) -> None:
@@ -323,6 +390,11 @@ class WebSocketLLMServer:
             raise
         except CircuitBreakerOpen as e:
             await self._send(ws, {"type": "error", "error": e.to_dict()})
+        except AdmissionRejected as e:
+            # Load shed (queue bound, deadline, drain, blocks): the client
+            # backs off by retry_after; shedding is not a backend fault,
+            # so the breaker is untouched.
+            await self._send(ws, {"type": "error", "error": e.to_dict()})
         except LLMServiceError as e:
             if e.category not in (ErrorCategory.VALIDATION,
                                   ErrorCategory.RATE_LIMIT):
@@ -348,5 +420,7 @@ async def serve(config: Config, engine: EngineBase,
         await web.TCPSite(runner, config.host, config.port).start()
         log.info(f"serving /ws/llm on {config.host}:{config.port}")
         await stop.wait()
+        log.info("shutting down: draining")
+        await server.drain()
     finally:
         await runner.cleanup()

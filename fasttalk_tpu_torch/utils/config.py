@@ -12,10 +12,18 @@ quantize`` only. ``TPU_USE_PALLAS_INT4`` is an accepted, validated name and
 a no-op: on the port the hand-written ``int4_matmul`` kernel is the int4
 decode path on the card, as ``decode_attend`` is the decode attention path
 whatever ``TPU_USE_PALLAS_ATTENTION`` says in the JAX package.
-Features of the JAX package that the port does not carry yet (speculative
-decoding, host KV offload, the radix cache, structured decoding, a device
-mesh) are rejected with a named error when their variable asks for them;
-they are never silently ignored.
+The engine defaults of the JAX serving path are read under the same names,
+defaults and messages: ``TPU_SAMPLING`` (fast|exact), ``TPU_SHARED_PREFIX``,
+``TPU_SPEC_DECODE`` (off|ngram|auto, default auto), ``TPU_SPEC_DRAFT``,
+``TPU_SPEC_BREAKEVEN`` and the admission scheduler's ``SCHED_QUEUE_BOUND``,
+``SCHED_DEADLINE_S``, ``SCHED_DEFAULT_PRIORITY``, ``SCHED_AGING_S`` and
+``SCHED_DRAIN_TIMEOUT_S`` (``fasttalk_tpu/utils/config.py`` :289-323,
+:366-389, :909-921, :966-976, :1104-1109; spec decoding with
+``KV_QUANT=int8`` is the same named startup error).
+Features of the JAX package that the port does not carry yet (host KV
+offload, the radix cache, structured decoding, a device mesh) are rejected
+with a named error when their variable asks for them; they are never
+silently ignored.
 
 The device is not configuration: it is an argument of the entry points
 (``resolve_device``), ``cuda`` unless the caller asks for the CPU.
@@ -73,7 +81,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 # Variables of features outside this slice: (env name, value that keeps the
 # feature off, what to tell the operator).
 _OUT_OF_SLICE = (
-    ("TPU_SPEC_DECODE", ("off", ""), "speculative decoding"),
     ("STRUCTURED_MODE", ("auto", "off", ""), "structured decoding"),
 )
 
@@ -91,6 +98,55 @@ class Config:
         default_factory=lambda: _env_int("TPU_DECODE_STEPS", 32))
     pipeline_depth: int = field(
         default_factory=lambda: _env_int("TPU_PIPELINE_DEPTH", 2))
+    # Cross-session shared-prefix KV: a fresh session whose prompt starts
+    # with rows resident in another slot (a common system prompt) gets them
+    # by device copy instead of re-prefill, and a burst of fresh sessions
+    # prefills one leader and copies its rows to the others.
+    shared_prefix: bool = field(
+        default_factory=lambda: _env_bool("TPU_SHARED_PREFIX", True))
+    # Speculative decoding: "off" | "ngram" | "auto". "ngram" drafts by
+    # prompt lookup over the slot's own token history on the device and
+    # verifies draft + 1 positions in one decode block, accepting the
+    # longest sampled-equal prefix (exactly distribution-preserving).
+    # "auto" (default) decides per decode call from the engine's measured
+    # acceptance EMA against TPU_SPEC_BREAKEVEN, probing periodically.
+    spec_decode: str = field(
+        default_factory=lambda: _env_str("TPU_SPEC_DECODE", "auto"))
+    # Draft tokens proposed per verify block (block = draft + 1).
+    spec_draft_len: int = field(
+        default_factory=lambda: _env_int("TPU_SPEC_DRAFT", 7))
+    # Auto-mode threshold: EMA tokens per verify block above which
+    # speculative calls are taken (the cost of a verify block in plain
+    # steps; the card's own figure is in PERF.md).
+    spec_breakeven: float = field(
+        default_factory=lambda: _env_float("TPU_SPEC_BREAKEVEN", 1.45))
+    # Sampling candidate preselection: "fast" (block-max; greedy rows stay
+    # exact) or "exact" (full-vocabulary top-k).
+    sampling: str = field(
+        default_factory=lambda: _env_str("TPU_SAMPLING", "fast"))
+    # ---- Admission control (scheduling/scheduler.py) ----
+    # Bound on requests waiting for a decode slot; the excess is shed at
+    # once with a retry_after hint.
+    sched_queue_bound: int = field(
+        default_factory=lambda: _env_int("SCHED_QUEUE_BOUND", 256))
+    # Default queue TTL: a request still waiting past it ends with a
+    # terminal event before it touches the device (clients override with
+    # the "deadline_s" session key).
+    sched_default_deadline_s: float = field(
+        default_factory=lambda: _env_float("SCHED_DEADLINE_S", 30.0))
+    # Priority class when the client sets none: "interactive" admits
+    # before "bulk" (the "priority" session key overrides).
+    sched_default_priority: str = field(
+        default_factory=lambda: _env_str("SCHED_DEFAULT_PRIORITY",
+                                         "interactive"))
+    # Starvation guard: a bulk request waiting longer than this admits
+    # ahead of interactive work for one admission.
+    sched_bulk_aging_s: float = field(
+        default_factory=lambda: _env_float("SCHED_AGING_S", 5.0))
+    # Graceful drain: how long server shutdown waits for queued and
+    # running requests before cancelling the rest.
+    sched_drain_timeout_s: float = field(
+        default_factory=lambda: _env_float("SCHED_DRAIN_TIMEOUT_S", 30.0))
     # Legacy weight-tier knob: "none" | "int8" | "int4". WEIGHT_QUANT is the
     # name to use; TPU_QUANTIZE is its alias.
     quantize: str = field(default_factory=lambda: _env_str("TPU_QUANTIZE", "none"))
@@ -236,6 +292,28 @@ class Config:
             errs.append("TPU_DECODE_STEPS must be >= 1")
         if self.pipeline_depth <= 0:
             errs.append("TPU_PIPELINE_DEPTH must be >= 1")
+        if self.spec_decode not in ("off", "ngram", "auto"):
+            errs.append(
+                f"spec_decode must be off|ngram|auto, "
+                f"got {self.spec_decode!r}")
+        if self.spec_decode != "off" and not 1 <= self.spec_draft_len <= 31:
+            errs.append("spec_draft_len must be in 1..31")
+        if self.spec_breakeven <= 0:
+            errs.append("spec_breakeven must be > 0")
+        if self.sampling not in ("fast", "exact"):
+            errs.append(f"TPU_SAMPLING must be fast|exact, "
+                        f"got {self.sampling!r}")
+        if self.sched_queue_bound <= 0:
+            errs.append("sched_queue_bound must be > 0")
+        if self.sched_default_deadline_s <= 0:
+            errs.append("sched_default_deadline_s must be > 0")
+        if self.sched_default_priority not in ("interactive", "bulk"):
+            errs.append("sched_default_priority must be "
+                        "'interactive' or 'bulk'")
+        if self.sched_bulk_aging_s <= 0:
+            errs.append("sched_bulk_aging_s must be > 0")
+        if self.sched_drain_timeout_s < 0:
+            errs.append("sched_drain_timeout_s must be >= 0")
         if not 0.0 <= self.default_temperature <= 2.0:
             errs.append("DEFAULT_TEMPERATURE must be in [0, 2]")
         if not 0.0 < self.default_top_p <= 1.0:
@@ -256,6 +334,12 @@ class Config:
             errs.append("kv_quant must be 'none' or 'int8'")
         if self.kv_quant_granule not in ("token", "head"):
             errs.append("kv_quant_granule must be 'token' or 'head'")
+        if self.kv_quant == "int8" and self.spec_decode != "off":
+            errs.append(
+                "KV_QUANT=int8 is incompatible with speculative "
+                "decoding (the spec carry does not thread the "
+                "scale arrays through the verify block) — set "
+                "TPU_SPEC_DECODE=off")
         if self.kv_layout not in ("dense", "paged"):
             errs.append(f"kv_layout must be 'dense' or 'paged', "
                         f"got {self.kv_layout!r}")

@@ -5,6 +5,7 @@ one CUDA GPU.
     python3 scripts/torch_serving_profile.py [--sessions 16] [--max-tokens 64]
         [--table PATH] [--kv-layout dense|paged] [--kv-quant none|int8]
         [--max-len 2048] [--pool-blocks 0] [--weight-quant int8|int4]
+        [--spec-decode off|ngram|auto]
 
 Serves the main path through ``chip_smoke.serve_main_path`` (llama3.2:1b
 at full width, int8 random weights (int4, group 128, with ``--weight-quant
@@ -50,7 +51,13 @@ def main() -> int:
                     help="KV_POOL_BLOCKS of the paged layout (0 = fit)")
     ap.add_argument("--weight-quant", default="int8", choices=("int8", "int4"),
                     help="WEIGHT_QUANT of the served weights")
+    ap.add_argument("--spec-decode", default=None,
+                    choices=("off", "ngram", "auto"),
+                    help="TPU_SPEC_DECODE (default: auto, off with "
+                         "--kv-quant int8, which refuses speculation)")
     args = ap.parse_args()
+    if args.spec_decode is None:
+        args.spec_decode = "off" if args.kv_quant == "int8" else "auto"
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -77,7 +84,8 @@ def main() -> int:
     served, prof = serve_main_path(
         profiled, max_len=args.max_len, weight_quant=args.weight_quant,
         kv_layout=args.kv_layout,
-        kv_quant=args.kv_quant, kv_pool_blocks=args.pool_blocks)
+        kv_quant=args.kv_quant, kv_pool_blocks=args.pool_blocks,
+        spec_decode=args.spec_decode)
     print(f"sessions={served['sessions']} tokens={served['tokens']} "
           f"wall_s={served['wall_s']} decode_tok_s="
           f"{served['tokens'] / served['wall_s']} errors={len(served['errors'])}")

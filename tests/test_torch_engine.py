@@ -448,8 +448,6 @@ def _default_device_engine():
 
 
 @pytest.mark.parametrize("env", [
-    {"TPU_SPEC_DECODE": "ngram"},
-    {"KV_QUANT": "int8", "TPU_SPEC_DECODE": "ngram"},
     {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true"},
     {"KV_HOST_BUDGET_MB": "64"},
     {"KV_RADIX_ENABLED": "true"}, {"STRUCTURED_MODE": "on"},
@@ -461,3 +459,45 @@ def test_config_rejects_features_outside_the_slice(monkeypatch, env):
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match="not implemented yet"):
         Config()
+
+
+@pytest.mark.parametrize("env", [
+    {"KV_QUANT": "int8", "TPU_SPEC_DECODE": "ngram"},
+    {"KV_QUANT": "int8"},
+    {"TPU_SPEC_DECODE": "eagle"}, {"TPU_SPEC_DRAFT": "0"},
+    {"SCHED_DEFAULT_PRIORITY": "vip"}, {"TPU_SAMPLING": "topk"}])
+def test_config_rejects_bad_engine_settings_as_jax_does(monkeypatch, env):
+    """Speculative decoding with int8 KV (also by the auto default), a bad
+    TPU_SPEC_DECODE, TPU_SPEC_DRAFT=0, a bad SCHED_DEFAULT_PRIORITY and a
+    bad TPU_SAMPLING fail at startup with the JAX Config's own messages."""
+    from fasttalk_tpu.utils.config import Config as JaxConfig
+    from fasttalk_tpu_torch.utils.config import Config
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError) as jax_err:
+        JaxConfig(llm_provider="tpu")
+    with pytest.raises(ValueError) as port_err:
+        Config()
+    want = str(jax_err.value).split(": ", 1)[1].split("; ")
+    assert want and all(line in str(port_err.value) for line in want), \
+        (want, str(port_err.value))
+
+
+def test_config_has_the_jax_serving_defaults():
+    """With no environment, the settings of the JAX engine's serving path
+    (sampling, shared prefix, speculative decoding, the scheduler) have the
+    JAX Config's values, field by field."""
+    from fasttalk_tpu.utils.config import Config as JaxConfig
+    from fasttalk_tpu_torch.utils.config import Config
+
+    fields = ("sampling", "shared_prefix", "spec_decode", "spec_draft_len",
+              "spec_breakeven", "sched_queue_bound",
+              "sched_default_deadline_s", "sched_default_priority",
+              "sched_bulk_aging_s", "sched_drain_timeout_s")
+    port, ref = Config(), JaxConfig(llm_provider="tpu")
+    assert {f: getattr(port, f) for f in fields} == \
+        {f: getattr(ref, f) for f in fields}
+    assert (port.spec_decode, port.spec_draft_len, port.spec_breakeven,
+            port.shared_prefix, port.sampling) == ("auto", 7, 1.45, True,
+                                                   "fast")

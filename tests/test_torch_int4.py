@@ -649,6 +649,7 @@ def test_config_composes_int4_with_the_kv_tiers(monkeypatch, tmp_path):
     calib.write_text("hello there\n")
     for k, v in {"WEIGHT_QUANT": "int4", "WEIGHT_QUANT_GROUP": "64",
                  "KV_QUANT": "int8", "KV_LAYOUT": "paged",
+                 "TPU_SPEC_DECODE": "off",
                  "TPU_USE_PALLAS_INT4": "true",
                  "WEIGHT_QUANT_CALIB": str(calib)}.items():
         monkeypatch.setenv(k, v)

@@ -115,7 +115,9 @@ def test_config_takes_the_kv_tier_settings(monkeypatch):
             cfg.kv_pool_blocks, cfg.kv_reserve_policy, cfg.kv_reserve_tokens,
             cfg.kv_quant_granule) == ("dense", "none", 16, 0, "fixed", 128,
                                       "token")
+    # Int8 KV needs speculative decoding off (the JAX default is auto).
     for k, v in {"KV_LAYOUT": "paged", "KV_QUANT": "int8",
+                 "TPU_SPEC_DECODE": "off",
                  "KV_BLOCK_SIZE": "32", "KV_POOL_BLOCKS": "100",
                  "KV_RESERVE_POLICY": "max_tokens", "KV_RESERVE_TOKENS": "7",
                  "KV_QUANT_GRANULE": "head"}.items():

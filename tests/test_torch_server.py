@@ -8,10 +8,14 @@ answers ``config_updated`` and changes the next generation's parameters;
 ``DEFAULT_PRESENCE_PENALTY`` / ``DEFAULT_FREQUENCY_PENALTY`` reach the
 generation parameters, and an out-of-range value is the same named startup
 error in both packages; ``tts_chunking`` frames carry the same speakable
-chunks for the same token stream; and the session keys of features the
-port does not carry (``priority``, ``deadline_s``, ``structured``,
-``journey``) get an ``invalid_config`` frame naming the key, in
-``start_session`` and in ``update_config``, and never reach the engine.
+chunks for the same token stream; the admission keys ``priority`` and
+``deadline_s`` reach the generation parameters in both, from
+``start_session`` and from ``update_config``; the session keys of features
+the port does not carry (``structured``, ``journey``) get an
+``invalid_config`` frame naming the key and never reach the engine; ``/``,
+``/stats`` (with the engine's ``scheduler`` section) and ``/metrics``
+answer; and ``serve`` drains on shutdown: a running generation completes,
+a new submission sheds as a rate-limit frame.
 """
 
 import asyncio
@@ -34,8 +38,8 @@ from fasttalk_tpu_torch.utils.config import Config as TorchConfig
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")
 GREEDY = {"temperature": 0.0, "top_k": 0, "top_p": 1.0}
-UNSUPPORTED = {"priority": "bulk", "deadline_s": 5.0,
-               "structured": {"kind": "json_object"}, "journey": True}
+UNSUPPORTED = {"structured": {"kind": "json_object"}, "journey": True}
+ADMISSION = {"priority": "bulk", "deadline_s": 5.0}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -303,3 +307,138 @@ def test_unsupported_session_keys_are_refused_by_name(key, message,
     params = spy.seen[0]["params"]
     assert params.max_tokens == _tiny_config().default_max_tokens
     assert not hasattr(params, key)
+
+
+@pytest.mark.parametrize("key", sorted(ADMISSION))
+@pytest.mark.parametrize("message", ["start_session", "update_config"])
+def test_admission_keys_reach_the_generation_in_both(key, message,
+                                                     monkeypatch,
+                                                     tiny_engine):
+    """``priority`` and ``deadline_s`` set by ``start_session`` or
+    ``update_config`` reach ``GenerationParams`` in the JAX server (over
+    its FakeEngine) and in the port's, and the generation completes."""
+    cfg = {key: ADMISSION[key]}
+    frames = ([{"type": "start_session", "config": {"max_tokens": 2, **cfg}}]
+              if message == "start_session" else
+              [{"type": "start_session", "config": {"max_tokens": 2}},
+               {"type": "update_config", "config": cfg}])
+    frames.append({"type": "user_message", "text": "hi"})
+    jax_srv, fake = _jax_server(monkeypatch)
+    jax_frames = _run(jax_srv, frames)
+    spy = _Spy(tiny_engine)
+    try:
+        port_frames = _run(TorchServer(_tiny_config(), tiny_engine), frames)
+    finally:
+        del tiny_engine.generate
+    for got in (jax_frames, port_frames):
+        assert got[-1]["type"] == "response_complete", got
+    jax_params = fake.requests_seen[0]["params"]
+    port_params = spy.seen[0]["params"]
+    assert getattr(port_params, key) == getattr(jax_params, key) == cfg[key]
+    assert (port_params.priority, port_params.deadline_s) == \
+        (jax_params.priority, jax_params.deadline_s)
+
+
+def test_http_surface_answers(tiny_engine):
+    """``/`` names the service, ``/stats`` carries the engine's stats with
+    its ``scheduler`` section and the lifetime totals, ``/metrics`` is
+    Prometheus text with the engine's and the scheduler's families."""
+    server = TorchServer(_tiny_config(), tiny_engine)
+
+    async def fetch():
+        client = TestClient(TestServer(server.app))
+        await client.start_server()
+        try:
+            ws = await client.ws_connect("/ws/llm")
+            await ws.receive()
+            await ws.send_json({"type": "start_session",
+                                "config": {"max_tokens": 2}})
+            await ws.receive()
+            await ws.send_json({"type": "user_message", "text": "hi"})
+            while json.loads((await ws.receive()).data)["type"] == "token":
+                pass
+            await ws.close()
+            out = {}
+            for path in ("/", "/stats", "/metrics", "/health"):
+                r = await client.get(path)
+                assert r.status == 200, path
+                out[path] = (await r.json() if path != "/metrics"
+                             else await r.text())
+            return out
+        finally:
+            await client.close()
+    got = asyncio.run(asyncio.wait_for(fetch(), 60))
+    assert got["/"]["status"] == "ready" and got["/"]["model"] == "test-tiny"
+    stats = got["/stats"]
+    assert set(stats["engine"]["scheduler"]) >= {
+        "state", "depth", "bound", "draining", "shed_total",
+        "expired_total", "service_time_ema_s", "estimated_wait_s"}
+    assert stats["engine"]["scheduler"]["bound"] == 256
+    assert stats["lifetime"]["requests"] >= 1
+    assert stats["lifetime"]["tokens_generated"] >= 1
+    text = got["/metrics"]
+    for family in ("engine_tokens_generated_total", "engine_ttft_ms_bucket",
+                   "sched_queue_depth", "sched_shed_total"):
+        assert f"\n{family}" in text, family
+    assert got["/health"]["status"] == "healthy"
+
+
+def test_serve_drains_on_shutdown():
+    """``serve`` with its stop event set mid-generation: the running
+    stream completes (drain), a submission during the drain sheds as a
+    ``rate_limit_error`` frame with ``retry_after`` and the reason
+    ``draining``, and the server then stops."""
+    import socket
+
+    import aiohttp
+
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.serving.server import serve
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cfg = _tiny_config(host="127.0.0.1", port=port)
+    engine = build_engine(cfg, device="cpu")
+    engine.start()
+
+    async def run():
+        stop = asyncio.Event()
+        task = asyncio.create_task(serve(cfg, engine, stop))
+        url = f"ws://127.0.0.1:{port}/ws/llm"
+        async with aiohttp.ClientSession() as http:
+            for _ in range(100):
+                try:
+                    ws = await http.ws_connect(url)
+                    break
+                except aiohttp.ClientError:
+                    await asyncio.sleep(0.05)
+            ws2 = await http.ws_connect(url)
+            for w in (ws, ws2):
+                await w.receive()
+                await w.send_json({"type": "start_session", "config": {
+                    "max_tokens": 140, "ignore_eos": True, **GREEDY}})
+                await w.receive()
+            await ws.send_json({"type": "user_message", "text": "hello"})
+            first = json.loads((await ws.receive()).data)
+            stop.set()
+            while not engine._sched.draining:
+                await asyncio.sleep(0.01)
+            await ws2.send_json({"type": "user_message", "text": "late"})
+            shed = json.loads((await ws2.receive()).data)
+            frames = [first]
+            while frames[-1]["type"] == "token":
+                frames.append(json.loads((await ws.receive()).data))
+        await asyncio.wait_for(task, 60)
+        return frames, shed
+    try:
+        frames, shed = asyncio.run(asyncio.wait_for(run(), 120))
+    finally:
+        engine.shutdown()
+    assert frames[0]["type"] == "token"
+    assert frames[-1]["type"] == "response_complete"
+    assert frames[-1]["stats"]["tokens_generated"] == 140
+    assert shed["type"] == "error"
+    assert shed["error"]["code"] == "rate_limit_error"
+    assert shed["error"]["retry_after"] >= 1.0
+    assert shed["error"]["details"]["reason"] == "draining"
