@@ -24,7 +24,11 @@ no result line):
    ``fasttalk_tpu/assets``), the greedy answer to "what color is the sky?"
    with TPU_SPEC_DECODE=ngram equal to the one with it off, with int8
    weights on the dense and the paged bf16 cache and with int4 weights;
-   and with int8 weights on the paged int8 pool (spec off);
+   and with int8 weights on the paged int8 pool (spec off); then, with the
+   tokenizer given the JSON punctuation (a copy under build/), a
+   ``response_format`` json_schema answer with jump-forward on
+   (STRUCTURED_JF_MIN=4) equal token for token to the one with it off,
+   parsing and meeting the schema;
 5. the WebSocket server in-process through ``build_engine`` (full-width
    llama3.2:1b, int8, 16 slots, max_len 2048, prefill chunk 512, dense
    bf16 KV, the JAX engine's defaults: TPU_SPEC_DECODE=auto, shared
@@ -43,9 +47,21 @@ no result line):
    (16 tokens), and the dense run again with spec off: the attention
    kernel must launch at T = 8 on both tiers and drafts must be accepted;
    one verify step and one plain step of the served engine are timed with
-   CUDA graphs.
+   CUDA graphs;
+10. structured output and client tool calls served beside plain streams
+   (phase 5's configuration, STRUCTURED_MODE=auto): one burst, twice (cold:
+   the schemas compile in it; warm), of 6 /v1 chat completions with
+   ``response_format`` json_schema (3 streamed), one with a forced
+   ``tool_choice``, one WebSocket session with the ``structured`` key and 8
+   plain /v1 streams of 64 tokens. Every document must parse and meet its
+   schema (checked by hand here) and end with "stop", the tool call's
+   arguments meet its parameters, every plain stream give 64 tokens, no
+   request fail; constrained decode calls and jump-forward tokens must
+   have run, and no speculative call beside a constrained slot. One
+   constrained step and one plain step are timed with CUDA graphs. Then
+   the same with 4 constrained completions on phase 6's paged int8 pool.
 
-In phases 5-9 the kernels' launch counts are zeroed just before the
+In phases 5-10 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
 launched. Each served phase logs decode tok/s, TTFT p50/p99 from the
 ``done`` frames, batched prefill calls, shared-prefix tokens and decode
@@ -678,6 +694,323 @@ def check_tinychat_spec(weight_quant: str = "int8", **kv) -> None:
         fail(f"tinychat {weight_quant} {kv}: no verify block ran")
 
 
+# ------------------------------------------------------- phases 4 and 10
+
+def doc_ok(doc, schema: dict) -> bool:
+    """Whether ``doc`` meets ``schema``, for the schema subset used here
+    (objects with every property required, enums, booleans, strings with
+    maxLength), checked by hand and not by the port's schema module."""
+    if "enum" in schema:
+        return any(doc == v and type(doc) is type(v) for v in schema["enum"])
+    t = schema.get("type")
+    if t == "object":
+        props = schema.get("properties", {})
+        return isinstance(doc, dict) and list(doc) == list(props) and all(
+            doc_ok(doc[k], props[k]) for k in props)
+    if t == "string":
+        return isinstance(doc, str) \
+            and len(doc) <= schema.get("maxLength", len(doc))
+    if t == "boolean":
+        return isinstance(doc, bool)
+    return False
+
+
+def json_tinychat() -> str:
+    """A model root holding tinychat whose tokenizer has the JSON
+    punctuation and digits as single-byte tokens in the embedding headroom
+    (the committed BPE cannot spell "{"); made under build/ from the
+    checkpoint in the checkout."""
+    import shutil
+
+    src = os.path.join(ASSETS, "tinychat")
+    root = os.path.join(REPO, "build", "chip_smoke", "tinychat-json")
+    ckpt = os.path.join(root, "tinychat")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(ckpt)
+    for name in ("config.json", "tokenizer_config.json", "model.safetensors"):
+        shutil.copy(os.path.join(src, name), os.path.join(ckpt, name))
+    with open(os.path.join(src, "tokenizer.json")) as f:
+        tok = json.load(f)
+    vocab = tok["model"]["vocab"]
+    next_id = max(vocab.values()) + 1
+    for ch in "\"{}[]:,0123456789-+.\\/<>_":
+        if ch not in vocab:
+            vocab[ch] = next_id
+            next_id += 1
+    with open(os.path.join(ckpt, "tokenizer.json"), "w") as f:
+        json.dump(tok, f)
+    return root
+
+
+# Phase 4's schema: digits are single-byte tokens of the patched tinychat
+# vocabulary, so the numeric key is a long forced chain (jump-forward's
+# case).
+TINYCHAT_SCHEMA = {"type": "object", "properties": {
+    "12345678901234567890": {"enum": ["blue", "red"]},
+    "name": {"type": "string", "maxLength": 8}}}
+
+
+def check_tinychat_structured() -> None:
+    """The trained tinychat checkpoint (int8 weights, dense bf16 KV) answers
+    a ``response_format`` json_schema request greedily: with jump-forward on
+    (STRUCTURED_JF_MIN=4, the default) the answer equals the one with it
+    off (0) token for token, parses, meets the schema and ends with
+    "stop", and jump-forward emitted tokens."""
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.serving.openai_api import _parse_response_format
+    from fasttalk_tpu_torch.utils.config import Config
+
+    spec = _parse_response_format({"response_format": {
+        "type": "json_schema",
+        "json_schema": {"name": "sky", "schema": TINYCHAT_SCHEMA}}})
+    root = json_tinychat()
+    answers = {}
+    for jf in (4, 0):
+        engine = build_engine(Config(model_name="tinychat", model_path=root,
+                                     weight_quant="int8", decode_slots=4,
+                                     max_model_len=512,
+                                     default_context_window=512,
+                                     structured_jf_min=jf),
+                              device="cuda", prepared_cache=False)
+        engine.start()
+        try:
+            async def run():
+                text, final = "", {}
+                async for ev in engine.generate(
+                        "sky-json", "sky-json",
+                        [{"role": "user",
+                          "content": "what color is the sky?"}],
+                        GenerationParams(max_tokens=64, temperature=0.0,
+                                         top_k=0, top_p=1.0,
+                                         structured=spec)):
+                    if ev["type"] == "token":
+                        text += ev["text"]
+                    else:
+                        final = ev
+                return text, final
+            text, final = asyncio.run(asyncio.wait_for(run(), timeout=120))
+            # The session keeps its slot: prompt and answer token ids.
+            slot = engine.slots.lookup("sky-json")
+            slot_tokens = list(slot.tokens) if slot is not None else None
+            st = engine.get_stats()["structured"]
+        finally:
+            engine.shutdown()
+        answers[jf] = (text, slot_tokens, final.get("finish_reason"),
+                       st["jump_forward_tokens"])
+        log(f"tinychat int8 response_format json_schema, STRUCTURED_JF_MIN="
+            f"{jf}: {text!r} ({final.get('finish_reason')}, "
+            f"{st['jump_forward_tokens']} jump-forward tokens)")
+    (text, ids, reason, jumped), (text0, ids0, reason0, _) = \
+        answers[4], answers[0]
+    if (text, ids) != (text0, ids0):
+        fail(f"tinychat structured: jump-forward on {text!r} differs from "
+             f"off {text0!r}")
+    if reason != "stop" or reason0 != "stop":
+        fail(f"tinychat structured: finish {reason}/{reason0}, not stop")
+    try:
+        doc = json.loads(text)
+    except json.JSONDecodeError:
+        fail(f"tinychat structured answer does not parse: {text!r}")
+    if not doc_ok(doc, TINYCHAT_SCHEMA):
+        fail(f"tinychat structured answer misses the schema: {doc!r}")
+    if jumped <= 0:
+        fail("tinychat structured: jump-forward emitted no token")
+
+
+# Phase 10's schema: a string, an enum, a boolean and an integer bounded to
+# 1..5 (an integer enum: the schema compiler refuses minimum/maximum by
+# name). The first key is a hex tag: in the bench BPE every prefix of an
+# ordinary word is a token of its own, so word keys force chains of at most
+# 2 tokens; this key forces 8-9, the run jump-forward takes at
+# STRUCTURED_JF_MIN=4.
+SERVED_SCHEMA = {"type": "object", "properties": {
+    "0x7f3a9c": {"type": "string", "maxLength": 6},
+    "mood": {"enum": ["happy", "sad", "calm"]},
+    "urgent": {"type": "boolean"},
+    "rating": {"enum": [1, 2, 3, 4, 5]}}}
+WEATHER_TOOL = {"type": "function", "function": {
+    "name": "get_weather", "description": "Current weather for a city.",
+    "parameters": {"type": "object", "properties": {
+        "city": {"type": "string", "maxLength": 12},
+        "units": {"enum": ["C", "F"]}}}}}
+
+
+async def drive_structured(engine, port: int, constrained: int,
+                           plain: int = 8, plain_tokens: int = 64) -> dict:
+    """One burst, every request at once: ``constrained`` /v1 chat
+    completions with ``response_format`` json_schema (every other one
+    streamed), one with ``tools`` and a forced ``tool_choice``, one
+    WebSocket session with the ``structured`` session key, and ``plain``
+    /v1 streams with ``ignore_eos`` of ``plain_tokens`` tokens. The engine's
+    terminal event of every request is kept by session (a wrapper around
+    ``generate``, removed after)."""
+    import aiohttp
+
+    url = f"http://127.0.0.1:{port}"
+    errors: list[str] = []
+    terminal: dict[str, dict] = {}
+    ended: dict[str, float] = {}
+    generate = engine.generate
+
+    async def recording(rid, sid, messages, params):
+        async for ev in generate(rid, sid, messages, params):
+            if ev["type"] in ("done", "cancelled", "error"):
+                terminal[sid] = ev
+                ended[sid] = time.monotonic()
+            yield ev
+
+    engine.generate = recording
+    sampling = {"temperature": 0.7, "repeat_penalty": 1.0}
+    rf = {"type": "json_schema",
+          "json_schema": {"name": "ticket", "schema": SERVED_SCHEMA}}
+
+    async def chat(http, sid: str, body: dict) -> dict | None:
+        body = {**body, "user": sid}
+        async with http.post(url + "/v1/chat/completions", json=body) as r:
+            if r.status != 200:
+                errors.append(f"{sid}: HTTP {r.status} {await r.text()}")
+                return None
+            if not body.get("stream"):
+                out = await r.json()
+                choice = out["choices"][0]
+                return {"text": choice["message"]["content"],
+                        "calls": choice["message"].get("tool_calls", []),
+                        "finish": choice["finish_reason"]}
+            text, calls, finish, done = "", [], None, False
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                if line == "data: [DONE]":
+                    done = True
+                    break
+                chunk = json.loads(line[6:])
+                if "error" in chunk:
+                    errors.append(f"{sid}: error frame {chunk['error']}")
+                    continue
+                choice = chunk["choices"][0]
+                text += choice["delta"].get("content") or ""
+                calls += choice["delta"].get("tool_calls", [])
+                finish = choice["finish_reason"] or finish
+            if not done:
+                errors.append(f"{sid}: stream ended without [DONE]")
+            return {"text": text, "calls": calls, "finish": finish}
+
+    async def ws_session(http, sid: str) -> dict | None:
+        async with http.ws_connect(f"{url}/ws/llm") as ws:
+            started = json.loads((await ws.receive()).data)
+            await ws.send_json({"type": "start_session", "config": {
+                "max_tokens": 96, **sampling,
+                "structured": {"kind": "json_schema",
+                               "schema": SERVED_SCHEMA}}})
+            json.loads((await ws.receive()).data)
+            await ws.send_json({"type": "user_message",
+                                "text": "File a ticket about the weather."})
+            text, out = "", None
+            while True:
+                m = json.loads((await ws.receive()).data)
+                if m["type"] == "token":
+                    text += m["data"]
+                    continue
+                if m["type"] == "response_complete":
+                    out = {"text": text, "calls": [],
+                           "finish": m["stats"]["finish_reason"],
+                           "engine_session": started["session_id"]}
+                else:
+                    errors.append(f"{sid}: {json.dumps(m)}")
+                break
+            await ws.send_json({"type": "end_session"})
+            json.loads((await ws.receive()).data)
+        return out
+
+    jobs: dict[str, tuple[str, object]] = {}
+    async with aiohttp.ClientSession() as http:
+        for i in range(constrained):
+            jobs[f"json-{i}"] = ("constrained", chat(http, f"json-{i}", {
+                "messages": [{"role": "user",
+                              "content": f"File ticket number {i}."}],
+                "max_tokens": 96, "stream": i % 2 == 1,
+                "response_format": rf, **sampling}))
+        jobs["tool-0"] = ("tool", chat(http, "tool-0", {
+            "messages": [{"role": "user",
+                          "content": "What is the weather in Oslo?"}],
+            "max_tokens": 160, "tools": [WEATHER_TOOL], **sampling,
+            "tool_choice": {"type": "function",
+                            "function": {"name": "get_weather"}}}))
+        jobs["ws-0"] = ("ws", ws_session(http, "ws-0"))
+        prompts = ["Tell me about the ocean.", "What is a good breakfast?",
+                   "Explain how trains work.", "Why is the sky blue?"]
+        for i in range(plain):
+            jobs[f"plain-{i}"] = ("plain", chat(http, f"plain-{i}", {
+                "messages": [{"role": "user",
+                              "content": prompts[i % len(prompts)]}],
+                "max_tokens": plain_tokens, "ignore_eos": True,
+                "temperature": 0.7, "stream": True}))
+        t0 = time.monotonic()
+        outs = await asyncio.gather(*(c for _, c in jobs.values()))
+        wall = time.monotonic() - t0
+    del engine.generate
+    answers = {sid: {"kind": kind, "answer": out}
+               for (sid, (kind, _)), out in zip(jobs.items(), outs)}
+    for sid, a in answers.items():
+        # A /v1 request's engine session is its "user"; the WebSocket
+        # session's is the server's own id.
+        key = (a["answer"] or {}).get("engine_session", sid)
+        if key in terminal:
+            a["done"] = terminal[key]
+            a["ended"] = ended[key] - t0
+    return {"answers": answers, "errors": errors, "wall_s": wall}
+
+
+def check_structured_burst(label: str, out: dict, plain_tokens: int) -> dict:
+    """Phase 10's checks on one burst; returns its per-kind figures."""
+    if out["errors"]:
+        fail(f"{label}: errors: {out['errors'][:3]}")
+    kinds: dict[str, dict] = {}
+    for sid, a in out["answers"].items():
+        ans, done = a["answer"], a.get("done")
+        if ans is None or done is None or done["type"] != "done":
+            fail(f"{label}: {sid} did not complete: {ans} {done}")
+        stats = done["stats"]
+        k = kinds.setdefault(a["kind"], {"tokens": 0, "ttft_ms": [],
+                                         "last_s": 0.0, "requests": 0})
+        k["tokens"] += stats["tokens_generated"]
+        k["ttft_ms"].append(stats["ttft_ms"])
+        k["last_s"] = max(k["last_s"], a["ended"])
+        k["requests"] += 1
+        if a["kind"] == "plain":
+            if stats["tokens_generated"] != plain_tokens:
+                fail(f"{label}: {sid} streamed {stats['tokens_generated']} "
+                     f"tokens, not {plain_tokens}")
+            continue
+        if a["kind"] == "tool":
+            calls = ans["calls"]
+            if ans["finish"] != "tool_calls" or len(calls) != 1 \
+                    or calls[0]["function"]["name"] != "get_weather":
+                fail(f"{label}: tool call answer {ans}")
+            try:
+                args = json.loads(calls[0]["function"]["arguments"])
+            except json.JSONDecodeError:
+                fail(f"{label}: tool arguments do not parse: {calls}")
+            if not doc_ok(args, WEATHER_TOOL["function"]["parameters"]):
+                fail(f"{label}: tool arguments miss the parameters: {args}")
+            continue
+        if ans["finish"] != "stop":
+            fail(f"{label}: {sid} finished {ans['finish']!r}: {ans['text']!r}")
+        try:
+            doc = json.loads(ans["text"])
+        except json.JSONDecodeError:
+            fail(f"{label}: {sid} does not parse: {ans['text']!r}")
+        if not doc_ok(doc, SERVED_SCHEMA):
+            fail(f"{label}: {sid} misses the schema: {doc!r}")
+    for k in kinds.values():
+        k["tok_s"] = k["tokens"] / k["last_s"] if k["last_s"] else None
+        k["ttft_p50_ms"] = pct(k["ttft_ms"], 50)
+        k["ttft_p99_ms"] = pct(k["ttft_ms"], 99)
+    return kinds
+
+
 async def drive_sessions(port: int, n: int, max_tokens: int,
                          temperature: float = 0.7) -> dict:
     import aiohttp
@@ -834,7 +1167,8 @@ def time_verify_step(engine) -> dict:
             freqs=full(0.0, torch.float32),
             counts=torch.zeros((s, engine.sample_vocab), dtype=torch.int32,
                                device=dev),
-            history=hist, gen=None, rows=torch.arange(s, device=dev))
+            history=hist, gen=None, rows=torch.arange(s, device=dev),
+            fst=full(0, torch.int64))
 
     kw = dict(sample_vocab=engine.sample_vocab,
               method=engine.sampling_method)
@@ -847,6 +1181,61 @@ def time_verify_step(engine) -> dict:
         engine.params, engine.cfg, engine.cache, st, 1, kv_len, **kw), 10)
     return {"verify_step_ms": verify, "plain_step_ms": plain,
             "verify_over_plain": verify / plain}
+
+
+def time_constrained_step(engine) -> dict:
+    """Device ms of one constrained decode step (the plain step plus the
+    mask gather, unpack and select and the two-gather state advance) against
+    one plain step, on the served engine's weights, cache and FSM arena
+    tables at its 16 slots: 8 slots in the start state of the arena's
+    largest FSM, 8 free; each slot at position 200 of a 512-key bucket,
+    temperature 0.7, repeat penalty 1.0; CUDA-graph timed after
+    ``engine.shutdown()``."""
+    from fasttalk_tpu_torch.engine.decode_steps import (DecodeState,
+                                                        FSMTables,
+                                                        plain_steps)
+
+    engine.shutdown()
+    s, dev, kv_len = engine.num_slots, engine.device, 512
+    arena = engine._st_arena
+    entry = max(arena._order, key=lambda e: e.fsm.n_states)
+    constrained = torch.arange(s, device=dev) < s // 2
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def state() -> DecodeState:
+        def full(value, dtype):
+            return torch.full((s,), value, dtype=dtype, device=dev)
+        return DecodeState(
+            cur=torch.randint(0, min(1000, engine.sample_vocab), (s,),
+                              generator=g, device=dev),
+            pos=full(200, torch.int64), active=full(True, torch.bool),
+            temps=full(0.7, torch.float32), topks=full(40, torch.int64),
+            topps=full(0.9, torch.float32), reps=full(1.0, torch.float32),
+            press=full(0.0, torch.float32), freqs=full(0.0, torch.float32),
+            counts=torch.zeros((s, engine.sample_vocab), dtype=torch.int32,
+                               device=dev),
+            history=None, gen=None, rows=torch.arange(s, device=dev),
+            fst=torch.where(constrained,
+                            full(entry.base + entry.fsm.start, torch.int64),
+                            full(0, torch.int64)))
+
+    tables = FSMTables.upload(arena.masks, arena.nexts, arena.cls,
+                              torch.where(constrained,
+                                          torch.full((s,), entry.sel,
+                                                     device=dev),
+                                          torch.zeros((s,), dtype=torch.int64,
+                                                      device=dev)), dev)
+    kw = dict(sample_vocab=engine.sample_vocab, method=engine.sampling_method)
+    st = state()
+    fsm = time_ms(lambda i: plain_steps(
+        engine.params, engine.cfg, engine.cache, st, 1, kv_len, fsm=tables,
+        **kw), 10)
+    st = state()
+    plain = time_ms(lambda i: plain_steps(
+        engine.params, engine.cfg, engine.cache, st, 1, kv_len, **kw), 10)
+    return {"constrained_step_ms": fsm, "plain_step_ms": plain,
+            "constrained_over_plain": fsm / plain,
+            "arena": arena.stats()}
 
 
 def main() -> int:
@@ -902,6 +1291,8 @@ def main() -> int:
     check_tinychat_spec(kv_layout="paged")
     check_tinychat_spec(weight_quant="int4")
     check_tinychat(kv_layout="paged", kv_quant="int8", spec_decode="off")
+    # Phase 4, structured: a response_format answer, jump-forward on and off.
+    check_tinychat_structured()
 
     # Launch counters of every kernel and attention tier: (wrapper, the
     # count of this tier's launches).
@@ -1035,6 +1426,104 @@ def main() -> int:
                           temperature=0.0, multi="decode_attend_paged",
                           spec_decode="ngram", kv_layout="paged",
                           kv_block_size=BLOCK)
+
+    def structured_phase(label: str, attend: str, constrained: int,
+                         timed: bool = False, **kw) -> dict:
+        """Phase 10: serve a burst of constrained /v1 completions, a forced
+        tool call, a structured WebSocket session and 8 plain /v1 streams
+        beside them, twice: cold (the schemas compile during the burst)
+        and warm (compiled). Counts are zeroed just before the bursts and
+        read just after: the layer matmul, the lm_head and ``attend`` must
+        have launched. Every constrained answer must meet its schema, every
+        plain stream give 64 tokens, no request fail; the engine must have
+        made constrained decode calls, emitted jump-forward tokens and no
+        speculative call while a constrained slot ran."""
+        from fasttalk_tpu_torch.utils.metrics import get_metrics
+
+        async def measured(engine, port: int) -> dict:
+            for fn in (int8_matmul, int8_matmul_t, int4_matmul, decode_attend,
+                       decode_attend_paged):
+                fn.launches = 0
+                fn.launches_multi = 0
+            decode_attend.launches_int8 = 0
+            decode_attend_paged.launches_int8 = 0
+            compile_ms = get_metrics().histogram("fsm_compile_ms")
+            compile_ms.clear()
+            before = engine.get_stats()
+            out = {"bursts": [await drive_structured(engine, port,
+                                                     constrained)
+                              for _ in ("cold", "warm")]}
+            out["launches"] = {k: c() for k, c in counters.items()}
+            out["engine"] = after = engine.get_stats()
+            out["delta"] = stat_delta(before, after)
+            out["compile_ms"] = compile_ms.summary()
+            out["st"] = {k: after["structured"][k] - before["structured"][k]
+                         for k in ("calls", "steps", "host_s",
+                                   "jump_forward_tokens")}
+            out["spec_constrained_calls"] = (
+                after["spec"]["constrained_calls"]
+                - before["spec"]["constrained_calls"])
+            if timed:
+                out["step_ms"] = time_constrained_step(engine)
+            return out
+
+        out = serve_main_path(measured, **kw)
+        out["kinds"] = {}
+        for name, burst in zip(("cold", "warm"), out["bursts"]):
+            kinds = out["kinds"][name] = check_structured_burst(
+                f"{label}, {name} burst", burst, 64)
+            log(f"{label}, {name} burst: "
+                f"{sum(k['requests'] for k in kinds.values())} requests in "
+                f"{burst['wall_s']:.6g} s, 0 errors; by kind: " + "; ".join(
+                    f"{kind} x{k['requests']}: {k['tokens']} tokens, "
+                    f"{k['tok_s']:.6g} decode tok/s, TTFT p50 "
+                    f"{k['ttft_p50_ms']:.6g} / p99 {k['ttft_p99_ms']:.6g} ms"
+                    for kind, k in sorted(kinds.items())))
+        d, st = out["delta"], out["st"]
+        plain_steps_ = d["decode_steps"] - d["spec_steps"] - st["steps"]
+        plain_host = d["decode_host_s"] - d["spec_host_s"] - st["host_s"]
+        out["host_ms_step"] = {
+            "constrained": (1e3 * st["host_s"] / st["steps"]
+                            if st["steps"] else None),
+            "plain": 1e3 * plain_host / plain_steps_ if plain_steps_ else None}
+        log(f"  FSM compile ms (this burst's misses): {out['compile_ms']}; "
+            f"arena: {out['engine']['structured'].get('arena')}")
+        log(f"  decode calls {d['decode_calls']} ({st['calls']} constrained, "
+            f"{d['spec_calls']} speculative), jump-forward tokens "
+            f"{st['jump_forward_tokens']}, speculative calls with a "
+            f"constrained slot {out['spec_constrained_calls']}; host ms a "
+            f"step: constrained {out['host_ms_step']['constrained']}, plain "
+            f"{out['host_ms_step']['plain']}")
+        log(f"  launches on the served path: {out['launches']}")
+        if st["calls"] <= 0:
+            fail(f"{label}: no constrained decode call")
+        if st["jump_forward_tokens"] <= 0:
+            fail(f"{label}: jump-forward emitted no token")
+        if out["spec_constrained_calls"] != 0:
+            fail(f"{label}: {out['spec_constrained_calls']} speculative "
+                 "calls ran beside a constrained slot")
+        for name in ("int8_matmul", "int8_matmul_t", attend):
+            if out["launches"][name] <= 0:
+                fail(f"{label}: kernel {name} never launched in the burst")
+        if timed:
+            log(f"  device ms a step (CUDA graph): {out['step_ms']}")
+        return out
+
+    # Phase 10: structured output and client tool calls on /v1 and the
+    # WebSocket, at the main path's configuration (TPU_SPEC_DECODE=auto,
+    # STRUCTURED_MODE=auto), then on phase 6's paged int8 pool.
+    st10 = structured_phase("phase 10a (structured, dense bf16 KV)",
+                            "decode_attend", 6, timed=True)
+    st10p = structured_phase(
+        "phase 10b (structured, paged int8 KV, 2048 blocks of 16)",
+        "decode_attend_paged[int8]", 4, max_len=8192, kv_layout="paged",
+        kv_quant="int8", kv_block_size=BLOCK, kv_pool_blocks=2048,
+        spec_decode="off")
+    launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
+                   "int8_matmul_t": st10["launches"]["int8_matmul_t"],
+                   "decode_attend": st10["launches"]["decode_attend"],
+                   "decode_attend_paged[int8]":
+                       st10p["launches"]["decode_attend_paged[int8]"]}
     launches = {"int8_matmul": served["launches"]["int8_matmul"],
                 "int8_matmul_t": served["launches"]["int8_matmul_t"],
                 "int4_matmul": int4["launches"]["int4_matmul"],
@@ -1080,6 +1569,8 @@ def main() -> int:
                if k in r},
             **({"launches_t8": launches_t8[name]}
                if name in launches_t8 else {}),
+            **({"launches_structured": launches_st[name]}
+               if name in launches_st else {}),
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
@@ -1092,7 +1583,19 @@ def main() -> int:
                          ("int4_dense_bf16", int4),
                          ("spec_ngram_dense_bf16", spec9),
                          ("spec_off_dense_bf16", plain9),
-                         ("spec_ngram_paged_bf16", spec9p))}}),
+                         ("spec_ngram_paged_bf16", spec9p))},
+        "structured": {
+            label: {"wall_s": [b["wall_s"] for b in x["bursts"]], "kinds": {
+                burst: {k: {f: v[f] for f in ("requests", "tokens", "tok_s",
+                                              "ttft_p50_ms", "ttft_p99_ms")}
+                        for k, v in kinds.items()}
+                for burst, kinds in x["kinds"].items()},
+                "host_ms_step": x["host_ms_step"],
+                "compile_ms": x["compile_ms"], **x["st"],
+                "arena": x["engine"]["structured"].get("arena"),
+                **({"step_ms": x["step_ms"]} if "step_ms" in x else {})}
+            for label, x in (("dense_bf16", st10),
+                             ("paged_int8", st10p))}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

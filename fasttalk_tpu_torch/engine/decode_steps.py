@@ -28,12 +28,23 @@ Rejected positions leave KV rows past the accepted length that nothing
 reads: attention masks at each query's absolute position, and the next
 block writes those rows first. The history buffer has one column past
 ``max_len``, the sink of masked history writes.
+
+The constrained variant (``plain_steps`` given ``FSMTables``; JAX
+``_build_fsm_decode`` :2053, ``decode_fsm`` / ``decode_fsm_hist``) runs
+the same step with two additions, both on the device: after the
+penalties, each slot's logits outside the allowed-token mask of its FSM
+state ``masks[fst]`` (packed bits, unpacked to ``[S, sample_vocab]``) are
+set to -1e30 before the sampler's candidate preselection; after the
+sample, active slots advance ``fst = nexts[fst, cls[sel, tok]]``.
+Unconstrained slots ride along in the FREE state (every token allowed, a
+self-loop). Without tables the step is exactly the plain one.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from fasttalk_tpu_torch.models.configs import ModelConfig
@@ -64,6 +75,7 @@ class DecodeState:
     history: torch.Tensor | None
     gen: torch.Generator | None
     rows: torch.Tensor
+    fst: torch.Tensor        # FSM state per slot (0 = FREE)
 
     @classmethod
     def zeros(cls, slots: int, vocab: int, history_len: int,
@@ -82,20 +94,76 @@ class DecodeState:
                                device=device),
             history=(torch.zeros((slots, history_len + 1), dtype=torch.int64,
                                  device=device) if history_len else None),
-            gen=gen, rows=torch.arange(slots, device=device))
+            gen=gen, rows=torch.arange(slots, device=device),
+            fst=z(torch.int64))
+
+
+@dataclass
+class FSMTables:
+    """The structured arena's union tables on the device
+    (structured/runtime.py): ``masks`` [N, W] int32 holds the uint32 words
+    of each state's allowed-token bits (token t is bit t % 32 of word
+    t // 32), ``nexts`` [N, C] the transitions by token class, ``cls``
+    [F, V] each FSM's token classes; ``sel`` [S] is each slot's row of
+    ``cls`` and ``powers`` [32] the bit of each position."""
+
+    masks: torch.Tensor
+    nexts: torch.Tensor
+    cls: torch.Tensor
+    sel: torch.Tensor
+    powers: torch.Tensor
+
+    @classmethod
+    def upload(cls, masks: np.ndarray, nexts: np.ndarray, classes: np.ndarray,
+               sel: torch.Tensor, device: torch.device) -> "FSMTables":
+        """From the arena's numpy tables (``masks`` uint32): the words keep
+        their bits as int32, the index tables go to int64."""
+        return cls(masks=torch.from_numpy(masks.view(np.int32)).to(device),
+                   nexts=torch.from_numpy(nexts).to(device, torch.int64),
+                   cls=torch.from_numpy(classes).to(device, torch.int64),
+                   sel=sel, powers=bit_powers(device))
+
+
+def bit_powers(device: torch.device) -> torch.Tensor:
+    """[32] int32: 1 << b, with bit 31 the int32 sign bit."""
+    return torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int32, device=device),
+        torch.arange(32, dtype=torch.int32, device=device))
+
+
+def unpack_mask(words: torch.Tensor, powers: torch.Tensor,
+                vocab: int) -> torch.Tensor:
+    """Packed words [..., W] int32 -> allowed [..., vocab] bool."""
+    allow = (words[..., None] & powers) != 0
+    return allow.reshape(*words.shape[:-1], -1)[..., :vocab]
+
+
+def fsm_mask(lg: torch.Tensor, fst: torch.Tensor,
+             fsm: FSMTables) -> torch.Tensor:
+    """Logits [S, V] with every token the slot's state forbids at -1e30."""
+    allow = unpack_mask(fsm.masks[fst], fsm.powers, lg.shape[-1])
+    return torch.where(allow, lg, torch.full_like(lg, -1e30))
+
+
+def fsm_advance(fst: torch.Tensor, tok: torch.Tensor, act: torch.Tensor,
+                fsm: FSMTables) -> torch.Tensor:
+    """The next FSM state of every active slot after sampling ``tok``."""
+    return torch.where(act, fsm.nexts[fst, fsm.cls[fsm.sel, tok]], fst)
 
 
 def plain_steps(params: dict, cfg: ModelConfig, cache: KVCache,
                 st: DecodeState, steps: int, kv_len: int, *,
                 sample_vocab: int, method: str,
                 table: torch.Tensor | None = None,
-                block_size: int = 0) -> torch.Tensor:
+                block_size: int = 0,
+                fsm: FSMTables | None = None) -> torch.Tensor:
     """``steps`` decode steps; returns the sampled tokens [K, S]. Keeps
     the draft history current when ``st.history`` exists (the JAX
-    ``with_history`` variant)."""
+    ``with_history`` variant). With ``fsm`` the steps are constrained
+    (JAX ``decode_fsm`` / ``decode_fsm_hist``) and ``st.fst`` advances."""
     toks = torch.empty((steps, st.cur.shape[0]), dtype=torch.int64,
                        device=st.cur.device)
-    cur, pos = st.cur, st.pos
+    cur, pos, fst = st.cur, st.pos, st.fst
     hist = st.history
     for k in range(steps):
         # A slot that finished mid-pipeline keeps "decoding" until the
@@ -112,11 +180,15 @@ def plain_steps(params: dict, cfg: ModelConfig, cache: KVCache,
                                    block_size=block_size)
         lg = apply_penalties(logits[:, :sample_vocab], st.counts, st.reps,
                              st.press, st.freqs)
+        if fsm is not None:
+            lg = fsm_mask(lg, fst, fsm)
         cur = sample_tokens(lg, st.gen, st.temps, st.topks, st.topps,
                             method=method)
+        if fsm is not None:
+            fst = fsm_advance(fst, cur, act, fsm)
         pos = pos + act.to(pos.dtype)
         toks[k] = cur
-    st.cur, st.pos = cur, pos
+    st.cur, st.pos, st.fst = cur, pos, fst
     return toks
 
 

@@ -58,8 +58,19 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   shared-prefix copy moves rows between the two slots' blocks (the JAX
   engine aliases the blocks instead).
 
-Host KV offload, the radix cache, structured decoding and a device mesh
-are not part of this engine (utils/config.py rejects them by name).
+- **Structured decoding** (``STRUCTURED_MODE``; JAX :651-690, :1497-1530,
+  :3227-3465): a request's ``structured`` spec compiles to a token FSM off
+  the engine thread (``FSMCompiler.compile_async``), is pinned into the
+  union arena at admission and prefilled on the single-slot path, whose
+  first token is sampled under the start state's mask. While any
+  constrained slot runs, decode calls are the constrained plain calls
+  (engine/decode_steps.py) and no speculative call is made; with none
+  running the call is the unconstrained one. A forced chain of at least
+  ``STRUCTURED_JF_MIN`` tokens is emitted by jump-forward: one prefill
+  writes its rows and a masked sample restarts decoding.
+
+Host KV offload, the radix cache and a device mesh are not part of this
+engine (utils/config.py rejects them by name).
 """
 
 from __future__ import annotations
@@ -70,14 +81,15 @@ import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, AsyncGenerator
 
 import numpy as np
 import torch
 
-from fasttalk_tpu_torch.engine.decode_steps import (DecodeState, plain_steps,
-                                                    spec_steps)
+from fasttalk_tpu_torch.engine.decode_steps import (DecodeState, FSMTables,
+                                                    plain_steps, spec_steps,
+                                                    unpack_mask)
 from fasttalk_tpu_torch.engine.slots import Slot, SlotManager, _lcp
 from fasttalk_tpu_torch.engine.tokenizer import StreamDetokenizer, Tokenizer
 from fasttalk_tpu_torch.kvcache.blocks import BlockAllocator, blocks_for
@@ -90,6 +102,12 @@ from fasttalk_tpu_torch.ops.sampling import sample_tokens
 from fasttalk_tpu_torch.quantization.int4 import (group_size_of, is_int4,
                                                   validate_group)
 from fasttalk_tpu_torch.scheduling.scheduler import RequestScheduler
+from fasttalk_tpu_torch.structured.compiler import (FSMCompiler,
+                                                    StructuredError,
+                                                    validate_structured_spec)
+from fasttalk_tpu_torch.structured.fsm import FSMTooLarge, TokenFSM
+from fasttalk_tpu_torch.structured.runtime import (ArenaFull, FSMArena,
+                                                   pack_mask_row)
 from fasttalk_tpu_torch.utils.config import resolve_device
 from fasttalk_tpu_torch.utils.errors import (AdmissionRejected, ErrorCategory,
                                              LLMServiceError)
@@ -124,6 +142,16 @@ class GenerationParams:
     # admission queue (None = the scheduler's default).
     priority: str = "interactive"
     deadline_s: float | None = None
+    # Text-completion mode (/v1/completions): the prompt is the joined
+    # message content, BOS + its tokens, no chat template.
+    raw_prompt: bool = False
+    # The JAX engine's disaggregated prefill tier: validated as there, and
+    # refused by this engine (it has no host KV pool to park into).
+    prefill_only: bool = False
+    # Constrained decoding: {"kind": "json_object" | "json_schema" |
+    # "regex" | "tool_call", ...}, compiled to a token FSM whose mask
+    # applies at every sample. None = unconstrained.
+    structured: Any = None
 
     def __post_init__(self) -> None:
         if not (math.isfinite(self.repeat_penalty)
@@ -149,6 +177,30 @@ class GenerationParams:
                 raise ValueError(
                     f"deadline_s must be a positive number, "
                     f"got {self.deadline_s!r}")
+        if self.prefill_only and self.structured is not None:
+            raise ValueError(
+                "prefill_only is incompatible with structured output "
+                "(the FSM samples the first token under its start-state "
+                "mask; a prefill-tier request never samples)")
+        if self.structured is not None:
+            self.structured = validate_structured_spec(self.structured)
+            if self.ignore_eos:
+                raise ValueError(
+                    "structured output is incompatible with "
+                    "ignore_eos=true (the FSM decides where the "
+                    "document ends)")
+            if self.stop:
+                raise ValueError(
+                    "structured output is incompatible with stop "
+                    "sequences: a stop string could truncate the "
+                    "document mid-grammar and break the validity "
+                    "guarantee")
+
+
+def raw_prompt_text(messages: list[dict]) -> str:
+    """The raw completion prompt of ``raw_prompt=True``: the joined
+    message content (JAX ``raw_prompt_text``)."""
+    return "".join(str(m.get("content") or "") for m in messages)
 
 
 @dataclass(eq=False)
@@ -173,6 +225,10 @@ class _Request:
     prefill_tokens: int = 0
     spec_accepted: int = 0     # accepted draft tokens
     spec_drafted: int = 0      # drafts offered to verification
+    fsm: TokenFSM | None = None
+    fsm_entry: Any = None      # structured/runtime._Entry while pinned
+    fsm_state: int = 0         # local FSM state after the consumed tokens
+    jump_tokens: int = 0       # tokens emitted by jump-forward
 
 
 @dataclass
@@ -265,6 +321,8 @@ class _Call:
     advance: int
     max_advance: int
     snapshot: list[tuple[int, _Request]]
+    # The FSM tables a constrained call reads, held until it retires.
+    tables: FSMTables | None = None
 
 
 class TorchEngine(EngineBase):
@@ -295,7 +353,13 @@ class TorchEngine(EngineBase):
                  kv_quant: str = "none", kv_quant_granule: str = "token",
                  kv_layout: str = "dense", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, kv_reserve_policy: str = "fixed",
-                 kv_reserve_tokens: int = 128):
+                 kv_reserve_tokens: int = 128,
+                 structured: str = "auto",
+                 structured_max_states: int = 8192,
+                 structured_state_budget: int = 16384,
+                 structured_jf_min: int = 4,
+                 structured_cache: int = 64,
+                 structured_json_depth: int = 3):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.params = params
@@ -392,6 +456,22 @@ class TorchEngine(EngineBase):
                                     scale_granule=self.kv_scale_granule)
         self.slots = SlotManager(num_slots, self.max_len,
                                  on_unpin=self._on_slot_unpin)
+        # Structured decoding (JAX :651-690). The port has no device mesh,
+        # so "auto" and "on" both mean available; "off" gives the reason
+        # every constrained request is refused with.
+        if structured not in ("auto", "on", "off"):
+            raise ValueError(f"structured must be auto|on|off, "
+                             f"got {structured!r}")
+        self.structured_reason: str | None = (
+            "disabled (STRUCTURED_MODE=off)" if structured == "off" else None)
+        self._st_jf_min = max(0, structured_jf_min)
+        self._st_cfg = {"max_states": structured_max_states,
+                        "state_budget": structured_state_budget,
+                        "cache_size": structured_cache,
+                        "json_depth": structured_json_depth}
+        self._st_compiler: FSMCompiler | None = None   # lazy (asyncio side)
+        self._st_compiler_lock = threading.Lock()
+        self._st_arena: FSMArena | None = None         # lazy (engine thread)
         self._reset_decode_state()
 
         self._commands: queue.Queue = queue.Queue()
@@ -419,9 +499,16 @@ class TorchEngine(EngineBase):
         self.spec_accepted = 0     # accepted drafts over retired blocks
         self.spec_drafted = 0
         self.spec_blocks = 0       # verify blocks that emitted tokens
+        # Speculative calls whose batch held a constrained slot: the verify
+        # block is not masked, so this must stay 0.
+        self.spec_constrained_calls = 0
         self.batched_prefill_calls = 0
         self.batched_prefill_rows = 0
         self.prefix_tokens_shared = 0
+        self.structured_calls = 0  # of the decode calls, constrained ones
+        self.structured_steps = 0
+        self.structured_host_s = 0.0
+        self.structured_jump_tokens = 0
         m = get_metrics()
         self._m_tokens = m.counter("engine_tokens_generated_total",
                                    "tokens generated by the engine")
@@ -441,6 +528,13 @@ class TorchEngine(EngineBase):
             "tokens emitted per speculative verify block (accepted "
             "drafts + 1); 1 means no draft accepted",
             buckets=tuple(range(1, max(2, self.spec_draft + 2))))
+        self._m_st_requests = m.counter(
+            "structured_requests_total",
+            "constrained (structured-output) generations accepted")
+        self._m_st_jump = m.counter(
+            "structured_jump_forward_tokens_total",
+            "forced tokens emitted by jump-forward without decode "
+            "steps")
 
     def _reset_decode_state(self) -> None:
         s = self.num_slots
@@ -466,6 +560,16 @@ class TorchEngine(EngineBase):
         # slot, request)]).
         self._pending_firsts: deque[
             tuple[_HostCopy, list[tuple[int, int, _Request]]]] = deque()
+        # Structured decoding: each slot's row of the arena's class table
+        # (host mirror; 0 = FREE) and its device copy, the union tables on
+        # the device, the slots whose device FSM state must be patched from
+        # the host mirrors (finish -> FREE, arena repack), and the requests
+        # waiting for a jump-forward.
+        self._st_sel = np.zeros((s,), np.int64)
+        self._st_sel_dev: torch.Tensor | None = None
+        self._st_tables: FSMTables | None = None
+        self._st_dirty: set[int] = set()
+        self._st_jf_pending: set[str] = set()
 
     # ---------------- public (asyncio side) ----------------
 
@@ -485,6 +589,8 @@ class TorchEngine(EngineBase):
             if self._thread is not None:
                 self._thread.join(timeout=timeout_s)
             self._started = False
+            if self._st_compiler is not None:
+                self._st_compiler.shutdown()
 
     def check_connection(self) -> bool:
         return self._started and self._thread is not None \
@@ -500,7 +606,15 @@ class TorchEngine(EngineBase):
         if not self.check_connection():
             raise LLMServiceError("Engine is not running (call start())",
                                   category=ErrorCategory.CONNECTION)
-        prompt = self.tokenizer.apply_chat_template(messages)
+        if params.prefill_only:
+            raise LLMServiceError(
+                "prefill_only asks for the disaggregated prefill tier (a "
+                "host KV pool): not implemented yet in fasttalk_tpu_torch",
+                category=ErrorCategory.VALIDATION, recoverable=False)
+        if params.raw_prompt:
+            prompt = self.tokenizer.encode_prompt(raw_prompt_text(messages))
+        else:
+            prompt = self.tokenizer.apply_chat_template(messages)
         if len(prompt) >= self.usable_len:
             raise LLMServiceError(
                 f"Prompt of {len(prompt)} tokens exceeds context window "
@@ -511,6 +625,24 @@ class TorchEngine(EngineBase):
                        out_queue=asyncio.Queue(),
                        loop=asyncio.get_running_loop(),
                        detok=StreamDetokenizer(self.tokenizer))
+        if params.structured is not None:
+            # Compiled (or a cache hit) off the engine thread and off this
+            # event loop before submission; compat and compile failures
+            # are client-shape errors (400 / invalid_config).
+            if self.structured_reason is not None:
+                raise LLMServiceError(
+                    f"structured output unavailable: "
+                    f"{self.structured_reason}",
+                    category=ErrorCategory.VALIDATION, recoverable=False)
+            try:
+                req.fsm = await self._get_st_compiler().compile_async(
+                    params.structured)
+            except (StructuredError, FSMTooLarge) as e:
+                raise LLMServiceError(
+                    str(e), category=ErrorCategory.VALIDATION,
+                    recoverable=False) from e
+            req.fsm_state = req.fsm.start
+            self._m_st_requests.inc()
         self._m_requests.inc()
         # Registered before the submit, so an immediate cancel() cannot
         # race the engine thread's command drain.
@@ -590,6 +722,19 @@ class TorchEngine(EngineBase):
         }
 
     def get_stats(self) -> dict:
+        structured: dict[str, Any] = {
+            "available": self.structured_reason is None,
+            "calls": self.structured_calls,
+            "steps": self.structured_steps,
+            "host_s": self.structured_host_s,
+            "jump_forward_tokens": self.structured_jump_tokens,
+        }
+        if self.structured_reason is not None:
+            structured["reason"] = self.structured_reason
+        if self._st_compiler is not None:
+            structured["compiler"] = self._st_compiler.stats()
+        if self._st_arena is not None:
+            structured["arena"] = self._st_arena.stats()
         out = {"slots": self.slots.stats(), "waiting": len(self._sched),
                "scheduler": self._sched.stats(),
                "prefilling": len(self._prefilling),
@@ -607,7 +752,9 @@ class TorchEngine(EngineBase):
                         "host_s": self.spec_host_s,
                         "verify_blocks": self.spec_blocks,
                         "accepted": self.spec_accepted,
-                        "drafted": self.spec_drafted}}
+                        "drafted": self.spec_drafted,
+                        "constrained_calls": self.spec_constrained_calls},
+               "structured": structured}
         if self.paged:
             used = sum(min(s.kv_written, len(s.tokens))
                        for s in self.slots.slots)
@@ -648,7 +795,13 @@ class TorchEngine(EngineBase):
                 if self._pending_firsts:
                     self._drain_firsts(block=not self._inflight and not (
                         self._running and self._should_dispatch()))
-                if self._running and self._should_dispatch():
+                if self._st_jf_pending and not self._inflight:
+                    # Jump-forward runs on an empty pipeline only (the host
+                    # FSM mirrors are then authoritative); while one is
+                    # pending, dispatch pauses so the pipeline drains.
+                    self._st_jump_forward()
+                if self._running and self._should_dispatch() \
+                        and not self._st_jf_pending:
                     self._dispatch_decode()
                     if len(self._inflight) >= self.pipeline_depth:
                         self._retire_oldest()
@@ -668,6 +821,9 @@ class TorchEngine(EngineBase):
                 if req.finished:
                     continue
                 req.finished = True
+            if req.fsm is not None:
+                # The abort path bypasses _finish: unpin the FSM here.
+                self._st_release(req)
             self._emit(req, {"type": "error", "error": reason,
                              "code": "internal_error"})
         self._by_id.clear()
@@ -676,6 +832,7 @@ class TorchEngine(EngineBase):
         self._running.clear()
         self._inflight.clear()
         self._pending_firsts.clear()
+        self._st_jf_pending.clear()
 
     def _drain_commands(self, block: bool) -> bool:
         """Process queued commands. Returns False on stop."""
@@ -774,6 +931,20 @@ class TorchEngine(EngineBase):
             if self.paged and not self._paged_admissible(slot, req, reused,
                                                          len(todo)):
                 continue  # shed with retry_after: the blocks do not fit
+            if req.fsm is not None:
+                # Constrained admission (JAX :4216-4225): pin the FSM into
+                # the arena and take the single-slot prefill, whose
+                # completion samples the first token under the start
+                # state's mask (the batched group samples unmasked).
+                try:
+                    self._st_register(req)
+                except ArenaFull as e:
+                    self._finish(req, "error", error=str(e),
+                                 code="structured_capacity")
+                    continue
+                self._prefilling.append(_PrefillState(
+                    req=req, slot=slot, start=reused, todo=todo))
+                continue
             bucket = next((b for b in _PREFILL_BUCKETS if b >= len(todo)),
                           None)
             if bucket is not None and len(todo) <= allowed \
@@ -1035,6 +1206,10 @@ class TorchEngine(EngineBase):
             if st.todo:
                 return  # next chunk on a later iteration
             self._prefilling.pop(0)
+            if req.fsm is not None:
+                self._activate(req, slot)
+                self._st_sample_place(req, slot, st.last_logits)
+                return
             first = sample_tokens(
                 st.last_logits[None, :self.sample_vocab], self._dev.gen,
                 self._dev_scalar(req.params.temperature, torch.float32),
@@ -1107,6 +1282,11 @@ class TorchEngine(EngineBase):
         self._press[s] = req.params.presence_penalty
         self._freqs[s] = req.params.frequency_penalty
         self._dirty_slots.add(s)
+        if req.fsm_entry is not None:
+            # The slot's row of the arena's class table, shipped with every
+            # constrained call.
+            self._st_sel[s] = req.fsm_entry.sel
+            self._st_sel_dev = None
         if self.spec_draft:
             # Every row fed so far (reused, copied and prefilled alike)
             # goes into the slot's draft history at the next patch.
@@ -1156,6 +1336,14 @@ class TorchEngine(EngineBase):
         small upload (and the draft history of newly activated slots with
         one more); in-flight calls are ordered before it on the stream."""
         st = self._dev
+        if self._st_dirty:
+            # FSM-state resets and refreshes (finish -> FREE, an arena
+            # repack), from the host mirrors.
+            idx = sorted(self._st_dirty)
+            self._st_dirty.clear()
+            vals = self._upload(np.array(
+                [[s, self._st_global_state(s)] for s in idx], np.int64))
+            st.fst[vals[:, 0]] = vals[:, 1]
         if self._dirty_history:
             idx = sorted(self._dirty_history)
             longest = max(len(self._dirty_history[s]) for s in idx)
@@ -1221,7 +1409,11 @@ class TorchEngine(EngineBase):
         top = int(self._positions[active].max())
         kw = dict(sample_vocab=self.sample_vocab, method=self.sampling_method,
                   block_size=self.kv_block_size if self.paged else 0)
-        if self.spec_draft and self._spec_call_wanted():
+        # A constrained slot running: the call is the constrained plain
+        # call and no speculative call is made (JAX :4865-4871; the verify
+        # block is not masked). With none running, today's call.
+        st_on = any(r.fsm is not None for r in self._running.values())
+        if self.spec_draft and not st_on and self._spec_call_wanted():
             # The KV bucket holds the EMA-expected advance and at least one
             # whole verify block past every slot's position: with less, the
             # in-call gate (pos + T <= kv_len) would mask every step and
@@ -1245,6 +1437,8 @@ class TorchEngine(EngineBase):
                 self.decode_steps += steps
                 self.spec_calls += 1
                 self.spec_steps += steps
+                if any(r.fsm is not None for _, r in snapshot):
+                    self.spec_constrained_calls += 1
                 # Promise the EMA-expected tokens: promising ``steps``
                 # would queue up to T times too many calls.
                 self._inflight.append(_Call(
@@ -1257,16 +1451,22 @@ class TorchEngine(EngineBase):
         # the most the calls ahead of it can advance.
         kv_len = _kv_bucket(top + sum(c.max_advance for c in self._inflight)
                             + steps, self.max_len)
+        tables = self._st_call_tables() if st_on else None
         t0 = time.perf_counter()
         toks = plain_steps(self.params, self.cfg, self.cache, self._dev,
                            steps, kv_len, table=self._decode_table(kv_len),
-                           **kw)
-        self.decode_host_s += time.perf_counter() - t0
+                           fsm=tables, **kw)
+        dt = time.perf_counter() - t0
+        self.decode_host_s += dt
         self.decode_calls += 1
         self.decode_steps += steps
+        if st_on:
+            self.structured_host_s += dt
+            self.structured_calls += 1
+            self.structured_steps += steps
         self._inflight.append(_Call(_HostCopy(toks), promise=steps,
                                     advance=steps, max_advance=steps,
-                                    snapshot=snapshot))
+                                    snapshot=snapshot, tables=tables))
 
     def _decode_table(self, kv_len: int) -> torch.Tensor | None:
         return (self._paged_table(kv_len // self.kv_block_size,
@@ -1320,6 +1520,10 @@ class TorchEngine(EngineBase):
         slot = req.slot
         slot.tokens.append(token_id)
         req.generated += 1
+        if req.fsm is not None:
+            # Host mirror of the device FSM advance; _finish, the terminal
+            # check and jump-forward read it.
+            req.fsm_state = req.fsm.step(req.fsm_state, token_id)
         self.tokens_generated += 1
         self._m_tokens.inc()
         if req.first_token_at is None:
@@ -1331,9 +1535,17 @@ class TorchEngine(EngineBase):
             self._stream_text(req, delta)
         if req.finished:
             return  # stop string hit inside _stream_text
+        if req.fsm is not None and req.fsm.is_terminal(req.fsm_state):
+            # The document is complete (an accept state whose only
+            # continuation is EOS): "stop" now, before the budget check,
+            # and without a decode step for the EOS itself.
+            self._finish(req, "stop")
+            return
         if req.generated >= req.params.max_tokens \
                 or len(slot.tokens) >= self.usable_len:
             self._finish(req, "length")
+        elif req.fsm is not None:
+            self._st_note_jump_candidate(req)
 
     def _stream_text(self, req: _Request, delta: str) -> None:
         """Emit text, holding back any suffix that could start a stop seq."""
@@ -1372,6 +1584,8 @@ class TorchEngine(EngineBase):
             # Admission-to-finish time feeds the scheduler's service-time
             # EMA (wait estimates, retry_after).
             self._sched.note_service_time(time.monotonic() - req.admitted_at)
+        if req.fsm is not None:
+            self._st_release(req)
         slot = req.slot
         if slot is not None:
             decoding = self._running.get(slot.index) is req
@@ -1450,6 +1664,196 @@ class TorchEngine(EngineBase):
             req.loop.call_soon_threadsafe(req.out_queue.put_nowait, event)
         except RuntimeError:
             pass  # client loop already closed; drop
+
+    # ---------------- structured decoding ----------------
+    # (JAX engine.py :3212-3465. Engine thread only, but the compiler.)
+
+    def _get_st_compiler(self) -> FSMCompiler:
+        """The FSM compiler, built at the first constrained request (it
+        scans the vocabulary once, on its own worker thread)."""
+        if self._st_compiler is None:
+            with self._st_compiler_lock:
+                if self._st_compiler is None:
+                    self._st_compiler = FSMCompiler(
+                        self.tokenizer,
+                        cache_size=self._st_cfg["cache_size"],
+                        max_states=self._st_cfg["max_states"],
+                        json_depth=self._st_cfg["json_depth"],
+                        sample_vocab=self.sample_vocab)
+        return self._st_compiler
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A small host array on the device without waiting for the stream
+        (pinned memory on CUDA)."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def _st_register(self, req: _Request) -> None:
+        """Pin a constrained request's FSM into the union arena. A grown
+        arena repacks state offsets: with constrained calls in flight the
+        pipeline is drained first, so the host mirrors are authoritative,
+        then the tables are uploaded and every running constrained slot's
+        device state is refreshed. Raises ArenaFull when running requests
+        pin the whole budget."""
+        if self._st_arena is None:
+            self._st_arena = FSMArena(
+                self.sample_vocab,
+                tuple(sorted(t for t in self.tokenizer.eos_ids
+                             if 0 <= t < self.sample_vocab)),
+                self.num_slots, state_budget=self._st_cfg["state_budget"])
+        arena = self._st_arena
+        req.fsm_entry = arena.register(req.fsm)
+        if not arena.dirty:
+            return
+        if any(r.fsm is not None for call in self._inflight
+               for _, r in call.snapshot):
+            while self._inflight:
+                self._retire_oldest()
+        if any(r.fsm is not None for _, ents in self._pending_firsts
+               for _, _, r in ents):
+            self._drain_firsts(block=True)
+        self._st_upload_tables()
+        for s, r in self._running.items():
+            if r.fsm is not None and r.fsm_entry is not None:
+                self._st_sel[s] = r.fsm_entry.sel
+                self._st_dirty.add(s)
+        self._st_sel_dev = None
+
+    def _st_upload_tables(self) -> None:
+        """The arena's tables onto the device. Calls in flight keep the
+        previous tables alive through their ``_Call``."""
+        arena = self._st_arena
+        self._st_tables = FSMTables.upload(arena.masks, arena.nexts,
+                                           arena.cls, None, self.device)
+        arena.dirty = False
+
+    def _st_call_tables(self) -> FSMTables:
+        """The tables of one constrained call, with the slots' selector
+        rows uploaded when they changed."""
+        if self._st_sel_dev is None:
+            self._st_sel_dev = self._upload(self._st_sel.copy())
+        return replace(self._st_tables, sel=self._st_sel_dev)
+
+    def _st_release(self, req: _Request) -> None:
+        """Terminal-path cleanup of a constrained request: unpin the FSM
+        (its tables stay cached for the next request of the schema) and put
+        the slot's device state back to FREE."""
+        self._st_jf_pending.discard(req.request_id)
+        if req.fsm_entry is not None and self._st_arena is not None:
+            self._st_arena.release(req.fsm)
+            req.fsm_entry = None
+        slot = req.slot
+        if slot is not None:
+            self._st_sel[slot.index] = 0
+            self._st_sel_dev = None
+            self._st_dirty.add(slot.index)
+
+    def _st_global_state(self, slot_index: int) -> int:
+        req = self._running.get(slot_index)
+        if req is None or req.fsm is None or req.fsm_entry is None:
+            return 0  # FREE
+        return self._st_arena.global_state(req.fsm_entry, req.fsm_state)
+
+    def _st_sample_place(self, req: _Request, slot: Slot,
+                         last_logits: torch.Tensor) -> None:
+        """Sample a constrained slot's next token under the allowed row of
+        its current FSM state (after a prefill or a jump), place it as the
+        slot's current token and advance the slot's device state, all on
+        the device; the token is emitted when its copy lands."""
+        entry = req.fsm_entry
+        gstate = self._st_arena.global_state(entry, req.fsm_state)
+        row = pack_mask_row(req.fsm, req.fsm_state, self._st_arena.words,
+                            req.fsm.eos_ids)
+        t = self._st_tables
+        allow = unpack_mask(self._upload(row.view(np.int32)), t.powers,
+                            self.sample_vocab)
+        lg = last_logits[:self.sample_vocab].to(torch.float32)
+        lg = torch.where(allow, lg, torch.full_like(lg, -1e30))
+        first = sample_tokens(
+            lg[None], self._dev.gen,
+            self._dev_scalar(req.params.temperature, torch.float32),
+            self._dev_scalar(req.params.top_k, torch.int64),
+            self._dev_scalar(req.params.top_p, torch.float32),
+            method=self.sampling_method)
+        self._dev.cur[slot.index] = first[0]
+        self._dev.fst[slot.index] = t.nexts[gstate, t.cls[entry.sel,
+                                                          first[0]]]
+        # This wrote the slot's authoritative state (after the first
+        # token). A patch queued for the slot's previous occupant (its
+        # finish -> FREE) would now rewind the device FSM by one token,
+        # since the host mirror lags until the first token's copy lands:
+        # drop it.
+        self._st_dirty.discard(slot.index)
+        self._defer_first(first, [(0, slot.index, req)])
+
+    def _st_penalties_neutral(self, req: _Request) -> bool:
+        p = req.params
+        return (p.repeat_penalty == 1.0 and p.presence_penalty == 0.0
+                and p.frequency_penalty == 0.0)
+
+    def _st_note_jump_candidate(self, req: _Request) -> None:
+        """After each consumed token of a constrained request: queue a jump
+        when its state opens a forced chain of at least
+        ``STRUCTURED_JF_MIN`` tokens. Jumps need neutral penalties (forced
+        tokens bypass the device counts); with penalties the decode steps
+        emit the same forced tokens one step each."""
+        if self._st_jf_min <= 0 or not self._st_penalties_neutral(req):
+            return
+        if req.fsm_state < 0 or int(req.fsm.forced_tok[req.fsm_state]) < 0:
+            return  # DONE/DEAD sentinel, or not a forced state
+        chain, _ = req.fsm.forced_chain(req.fsm_state)
+        if len(chain) >= self._st_jf_min:
+            self._st_jf_pending.add(req.request_id)
+
+    def _st_jump_forward(self) -> None:
+        """Emit each pending forced chain without decode steps: one prefill
+        of the newest (unfed) token plus the chain writes their KV rows,
+        the chain streams at once, and a masked sample from the chain-end
+        state (the prefill's last logits) restarts decoding. Runs with the
+        pipeline empty, so no call in flight can emit the chain twice."""
+        self._drain_firsts(block=True)
+        pending, self._st_jf_pending = self._st_jf_pending, set()
+        for rid in pending:
+            req = self._by_id.get(rid)
+            if req is None or req.finished or req.slot is None:
+                continue
+            slot = req.slot
+            if self._running.get(slot.index) is not req:
+                continue
+            chain, _end = req.fsm.forced_chain(req.fsm_state)
+            room = min(req.params.max_tokens - req.generated,
+                       self.usable_len - len(slot.tokens) - 1,
+                       self.prefill_chunk - 1)
+            n = min(len(chain), room)
+            if n < self._st_jf_min:
+                continue
+            chain = chain[:n]
+            start = int(self._positions[slot.index])
+            feed = [slot.tokens[-1]] + chain
+            bucket = next((b for b in _PREFILL_BUCKETS if b >= len(feed)),
+                          None)
+            if bucket is None or start + bucket > self.max_len:
+                continue  # no room: the decode steps emit the chain
+            if self.paged and not self._kv_blocks.ensure(slot.index,
+                                                         start + bucket):
+                continue  # no blocks: the decode steps emit the chain
+            last_logits = self._run_chunk_prefill(slot, feed, start, bucket)
+            self._positions[slot.index] = start + n + 1
+            slot.kv_written = start + n + 1
+            self._dirty_slots.add(slot.index)
+            for tok in chain:
+                if req.finished or self._running.get(slot.index) is not req:
+                    break
+                self._consume_token(req, tok)
+                req.jump_tokens += 1
+                self.structured_jump_tokens += 1
+                self._m_st_jump.inc()
+            self._flush_emit(req)
+            if req.finished:
+                continue
+            self._st_sample_place(req, slot, last_logits)
 
     # ---------------- paged KV tier ----------------
     # (KV_LAYOUT=paged; JAX engine.py :2826-3206. Engine thread only.)

@@ -231,4 +231,10 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         kv_layout=cfg.kv_layout, kv_block_size=cfg.kv_block_size,
         kv_pool_blocks=acct["kv_pool_blocks"],
         kv_reserve_policy=cfg.kv_reserve_policy,
-        kv_reserve_tokens=cfg.kv_reserve_tokens)
+        kv_reserve_tokens=cfg.kv_reserve_tokens,
+        structured=cfg.structured_mode,
+        structured_max_states=cfg.structured_max_states,
+        structured_state_budget=cfg.structured_state_budget,
+        structured_jf_min=cfg.structured_jf_min,
+        structured_cache=cfg.structured_cache,
+        structured_json_depth=cfg.structured_json_depth)

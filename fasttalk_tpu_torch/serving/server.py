@@ -13,16 +13,22 @@ plus HTTP GET ``/`` (service banner), ``/health`` (with the scheduler's
 overload state), ``/stats`` (the engine's stats, its ``scheduler`` section
 included, and process-lifetime totals), ``/metrics`` (Prometheus text of
 ``utils/metrics.py``) and ``/models`` (which reports the KV layout,
-quantization and block size). Token frames carry the delta in ``data``;
+quantization and block size), and the OpenAI-compatible routes
+``/v1/models``, ``/v1/chat/completions`` and ``/v1/completions``
+(serving/openai_api.py, registered as the JAX server does, :196-210).
+Token frames carry the delta in ``data``;
 with the session key ``tts_chunking`` they carry speakable chunks instead
 (``"speakable": true``, cut by ``text_processor.extract_speakable_chunk``
 and flushed at the end, as the JAX server does). The session keys
 ``priority`` and ``deadline_s`` reach the engine's ``GenerationParams``
-(admission class and queue deadline). Session keys of features the port
-does not carry yet (``structured``, ``journey``) are refused with an
-``invalid_config`` frame that names the key: they are never dropped
-without a word, and never reach the engine. A shed at admission
-(``AdmissionRejected``: queue full, wait past the deadline, draining) and
+(admission class and queue deadline), and ``structured`` its constrained
+decoding spec (a bad spec is an ``invalid_config`` frame, an engine without
+structured decoding an ``invalid_config`` frame with the reason, both before
+the circuit breaker). The session key of a feature the port does not carry
+yet (``journey``) is refused with an ``invalid_config`` frame that names
+the key: it is never dropped without a word, and never reaches the
+engine. A shed at admission (``AdmissionRejected``: queue full, wait past
+the deadline, draining) and
 an engine terminal error whose code is a shed (``deadline_expired``,
 ``kv_blocks_exhausted``) reach the client as a ``rate_limit_error`` frame
 with ``retry_after`` and do not count against the circuit breaker. A
@@ -45,6 +51,7 @@ from aiohttp import WSCloseCode, WSMsgType, web
 from fasttalk_tpu_torch import __version__
 from fasttalk_tpu_torch.engine.engine import EngineBase, GenerationParams
 from fasttalk_tpu_torch.serving.conversation import ConversationManager
+from fasttalk_tpu_torch.serving.openai_api import register_openai_routes
 from fasttalk_tpu_torch.serving.text_processor import extract_speakable_chunk
 from fasttalk_tpu_torch.utils.config import Config
 from fasttalk_tpu_torch.utils.errors import (ENGINE_SHED_CODES,
@@ -64,11 +71,11 @@ class WebSocketLLMServer:
     # Generation-config keys a client may set per session.
     _GEN_KEYS = ("temperature", "top_p", "top_k", "max_tokens", "stop",
                  "tts_chunking", "repeat_penalty", "presence_penalty",
-                 "frequency_penalty", "ignore_eos", "priority", "deadline_s")
+                 "frequency_penalty", "ignore_eos", "priority", "deadline_s",
+                 "structured")
     # Session keys of the JAX server whose feature the port does not carry
     # yet: key -> the feature, named in the invalid_config frame.
     _UNSUPPORTED_KEYS = {
-        "structured": "structured decoding",
         "journey": "observability (the per-token journey)",
     }
 
@@ -94,6 +101,18 @@ class WebSocketLLMServer:
         self.app.router.add_get("/metrics", self._http_metrics)
         self.app.router.add_get("/models", self._http_models)
         self.app.router.add_get("/ws/llm", self.handle_websocket)
+        register_openai_routes(
+            self.app, backend=lambda: self.engine,
+            model_name=self._model_name,
+            defaults={"temperature": config.default_temperature,
+                      "top_p": config.default_top_p,
+                      "top_k": config.default_top_k,
+                      "max_tokens": config.default_max_tokens,
+                      "repeat_penalty": config.default_repeat_penalty,
+                      "presence_penalty": config.default_presence_penalty,
+                      "frequency_penalty": config.default_frequency_penalty,
+                      "priority": config.sched_default_priority},
+            breaker=self.breaker)
         self.app.on_cleanup.append(self._on_cleanup)
 
     async def drain(self) -> None:
@@ -322,7 +341,10 @@ class WebSocketLLMServer:
             # both; a bad value is an invalid_config frame).
             priority=str(over.get("priority", c.sched_default_priority)),
             deadline_s=(float(over["deadline_s"])
-                        if over.get("deadline_s") is not None else None))
+                        if over.get("deadline_s") is not None else None),
+            # Constrained decoding; a bad spec shape is an invalid_config
+            # frame through GenerationParams.
+            structured=over.get("structured"))
 
     async def _generate(self, session_id: str,
                         ws: web.WebSocketResponse) -> None:
@@ -339,6 +361,15 @@ class WebSocketLLMServer:
             except (TypeError, ValueError) as e:
                 await self._send_error(ws, "invalid_config", str(e))
                 return
+            if params.structured is not None:
+                # An engine that cannot serve constraints is a config clash
+                # for the client, not a backend failure: before the breaker.
+                reason = getattr(self.engine, "structured_reason", None)
+                if reason is not None:
+                    await self._send_error(
+                        ws, "invalid_config",
+                        f"structured output unavailable: {reason}")
+                    return
             self.breaker.check()
             messages = self.conversations.get_messages_for_generation(
                 session_id)

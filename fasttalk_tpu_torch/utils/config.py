@@ -20,8 +20,14 @@ defaults and messages: ``TPU_SAMPLING`` (fast|exact), ``TPU_SHARED_PREFIX``,
 ``SCHED_DRAIN_TIMEOUT_S`` (``fasttalk_tpu/utils/config.py`` :289-323,
 :366-389, :909-921, :966-976, :1104-1109; spec decoding with
 ``KV_QUANT=int8`` is the same named startup error).
+Structured decoding reads ``STRUCTURED_MODE`` (auto|on|off),
+``STRUCTURED_MAX_STATES``, ``STRUCTURED_STATE_BUDGET``,
+``STRUCTURED_JF_MIN``, ``STRUCTURED_CACHE`` and ``STRUCTURED_JSON_DEPTH``
+under the same names, defaults and messages (``fasttalk_tpu/utils/
+config.py`` :613-649, :1161-1181); the port has no mesh, so ``on`` has
+nothing to reject.
 Features of the JAX package that the port does not carry yet (host KV
-offload, the radix cache, structured decoding, a device mesh) are rejected
+offload, the radix cache, a device mesh) are rejected
 with a named error when their variable asks for them; they are never
 silently ignored.
 
@@ -76,13 +82,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; fasttalk_tpu_torch runs on the "
             "GPU unless the caller passes device='cpu' explicitly")
     return dev
-
-
-# Variables of features outside this slice: (env name, value that keeps the
-# feature off, what to tell the operator).
-_OUT_OF_SLICE = (
-    ("STRUCTURED_MODE", ("auto", "off", ""), "structured decoding"),
-)
 
 
 @dataclass
@@ -223,6 +222,34 @@ class Config:
         default_factory=lambda: _env_str("KV_RESERVE_POLICY", "fixed"))
     kv_reserve_tokens: int = field(
         default_factory=lambda: _env_int("KV_RESERVE_TOKENS", 128))
+    # ---- Structured decoding (structured/) ----
+    # "auto" (default): constrained requests are served whenever the engine
+    # supports them, else rejected with a named reason; "on": an
+    # unsupported engine is a startup error; "off": every structured
+    # request is rejected. Speculative decoding pauses per decode call
+    # while a constrained slot runs and resumes after.
+    structured_mode: str = field(
+        default_factory=lambda: _env_str("STRUCTURED_MODE", "auto"))
+    # Per-FSM compile bound: a schema whose token FSM exceeds this many
+    # states is rejected with a 400 naming the count.
+    structured_max_states: int = field(
+        default_factory=lambda: _env_int("STRUCTURED_MAX_STATES", 8192))
+    # Device union-arena budget: total FSM states resident across all
+    # concurrently served schemas.
+    structured_state_budget: int = field(
+        default_factory=lambda: _env_int("STRUCTURED_STATE_BUDGET",
+                                         16384))
+    # Jump-forward engages when the FSM's forced single-transition chain is
+    # at least this many tokens (0 disables jump-forward).
+    structured_jf_min: int = field(
+        default_factory=lambda: _env_int("STRUCTURED_JF_MIN", 4))
+    # Compiled-FSM LRU entries per engine.
+    structured_cache: int = field(
+        default_factory=lambda: _env_int("STRUCTURED_CACHE", 64))
+    # response_format={"type":"json_object"} nesting depth ("any JSON" is
+    # not regular, so the generic grammar unrolls this many levels).
+    structured_json_depth: int = field(
+        default_factory=lambda: _env_int("STRUCTURED_JSON_DEPTH", 3))
 
     def __post_init__(self) -> None:
         # WEIGHT_QUANT unset: take the legacy TPU_QUANTIZE tier; set: it is
@@ -236,11 +263,6 @@ class Config:
             self.quantize = {"off": "none"}.get(self.weight_quant,
                                                 self.weight_quant)
         errs: list[str] = []
-        for name, off_values, what in _OUT_OF_SLICE:
-            raw = os.getenv(name, "").strip().lower()
-            if raw not in off_values:
-                errs.append(f"{name}={raw} asks for {what}: not "
-                            "implemented yet in fasttalk_tpu_torch")
         if _env_float("KV_HOST_BUDGET_MB", 0.0) > 0:
             errs.append("KV_HOST_BUDGET_MB>0 asks for the host KV-offload "
                         "tier: not implemented yet in fasttalk_tpu_torch")
@@ -359,6 +381,27 @@ class Config:
                 and self.kv_block_size > self.max_model_len:
             errs.append(f"kv_block_size ({self.kv_block_size}) must not "
                         f"exceed max_model_len ({self.max_model_len})")
+        if self.structured_mode not in ("auto", "on", "off"):
+            errs.append(f"structured_mode must be auto|on|off, "
+                        f"got {self.structured_mode!r}")
+        if self.structured_max_states < 16:
+            errs.append(f"structured_max_states must be >= 16, "
+                        f"got {self.structured_max_states}")
+        if self.structured_state_budget < self.structured_max_states:
+            errs.append(
+                f"structured_state_budget "
+                f"({self.structured_state_budget}) must be >= "
+                f"structured_max_states ({self.structured_max_states}) "
+                "or the largest admissible FSM could never be pinned")
+        if self.structured_jf_min < 0:
+            errs.append(f"structured_jf_min must be >= 0 (0 disables "
+                        f"jump-forward), got {self.structured_jf_min}")
+        if self.structured_cache < 1:
+            errs.append(f"structured_cache must be >= 1, "
+                        f"got {self.structured_cache}")
+        if not 1 <= self.structured_json_depth <= 8:
+            errs.append(f"structured_json_depth must be in 1..8, "
+                        f"got {self.structured_json_depth}")
         if errs:
             raise ValueError("Invalid configuration:\n  " + "\n  ".join(errs))
 

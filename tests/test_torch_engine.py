@@ -396,6 +396,12 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     for root, _, names in os.walk(PORT_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    scanned = {os.path.relpath(p, PORT_PKG) for p in files}
+    assert {"structured/compiler.py", "structured/fsm.py",
+            "structured/regex_dfa.py", "structured/runtime.py",
+            "structured/schema.py", "agents/hermes.py",
+            "resilience/failpoints.py", "observability/trace.py",
+            "serving/openai_api.py"} <= scanned
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -413,6 +419,11 @@ def test_importing_the_port_loads_no_jax_module():
         "import fasttalk_tpu_torch.models.prepared_cache\n"
         "import fasttalk_tpu_torch.training.corpus\n"
         "import fasttalk_tpu_torch.ops.cuda_int4\n"
+        "import fasttalk_tpu_torch.structured\n"
+        "import fasttalk_tpu_torch.agents.hermes\n"
+        "import fasttalk_tpu_torch.resilience.failpoints\n"
+        "import fasttalk_tpu_torch.observability.trace\n"
+        "import fasttalk_tpu_torch.serving.openai_api\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -450,7 +461,7 @@ def _default_device_engine():
 @pytest.mark.parametrize("env", [
     {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true"},
     {"KV_HOST_BUDGET_MB": "64"},
-    {"KV_RADIX_ENABLED": "true"}, {"STRUCTURED_MODE": "on"},
+    {"KV_RADIX_ENABLED": "true"},
     {"TPU_TP_SIZE": "2"}, {"WEIGHT_QUANT": "int4", "TPU_TP_SIZE": "2"}])
 def test_config_rejects_features_outside_the_slice(monkeypatch, env):
     from fasttalk_tpu_torch.utils.config import Config
@@ -465,11 +476,13 @@ def test_config_rejects_features_outside_the_slice(monkeypatch, env):
     {"KV_QUANT": "int8", "TPU_SPEC_DECODE": "ngram"},
     {"KV_QUANT": "int8"},
     {"TPU_SPEC_DECODE": "eagle"}, {"TPU_SPEC_DRAFT": "0"},
-    {"SCHED_DEFAULT_PRIORITY": "vip"}, {"TPU_SAMPLING": "topk"}])
+    {"SCHED_DEFAULT_PRIORITY": "vip"}, {"TPU_SAMPLING": "topk"},
+    {"STRUCTURED_MODE": "maybe"}])
 def test_config_rejects_bad_engine_settings_as_jax_does(monkeypatch, env):
     """Speculative decoding with int8 KV (also by the auto default), a bad
-    TPU_SPEC_DECODE, TPU_SPEC_DRAFT=0, a bad SCHED_DEFAULT_PRIORITY and a
-    bad TPU_SAMPLING fail at startup with the JAX Config's own messages."""
+    TPU_SPEC_DECODE, TPU_SPEC_DRAFT=0, a bad SCHED_DEFAULT_PRIORITY, a bad
+    TPU_SAMPLING and a bad STRUCTURED_MODE fail at startup with the JAX
+    Config's own messages."""
     from fasttalk_tpu.utils.config import Config as JaxConfig
     from fasttalk_tpu_torch.utils.config import Config
 

@@ -29,6 +29,7 @@ from fasttalk_tpu_torch.models.llama import init_params
 from fasttalk_tpu_torch.scheduling.scheduler import \
     RequestScheduler as TorchSched
 from fasttalk_tpu_torch.utils.errors import AdmissionRejected
+from fasttalk_tpu_torch.utils.metrics import reset_metrics
 
 TINY = get_model_config("test-tiny")
 GREEDY = dict(temperature=0.0, top_k=0, top_p=1.0)
@@ -103,6 +104,11 @@ def _drive(sched_cls, rejected_cls):
 
 
 def test_scheduler_makes_the_jax_decisions():
+    # The stats carry process-wide shed counts. tests/conftest.py empties the
+    # JAX package's registry before each test; the port's is emptied here,
+    # or a shed counted by an earlier test in this process shows on the
+    # port's side only.
+    reset_metrics()
     port = _drive(TorchSched, AdmissionRejected)
     ref = _drive(JaxSched, JaxRejected)
     assert port == ref

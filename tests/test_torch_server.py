@@ -10,9 +10,10 @@ generation parameters, and an out-of-range value is the same named startup
 error in both packages; ``tts_chunking`` frames carry the same speakable
 chunks for the same token stream; the admission keys ``priority`` and
 ``deadline_s`` reach the generation parameters in both, from
-``start_session`` and from ``update_config``; the session keys of features
-the port does not carry (``structured``, ``journey``) get an
-``invalid_config`` frame naming the key and never reach the engine; ``/``,
+``start_session`` and from ``update_config``, and so does ``structured``,
+which gives the port a constrained generation; the session key of a feature
+the port does not carry (``journey``) gets an ``invalid_config`` frame
+naming the key and never reaches the engine; ``/``,
 ``/stats`` (with the engine's ``scheduler`` section) and ``/metrics``
 answer; and ``serve`` drains on shutdown: a running generation completes,
 a new submission sheds as a rate-limit frame.
@@ -38,7 +39,10 @@ from fasttalk_tpu_torch.utils.config import Config as TorchConfig
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")
 GREEDY = {"temperature": 0.0, "top_k": 0, "top_p": 1.0}
-UNSUPPORTED = {"structured": {"kind": "json_object"}, "journey": True}
+UNSUPPORTED = {"journey": True}
+STRUCTURED = {"kind": "json_schema", "schema": {
+    "type": "object", "properties": {"mood": {"enum": ["happy", "sad"]},
+                                     "ok": {"type": "boolean"}}}}
 ADMISSION = {"priority": "bulk", "deadline_s": 5.0}
 
 
@@ -337,6 +341,40 @@ def test_admission_keys_reach_the_generation_in_both(key, message,
     assert getattr(port_params, key) == getattr(jax_params, key) == cfg[key]
     assert (port_params.priority, port_params.deadline_s) == \
         (jax_params.priority, jax_params.deadline_s)
+
+
+@pytest.mark.parametrize("message", ["start_session", "update_config"])
+def test_structured_key_reaches_a_constrained_generation_in_both(
+        message, monkeypatch, tiny_engine):
+    """``structured`` set by ``start_session`` or ``update_config`` reaches
+    ``GenerationParams`` in the JAX server (over its FakeEngine) and in the
+    port's, where the reply is a document of the schema that ends with
+    ``stop``, decoded by constrained calls."""
+    cfg = {"structured": STRUCTURED, "max_tokens": 48, **GREEDY}
+    frames = ([{"type": "start_session", "config": cfg}]
+              if message == "start_session" else
+              [{"type": "start_session", "config": {"max_tokens": 2}},
+               {"type": "update_config", "config": cfg}])
+    frames.append({"type": "user_message", "text": "hi"})
+    jax_srv, fake = _jax_server(monkeypatch)
+    jax_frames = _run(jax_srv, frames)
+    calls = tiny_engine.get_stats()["structured"]["calls"]
+    spy = _Spy(tiny_engine)
+    try:
+        port_frames = _run(TorchServer(_tiny_config(), tiny_engine), frames)
+    finally:
+        del tiny_engine.generate
+    for got in (jax_frames, port_frames):
+        assert got[-1]["type"] == "response_complete", got
+    jax_params = fake.requests_seen[0]["params"]
+    port_params = spy.seen[0]["params"]
+    assert port_params.structured == jax_params.structured == STRUCTURED
+    text = "".join(f["data"] for f in port_frames if f["type"] == "token")
+    doc = json.loads(text)
+    assert set(doc) == {"mood", "ok"} and doc["mood"] in ("happy", "sad")
+    assert isinstance(doc["ok"], bool)
+    assert port_frames[-1]["stats"]["finish_reason"] == "stop"
+    assert tiny_engine.get_stats()["structured"]["calls"] > calls
 
 
 def test_http_surface_answers(tiny_engine):
