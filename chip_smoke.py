@@ -28,7 +28,12 @@ no result line):
    tokenizer given the JSON punctuation (a copy under build/), a
    ``response_format`` json_schema answer with jump-forward on
    (STRUCTURED_JF_MIN=4) equal token for token to the one with it off,
-   parsing and meeting the schema;
+   parsing and meeting the schema; and a session's second turn (its slot's
+   token ids) after a radix hit (the session released between the turns)
+   and after a park on eviction and a restore (from the pinned host rows,
+   and from rows prestaged on the offload thread's stream), equal to the
+   never-evicted second turn, on the paged bf16, paged int8 and (park
+   only) dense bf16 caches;
 5. the WebSocket server in-process through ``build_engine`` (full-width
    llama3.2:1b, int8, 16 slots, max_len 2048, prefill chunk 512, dense
    bf16 KV, the JAX engine's defaults: TPU_SPEC_DECODE=auto, shared
@@ -59,9 +64,27 @@ no result line):
    request fail; constrained decode calls and jump-forward tokens must
    have run, and no speculative call beside a constrained slot. One
    constrained step and one plain step are timed with CUDA graphs. Then
-   the same with 4 constrained completions on phase 6's paged int8 pool.
+   the same with 4 constrained completions on phase 6's paged int8 pool;
+11. the KV memory hierarchy, every session sharing one system prompt of
+   about 1,000 tokens (``SYSTEM_1K``): (a) the radix cache
+   (KV_RADIX_ENABLED) on the paged bf16 pool (max_len 8192, 2048 blocks,
+   spec at its default), 16 sessions x 3 turns x 64 tokens, each session
+   released after every turn, against the same traffic with the cache off:
+   turns 2-3 must prefill at most their delta plus 2 blocks, the tree must
+   hit and blocks be aliased, the tree and the pool must pass their
+   integrity checks after the drain; (b) the same briefly (16 tokens) on
+   the paged int8 pool, one session kept and its system prompt changed
+   mid-block so its next turn copies a shared block on write, and one block
+   copy held to its rows and scales on the card; (c) host offload
+   (KV_HOST_BUDGET_MB=4096) on dense bf16 at max_len 2048: two waves of 16
+   sessions x 2 turns, wave B's first turns evict and park wave A, wave
+   A's second turns restore and must prefill only their delta; at least
+   16 parks and one restore; against the same traffic with the pool off;
+   one restore is timed with CUDA events; (d) (c) briefly on the paged int8
+   pool. No park or restore may fail in phase 11, and the kernels of each
+   part must have launched.
 
-In phases 5-10 the kernels' launch counts are zeroed just before the
+In phases 5-11 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
 launched. Each served phase logs decode tok/s, TTFT p50/p99 from the
 ``done`` frames, batched prefill calls, shared-prefix tokens and decode
@@ -1138,6 +1161,249 @@ def stat_delta(before: dict, after: dict) -> dict:
     return d
 
 
+# ----------------------------------------- phases 4 and 11: KV hierarchy
+
+def check_tinychat_multiturn(**kv) -> None:
+    """Phase 4, multi-turn: the trained tinychat's second greedy turn of a
+    session ("my name is Ada." then "what is my name?", int8 weights, spec
+    off) equals the never-evicted answer token for token (the slot's token
+    ids) after a radix hit (the session released between the turns; paged
+    only) and after a park on eviction and a restore (two other sessions
+    fill both slots between the turns), once from the pinned host rows and
+    once from rows prestaged before the turn. ``kv``: the KV layout and
+    tier."""
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.utils.config import Config
+
+    msg1 = [{"role": "user", "content": "my name is Ada."}]
+    filler = [{"role": "user", "content": "what color is the sky?"}]
+
+    def build(**extra):
+        engine = build_engine(Config(
+            model_name="tinychat", model_path=ASSETS, weight_quant="int8",
+            decode_slots=2, max_model_len=512, default_context_window=512,
+            spec_decode="off", kv_park_idle_s=0.0, kv_restore_min_tokens=8,
+            **kv, **extra), device="cuda", prepared_cache=False)
+        engine.start()
+        return engine
+
+    async def turn(engine, rid, sid, msgs):
+        text, final = "", {}
+        async for ev in engine.generate(rid, sid, msgs, GenerationParams(
+                max_tokens=24, temperature=0.0, top_k=0, top_p=1.0)):
+            if ev["type"] == "token":
+                text += ev["text"]
+            else:
+                final = ev
+        if final.get("type") != "done":
+            fail(f"tinychat multi-turn {kv}: {final}")
+        return text
+
+    def wait(pred):
+        deadline = time.monotonic() + 30
+        while not pred():
+            if time.monotonic() > deadline:
+                fail(f"tinychat multi-turn {kv}: timed out")
+            time.sleep(0.01)
+
+    def two_turns(engine, between=None):
+        try:
+            async def run():
+                r1 = await turn(engine, "t1", "A", msg1)
+                if between is not None:
+                    await between(engine)
+                await turn(engine, "t2", "A", msg1 + [
+                    {"role": "assistant", "content": r1},
+                    {"role": "user", "content": "what is my name?"}])
+                return list(engine.slots.lookup("A").tokens)
+            tokens = asyncio.run(asyncio.wait_for(run(), timeout=120))
+            return tokens, engine.get_stats()
+        finally:
+            engine.shutdown()
+
+    async def release(engine):
+        engine.release_session("A")
+        await asyncio.to_thread(wait, lambda: engine.slots.lookup("A") is None)
+
+    async def evict(engine):
+        await turn(engine, "f1", "B", filler)
+        await turn(engine, "f2", "C", filler)
+        await asyncio.to_thread(
+            wait, lambda: engine._kv_pool.parked_len("A") > 0)
+
+    async def evict_and_stage(engine):
+        # The restore then reads the rows the offload thread uploaded on
+        # its side stream (the restore's stream waits for their event).
+        await evict(engine)
+        engine._kv_offload.prestage("A")
+        await asyncio.to_thread(
+            wait, lambda: engine._kv_pool.get("A").k_dev is not None)
+
+    want, _ = two_turns(build())
+    pool = dict(kv_host_budget_mb=256.0)
+    checks = [("park and restore", pool, evict),
+              ("prestaged restore", pool, evict_and_stage)]
+    if kv.get("kv_layout") == "paged":
+        checks.insert(0, ("radix hit", dict(kv_radix_enabled=True), release))
+    for name, extra, between in checks:
+        got, stats = two_turns(build(**extra), between)
+        if name == "radix hit" and stats["kv_radix"]["hits"] < 1:
+            fail(f"tinychat multi-turn {kv}: no radix hit")
+        if name != "radix hit" and (
+                stats["kv_host"]["restored_total"] < 1
+                or stats["kv_host"]["restore_failed"]):
+            fail(f"tinychat multi-turn {kv}: no clean restore: "
+                 f"{stats['kv_host']}")
+        if got != want:
+            fail(f"tinychat multi-turn {kv}, {name}: turn 2 tokens differ "
+                 f"from the never-evicted session's")
+        log(f"tinychat multi-turn {kv or 'dense bf16 KV'}, {name}: turn 2 "
+            f"equals the never-evicted answer ({len(got)} tokens)")
+
+
+# About 1,000 tokens of the bench BPE (949 for the sentences alone), so a
+# first turn's prompt stays inside the 1024 bucket of one batched prefill.
+SYSTEM_1K = " ".join(
+    f"Rule {i}: keep every answer short and friendly, name the source when "
+    f"you can, and never guess about item {i}." for i in range(38))
+
+
+async def drive_turns(engine, port: int, waves: list[int], turns: int,
+                      max_tokens: int, release: bool, keep: int = 0,
+                      temperature: float = 0.7) -> dict:
+    """Multi-turn WebSocket sessions sharing ``SYSTEM_1K``: ``waves`` sizes
+    the groups of sessions; every turn runs wave after wave (A1, B1, A2,
+    B2, ...), the sessions of one wave concurrently. After each turn the
+    pool's aliased block count is sampled, and with ``release`` the
+    session is released in the engine (its next turn finds no resident
+    slot), but for the first ``keep`` sessions, which instead change one
+    character in the middle of their system prompt before their second
+    turn (``update_config``): that turn's history diverges inside blocks
+    the radix tree shares, so they are copied on write. Returns per-stage
+    turn results and the peak aliased count."""
+    import aiohttp
+
+    peak = {"aliased": 0}
+
+    async def open_session(http, i):
+        ws = await http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm")
+        first = json.loads((await ws.receive()).data)
+        await ws.send_json({"type": "start_session", "config": {
+            "max_tokens": max_tokens, "temperature": temperature,
+            "ignore_eos": True, "system_prompt": SYSTEM_1K}})
+        json.loads((await ws.receive()).data)
+        return ws, first.get("session_id")
+
+    async def turn(ws, sid, text, kept, t):
+        out = {"errors": [], "tokens": 0, "ttft": None}
+        if kept and t == 1:
+            await ws.send_json({"type": "update_config", "config": {
+                "system_prompt": SYSTEM_1K[:2000] + "X" + SYSTEM_1K[2001:]}})
+            m = json.loads((await ws.receive()).data)
+            if m["type"] != "config_updated":
+                out["errors"].append(json.dumps(m))
+        await ws.send_json({"type": "user_message", "text": text})
+        while True:
+            m = json.loads((await ws.receive()).data)
+            if m["type"] == "token":
+                continue
+            if m["type"] == "response_complete":
+                st = m["stats"]
+                out.update(tokens=st["tokens_generated"], ttft=st["ttft_ms"],
+                           prompt=st["prompt_tokens"],
+                           prefill=st["prefill_tokens"])
+            else:
+                out["errors"].append(json.dumps(m))
+            break
+        if engine.paged:
+            peak["aliased"] = max(peak["aliased"],
+                                  engine._kv_blocks.stats()["aliased"])
+        if release and not kept:
+            engine.release_session(sid)
+        return out
+
+    async with aiohttp.ClientSession() as http:
+        conns = [[await open_session(http, sum(waves[:w]) + i)
+                  for i in range(n)] for w, n in enumerate(waves)]
+        stages = []
+        t0 = time.monotonic()
+        for t in range(turns):
+            for w, wave in enumerate(conns):
+                res = await asyncio.gather(*(turn(
+                    ws, sid, f"Session {w}-{i}: tell me about topic {i}, "
+                    f"turn {t}.", w == 0 and i < keep, t)
+                    for i, (ws, sid) in enumerate(wave)))
+                stages.append({"wave": w, "turn": t, "results": res})
+        wall = time.monotonic() - t0
+        entry = None
+        if engine._kv_pool.enabled:
+            # A parked entry to time a restore with after the traffic.
+            for wave in conns:
+                for _, sid in wave:
+                    entry = entry or engine._kv_pool.get(sid)
+        for wave in conns:
+            for ws, _ in wave:
+                await ws.send_json({"type": "end_session"})
+                json.loads((await ws.receive()).data)
+                await ws.close()
+    return {"stages": stages, "wall_s": wall, "peak": peak, "entry": entry,
+            "errors": [e for st in stages for r in st["results"]
+                       for e in r["errors"]],
+            "tokens": sum(r["tokens"] for st in stages
+                          for r in st["results"])}
+
+
+def check_block_copy(engine) -> None:
+    """The copy-on-write primitive on the card: one block of the stopped
+    engine's int8 pool copied to a free block carries its rows and their
+    scales exactly."""
+    alloc = engine._kv_blocks
+    src = next(b for b in range(alloc.num_blocks) if alloc.ref(b) > 0)
+    dst = alloc._free[-1]
+    engine._paged_copy_block(src, dst)
+    torch.cuda.synchronize()
+    bs = engine.kv_block_size
+    for name, part in zip(("k", "v", "k_scale", "v_scale"), engine.cache):
+        if not torch.equal(part[:, src * bs:(src + 1) * bs],
+                           part[:, dst * bs:(dst + 1) * bs]):
+            fail(f"block copy {src} -> {dst}: {name} rows differ")
+    log(f"block copy {src} -> {dst} on the int8 pool: rows and scales equal")
+
+
+def time_restore(engine, entry) -> dict:
+    """Device ms and GB/s of one restore of a parked entry (the host-to-
+    device copy from pinned memory and the write into slot 0, as
+    ``_try_restore`` does), CUDA events around 5 runs after the engine is
+    stopped (nothing else runs on the card)."""
+    from fasttalk_tpu_torch.kvcache.offload import (kv_restore,
+                                                    paged_kv_restore, upload)
+
+    engine.shutdown()
+    dev = engine.device
+    idx = torch.arange(entry.k.shape[1], device=dev)
+
+    def once():
+        rows = upload(entry, dev)
+        if engine.paged:
+            paged_kv_restore(engine.cache, rows, idx)
+        else:
+            kv_restore(engine.cache, rows, 0)
+    once()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        once()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sorted(times)[2]
+    return {"restore_ms": ms, "restore_gb_s": entry.nbytes / ms / 1e6,
+            "bytes": entry.nbytes}
+
+
 def time_verify_step(engine) -> dict:
     """Device ms of one speculative step (draft, the T = 8 verify block
     through the kernels, accept) against one plain decode step, both on the
@@ -1238,6 +1504,168 @@ def time_constrained_step(engine) -> dict:
             "arena": arena.stats()}
 
 
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
+                                                       decode_attend_paged)
+    from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul
+    from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
+
+    for fn in (int8_matmul, int8_matmul_t, int4_matmul, decode_attend,
+               decode_attend_paged):
+        fn.launches = 0
+        fn.launches_multi = 0
+    decode_attend.launches_int8 = 0
+    decode_attend_paged.launches_int8 = 0
+
+
+def turns_phase(label: str, attend: str, waves: list[int], turns: int,
+                max_tokens: int, release: bool, counters: dict,
+                keep: int = 0, **kw) -> dict:
+    """Phase 11: multi-turn sessions sharing ``SYSTEM_1K`` through the
+    WS server (``drive_turns``); the counts are zeroed just before the
+    sessions and read just after. The layer matmul, the lm_head and
+    ``attend`` must have launched, no frame may be an error, and no
+    park or restore may have failed. Returns the turns, the engine's
+    stats, the launches and (a pool on) the timed restore."""
+    out = {}
+
+    async def measured(engine, port: int) -> dict:
+        zero_launches()
+        before = engine.get_stats()
+        res = await drive_turns(engine, port, waves, turns, max_tokens,
+                                release, keep)
+        res["launches"] = {k: c() for k, c in counters.items()}
+        res["delta"] = stat_delta(before, engine.get_stats())
+        out["engine"] = engine
+        return res
+
+    res = serve_main_path(measured, **kw)
+    res["engine_obj"] = engine = out["engine"]
+    res["turns"] = turns
+    # serve_main_path has stopped the engine thread: the release and
+    # end_session commands ran before its stop, so the pool is drained.
+    res["stats"] = stats = engine.get_stats()
+    if engine._kv_radix is not None:
+        engine._kv_radix.check_integrity()
+    if engine.paged:
+        engine._kv_blocks.check_leaks()
+    if res["entry"] is not None:
+        res["restore"] = time_restore(engine, res["entry"])
+    res["ttft"] = {}
+    for st in res["stages"]:
+        ttft = [r["ttft"] for r in st["results"] if r["ttft"] is not None]
+        key = f"wave {'AB'[st['wave']]} turn {st['turn'] + 1}"
+        res["ttft"][key] = {"p50": pct(ttft, 50), "p99": pct(ttft, 99)}
+    host = stats["kv_host"]
+    log(f"{label}: {res['tokens']} tokens over "
+        f"{sum(len(st['results']) for st in res['stages'])} turns in "
+        f"{res['wall_s']:.6g} s, error frames {len(res['errors'])}; TTFT "
+        f"ms p50 / p99 by turn: " + "; ".join(
+            f"{k} {v['p50']:.6g} / {v['p99']:.6g}"
+            for k, v in res["ttft"].items()))
+    blocks = {k: v for k, v in stats.get("kv_blocks", {}).items()
+              if k != "tables"}
+    log(f"  radix: {stats.get('kv_radix')}; kv_blocks: {blocks}; peak "
+        f"aliased {res['peak']['aliased']}")
+    log(f"  kv_host: parked {host['parked_total']}, restored "
+        f"{host['restored_total']}, failed restores "
+        f"{host['restore_failed']}, failed parks {host['park_failed']}, "
+        f"policy {host['policy']}; restore timed: {res.get('restore')}")
+    log(f"  launches: {res['launches']}")
+    if res["errors"]:
+        fail(f"{label}: error frames: {res['errors'][:3]}")
+    if host["restore_failed"] or host["park_failed"]:
+        fail(f"{label}: a park or restore failed: {host}")
+    for name in ("int8_matmul", "int8_matmul_t", attend):
+        if res["launches"][name] <= 0:
+            fail(f"{label}: kernel {name} never launched")
+    return res
+
+
+def deltas(res: dict, turn: int, wave: int = 0) -> list[tuple]:
+    """(prefill, delta) of each session's turn ``turn`` (1-based >= 2):
+    delta = its prompt tokens less its previous turn's."""
+    by = {(st["wave"], st["turn"]): st["results"] for st in res["stages"]}
+    return [(r["prefill"], r["prompt"] - p["prompt"]) for r, p in zip(
+        by[(wave, turn - 1)], by[(wave, turn - 2)])]
+
+
+def phase11(counters: dict) -> dict:
+    """Phase 11: the KV memory hierarchy at full width (llama3.2:1b int8,
+    16 slots, prefill chunk 512): 11a the radix cache on the paged bf16
+    pool against the radix-off control, 11b the same briefly on the paged
+    int8 pool with a copy on write, 11c host offload on dense bf16 against
+    the pool-off control, 11d the same briefly on the paged int8 pool. Each
+    part is fatal on failure. Returns each part's result and the kernels'
+    launches summed over the four parts."""
+    # 11a: each session is released after every turn, so only the tree
+    # serves turns 2 and 3.
+    paged_kw = dict(max_len=8192, kv_layout="paged", kv_block_size=BLOCK,
+                    kv_pool_blocks=2048)
+    t11 = time.monotonic()
+    rad = turns_phase("phase 11a (radix, paged bf16 KV)",
+                      "decode_attend_paged", [SLOTS], 3, 64, True, counters,
+                      kv_radix_enabled=True, **paged_kw)
+    rad_off = turns_phase("phase 11a control (radix off, paged bf16 KV)",
+                          "decode_attend_paged", [SLOTS], 3, 64, True,
+                          counters, **paged_kw)
+    for t in (2, 3):
+        worst = max(p - d for p, d in deltas(rad, t))
+        log(f"  11a turn {t}: prefill - delta, worst session: {worst} tokens")
+        if worst > 2 * BLOCK:
+            fail(f"phase 11a: turn {t} prefilled {worst} tokens past its "
+                 "delta (more than 2 blocks)")
+    if rad["stats"]["kv_radix"]["hits"] <= 0 or rad["peak"]["aliased"] <= 0:
+        fail("phase 11a: no radix hit or no aliased block")
+    # 11b: the same traffic briefly on the paged int8 pool, spec off; one
+    # block copy checked on the card for its rows and scales.
+    rad8 = turns_phase("phase 11b (radix, paged int8 KV)",
+                       "decode_attend_paged[int8]", [SLOTS], 3, 16, True,
+                       counters, keep=1, kv_radix_enabled=True,
+                       kv_quant="int8", spec_decode="off", **paged_kw)
+    blocks8 = rad8["stats"]["kv_blocks"]
+    if rad8["stats"]["kv_radix"]["hits"] <= 0 \
+            or rad8["peak"]["aliased"] <= 0 or blocks8["cow_copies"] < 1:
+        fail(f"phase 11b: no radix hit, aliased block or copy on write: "
+             f"{blocks8}")
+    check_block_copy(rad8["engine_obj"])
+    # 11c: host offload on dense bf16: wave B evicts wave A, wave A's second
+    # turns restore; against the same traffic with the pool off.
+    off = turns_phase("phase 11c (KV_HOST_BUDGET_MB=4096, dense bf16 KV)",
+                      "decode_attend", [SLOTS, SLOTS], 2, 64, False, counters,
+                      kv_host_budget_mb=4096.0)
+    off_ctl = turns_phase("phase 11c control (KV_HOST_BUDGET_MB=0)",
+                          "decode_attend", [SLOTS, SLOTS], 2, 64, False,
+                          counters)
+    host = off["stats"]["kv_host"]
+    delta_only = [p <= d for p, d in deltas(off, 2, wave=0)]
+    log(f"  11c wave A turn 2: {sum(delta_only)} of {len(delta_only)} "
+        "sessions prefilled only their delta")
+    if host["parked_total"] < SLOTS or host["restored_total"] < 1 \
+            or not any(delta_only):
+        fail(f"phase 11c: parks {host['parked_total']}, restores "
+             f"{host['restored_total']}, delta-only turns {sum(delta_only)}")
+    # 11d: 11c's traffic briefly on the paged int8 pool.
+    off8 = turns_phase("phase 11d (KV_HOST_BUDGET_MB=4096, paged int8 KV)",
+                       "decode_attend_paged[int8]", [SLOTS, SLOTS], 2, 16,
+                       False, counters, kv_host_budget_mb=4096.0,
+                       kv_quant="int8", spec_decode="off", max_len=MAX_LEN,
+                       kv_layout="paged", kv_block_size=BLOCK,
+                       kv_pool_blocks=2048)
+    host8 = off8["stats"]["kv_host"]
+    if host8["parked_total"] < SLOTS or host8["restored_total"] < 1:
+        fail(f"phase 11d: parks {host8['parked_total']}, restores "
+             f"{host8['restored_total']}")
+    log(f"phase 11: {time.monotonic() - t11:.6g} s")
+    launches = {name: sum(x["launches"][name] for x in (rad, rad8, off, off8))
+                for name in counters}
+    return {"radix_paged_bf16": rad, "radix_off_paged_bf16": rad_off,
+            "radix_paged_int8": rad8, "offload_dense_bf16": off,
+            "offload_off_dense_bf16": off_ctl, "offload_paged_int8": off8,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1293,6 +1721,11 @@ def main() -> int:
     check_tinychat(kv_layout="paged", kv_quant="int8", spec_decode="off")
     # Phase 4, structured: a response_format answer, jump-forward on and off.
     check_tinychat_structured()
+    # Phase 4, multi-turn: turn 2 after a radix hit and after a park and
+    # restore equals the never-evicted turn 2.
+    check_tinychat_multiturn(kv_layout="paged")
+    check_tinychat_multiturn(kv_layout="paged", kv_quant="int8")
+    check_tinychat_multiturn()
 
     # Launch counters of every kernel and attention tier: (wrapper, the
     # count of this tier's launches).
@@ -1519,6 +1952,9 @@ def main() -> int:
         "decode_attend_paged[int8]", 4, max_len=8192, kv_layout="paged",
         kv_quant="int8", kv_block_size=BLOCK, kv_pool_blocks=2048,
         spec_decode="off")
+    p11 = phase11(counters)
+    launches_11 = p11["launches"]
+
     launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
                    "int8_matmul_t": st10["launches"]["int8_matmul_t"],
                    "decode_attend": st10["launches"]["decode_attend"],
@@ -1571,6 +2007,7 @@ def main() -> int:
                if name in launches_t8 else {}),
             **({"launches_structured": launches_st[name]}
                if name in launches_st else {}),
+            "launches_phase11": launches_11[name],
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
@@ -1595,7 +2032,21 @@ def main() -> int:
                 "arena": x["engine"]["structured"].get("arena"),
                 **({"step_ms": x["step_ms"]} if "step_ms" in x else {})}
             for label, x in (("dense_bf16", st10),
-                             ("paged_int8", st10p))}}),
+                             ("paged_int8", st10p))},
+        "kv_hierarchy": {
+            label: {"ttft_ms": x["ttft"], "wall_s": x["wall_s"],
+                    "tokens": x["tokens"],
+                    "peak_aliased": x["peak"]["aliased"],
+                    "kv_radix": x["stats"].get("kv_radix"),
+                    "kv_blocks": {k: v for k, v in
+                                  x["stats"].get("kv_blocks", {}).items()
+                                  if k != "tables"},
+                    "kv_host": x["stats"]["kv_host"],
+                    "restore": x.get("restore"),
+                    "prefill_delta_wave_a": {
+                        f"turn {t}": deltas(x, t)
+                        for t in range(2, x["turns"] + 1)}}
+            for label, x in p11.items() if label != "launches"}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

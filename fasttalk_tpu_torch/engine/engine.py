@@ -55,8 +55,24 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   gather -> dense ``forward`` -> scatter of the chunk's rows. Blocks go
   back on session eviction and release, and past the trusted rows when a
   request finishes or a prompt diverges from the resident history. The
-  shared-prefix copy moves rows between the two slots' blocks (the JAX
-  engine aliases the blocks instead).
+  shared prefix *aliases* the source's full blocks (refcounts) and copies
+  only a partially shared tail block; a write never lands in a shared
+  block: a slot's shared tail is copied on write (``_paged_sync_resident``)
+  before anything is written past its trusted rows.
+- **Radix prefix cache** (``KV_RADIX_ENABLED``, paged only; JAX :3003-3068,
+  kvcache/radix.py): a finished or departing session donates its fully
+  written blocks to a radix tree (allocator holds); a fresh admission
+  aliases the longest cached block chain and prefills only the delta.
+  Cached blocks no slot references are evicted under pool pressure before
+  an admission sheds.
+- **Host KV offload** (``KV_HOST_BUDGET_MB``; JAX :2477-2737,
+  kvcache/offload.py): an evicted (or idle) session's kept rows are
+  snapshotted on the device and copied into pinned host memory by the
+  offload thread; a returning session restores them by one host-to-device
+  copy (prestaged while it queues) and prefills only its delta, when the
+  policy's measured copy cost beats the prefill. Admission order: resident
+  prefix, radix match (unless a longer parked entry should restore), host
+  restore, shared-prefix alias or copy.
 
 - **Structured decoding** (``STRUCTURED_MODE``; JAX :651-690, :1497-1530,
   :3227-3465): a request's ``structured`` spec compiles to a token FSM off
@@ -69,8 +85,8 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   ``STRUCTURED_JF_MIN`` tokens is emitted by jump-forward: one prefill
   writes its rows and a masked sample restarts decoding.
 
-Host KV offload, the radix cache and a device mesh are not part of this
-engine (utils/config.py rejects them by name).
+A device mesh, ``prefill_only`` (the disaggregated tier), the migration
+of parked entries and ``restart()`` are not part of this engine.
 """
 
 from __future__ import annotations
@@ -93,6 +109,13 @@ from fasttalk_tpu_torch.engine.decode_steps import (DecodeState, FSMTables,
 from fasttalk_tpu_torch.engine.slots import Slot, SlotManager, _lcp
 from fasttalk_tpu_torch.engine.tokenizer import StreamDetokenizer, Tokenizer
 from fasttalk_tpu_torch.kvcache.blocks import BlockAllocator, blocks_for
+from fasttalk_tpu_torch.kvcache.hostpool import HostKVPool
+from fasttalk_tpu_torch.kvcache.offload import (KVOffloader, kv_bucket,
+                                                kv_restore, kv_slice,
+                                                paged_kv_restore,
+                                                paged_kv_slice, upload)
+from fasttalk_tpu_torch.kvcache.policy import RestorePolicy, kv_env_defaults
+from fasttalk_tpu_torch.kvcache.radix import RadixTree
 from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.models.llama import (KVCache, forward, init_cache,
                                              init_paged_cache)
@@ -101,6 +124,7 @@ from fasttalk_tpu_torch.ops.kv_quant import granule_dim
 from fasttalk_tpu_torch.ops.sampling import sample_tokens
 from fasttalk_tpu_torch.quantization.int4 import (group_size_of, is_int4,
                                                   validate_group)
+from fasttalk_tpu_torch.resilience import failpoints as _fp
 from fasttalk_tpu_torch.scheduling.scheduler import RequestScheduler
 from fasttalk_tpu_torch.structured.compiler import (FSMCompiler,
                                                     StructuredError,
@@ -146,7 +170,7 @@ class GenerationParams:
     # message content, BOS + its tokens, no chat template.
     raw_prompt: bool = False
     # The JAX engine's disaggregated prefill tier: validated as there, and
-    # refused by this engine (it has no host KV pool to park into).
+    # refused by this engine (it has no decode-tier handoff).
     prefill_only: bool = False
     # Constrained decoding: {"kind": "json_object" | "json_schema" |
     # "regex" | "tool_call", ...}, compiled to a token FSM whose mask
@@ -354,6 +378,13 @@ class TorchEngine(EngineBase):
                  kv_layout: str = "dense", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, kv_reserve_policy: str = "fixed",
                  kv_reserve_tokens: int = 128,
+                 kv_host_budget_mb: float | None = None,
+                 kv_park_ttl_s: float | None = None,
+                 kv_park_idle_s: float | None = None,
+                 kv_restore_min_tokens: int | None = None,
+                 kv_radix: bool = False,
+                 kv_radix_min_blocks: int = 0,
+                 kv_radix_evict_policy: str = "lru",
                  structured: str = "auto",
                  structured_max_states: int = 8192,
                  structured_state_budget: int = 16384,
@@ -454,7 +485,43 @@ class TorchEngine(EngineBase):
             self.cache = init_cache(model_cfg, num_slots, self.max_len, dtype,
                                     self.device, quantized=self.kv_quant,
                                     scale_granule=self.kv_scale_granule)
+        # Radix prefix cache (JAX :551-576): the tree owns pool blocks, so
+        # it needs the paged layout (Config fails the same way).
+        if kv_radix and not self.paged:
+            raise ValueError(
+                "KV_RADIX_ENABLED=true requires KV_LAYOUT=paged (the "
+                "radix prefix cache holds device pool blocks; the "
+                "dense layout has no block pool)")
+        self._kv_radix: RadixTree | None = None
+        if kv_radix:
+            token_row_bytes = (2 * model_cfg.num_layers
+                               * model_cfg.num_kv_heads * model_cfg.head_dim
+                               * (1 if self.kv_quant else dtype.itemsize))
+            self._kv_radix = RadixTree(
+                self._kv_blocks,
+                min_free_blocks=max(0, int(kv_radix_min_blocks)),
+                evict_policy=kv_radix_evict_policy,
+                token_bytes=token_row_bytes)
+            self._kv_blocks.set_pressure(self._kv_radix.evict)
+        # Host KV offload (JAX :725-750): unset knobs resolve from the KV_*
+        # environment, as in the JAX engine (Config passes them).
+        kvdef = kv_env_defaults()
+        self._kv_pool = HostKVPool(
+            budget_mb=kvdef["budget_mb"] if kv_host_budget_mb is None
+            else kv_host_budget_mb,
+            ttl_s=kvdef["ttl_s"] if kv_park_ttl_s is None else kv_park_ttl_s)
+        self._kv_policy = RestorePolicy(
+            min_tokens=int(kvdef["min_tokens"]
+                           if kv_restore_min_tokens is None
+                           else kv_restore_min_tokens))
+        self._kv_offload = KVOffloader(self._kv_pool, self._kv_policy,
+                                       self.device)
+        self._kv_park_idle_s = kvdef["idle_s"] if kv_park_idle_s is None \
+            else kv_park_idle_s
+        self._kv_last_tick = 0.0
+        self.kv_restore_failed = 0    # restores that fell back to prefill
         self.slots = SlotManager(num_slots, self.max_len,
+                                 on_evict=self._park_on_evict,
                                  on_unpin=self._on_slot_unpin)
         # Structured decoding (JAX :651-690). The port has no device mesh,
         # so "auto" and "on" both mean available; "off" gives the reason
@@ -591,6 +658,7 @@ class TorchEngine(EngineBase):
             self._started = False
             if self._st_compiler is not None:
                 self._st_compiler.shutdown()
+        self._kv_offload.shutdown()
 
     def check_connection(self) -> bool:
         return self._started and self._thread is not None \
@@ -608,8 +676,8 @@ class TorchEngine(EngineBase):
                                   category=ErrorCategory.CONNECTION)
         if params.prefill_only:
             raise LLMServiceError(
-                "prefill_only asks for the disaggregated prefill tier (a "
-                "host KV pool): not implemented yet in fasttalk_tpu_torch",
+                "prefill_only asks for the disaggregated prefill tier: "
+                "not implemented yet in fasttalk_tpu_torch",
                 category=ErrorCategory.VALIDATION, recoverable=False)
         if params.raw_prompt:
             prompt = self.tokenizer.encode_prompt(raw_prompt_text(messages))
@@ -648,18 +716,23 @@ class TorchEngine(EngineBase):
         # race the engine thread's command drain.
         self._by_id[request_id] = req
         try:
-            # A paged pool that cannot hold the prompt now makes the wait
-            # about one service time longer (JAX _paged_wait_penalty);
-            # the host-offload discount is 0 until that tier is ported.
+            # A parked entry's restore shortens the wait estimate by what
+            # it saves; a paged pool that cannot hold the prompt now makes
+            # it about one service time longer (JAX :1545-1556).
             self._sched.submit(request_id, session_id,
                                priority=params.priority,
                                deadline_s=params.deadline_s, payload=req,
-                               wait_discount_s=-self._paged_wait_penalty(
-                                   len(prompt)))
+                               wait_discount_s=self._kv_wait_discount(
+                                   session_id, prompt)
+                               - self._paged_wait_penalty(len(prompt)))
         except AdmissionRejected:
             self._by_id.pop(request_id, None)
             req.finished = True
             raise
+        if self._kv_pool.enabled:
+            # Best-effort: upload this session's parked rows while the
+            # request waits in the queue (JAX :1567-1572).
+            self._kv_offload.prestage(session_id)
         self._commands.put(("kick", None))  # wake the engine thread
         terminal = False
         try:
@@ -700,7 +773,18 @@ class TorchEngine(EngineBase):
         """The scheduler's state and its queued entries (position,
         priority, remaining deadline)."""
         return {"stats": self._sched.stats(),
-                "queued": self._sched.snapshot()}
+                "queued": self._sched.snapshot(),
+                "kv_host": self._kv_pool.stats(),
+                "parked_sessions": self._kv_pool.snapshot()}
+
+    def parked_kv_info(self, session_id: str) -> tuple[int, int] | None:
+        """(kept tokens, bytes) of a session's parked entry, or None."""
+        entry = self._kv_pool.get(session_id)
+        return None if entry is None else (entry.kept, entry.nbytes)
+
+    def drop_parked_kv(self, session_id: str) -> bool:
+        """Purge one session's parked entry."""
+        return self._kv_pool.purge(session_id)
 
     def get_model_info(self) -> dict:
         return {
@@ -754,11 +838,25 @@ class TorchEngine(EngineBase):
                         "accepted": self.spec_accepted,
                         "drafted": self.spec_drafted,
                         "constrained_calls": self.spec_constrained_calls},
-               "structured": structured}
+               "structured": structured,
+               "kv_host": {**self._kv_pool.stats(),
+                           "policy": self._kv_policy.stats(),
+                           "restore_failed": self.kv_restore_failed,
+                           "park_failed": self._kv_offload.failed_parks}}
         if self.paged:
             used = sum(min(s.kv_written, len(s.tokens))
                        for s in self.slots.slots)
             out["kv_blocks"] = self._kv_blocks.stats(used_tokens=used)
+        if self._kv_radix is not None:
+            # The tree is the engine thread's: a walk that meets one of its
+            # changes (a dict resized mid-iteration) is taken again.
+            for attempt in range(3):
+                try:
+                    out["kv_radix"] = self._kv_radix.stats()
+                    break
+                except RuntimeError:
+                    if attempt == 2:
+                        raise
         return out
 
     # ---------------- engine thread ----------------
@@ -807,6 +905,7 @@ class TorchEngine(EngineBase):
                         self._retire_oldest()
                 elif self._inflight:
                     self._retire_oldest()
+                self._kv_tick()
         except Exception as e:
             log.critical(f"engine thread crashed: {e}", exc_info=True)
             reason = f"engine crashed: {e}"
@@ -851,6 +950,9 @@ class TorchEngine(EngineBase):
                     if self._sched.cancel(arg) is not None:
                         self._finish(req, "cancelled")  # still queued
             elif cmd == "release":
+                # The session is over: its parked entry goes too (and is
+                # tombstoned against a park still in flight).
+                self._kv_pool.purge(arg)
                 slot = self.slots.lookup(arg)
                 if slot is not None and slot.active:
                     self._release_after.add(arg)
@@ -905,6 +1007,10 @@ class TorchEngine(EngineBase):
             if slot is None:  # every slot is decoding
                 self._sched.requeue_front(entry)
                 break
+            if self._kv_pool.enabled:
+                # Admission proves the session alive: clear a release
+                # tombstone (callers may reuse ids after a release).
+                self._kv_pool.revive(req.session_id)
             # Reserved now: activation follows the prefill, and an
             # unreserved slot could be evicted by the next acquire.
             req.slot = slot
@@ -916,10 +1022,19 @@ class TorchEngine(EngineBase):
             prompt = req.prompt_tokens
             reused = self.slots.reuse_prefix(slot, prompt)
             if self.paged:
-                # Blocks past the trusted rows (a diverged history) go back.
-                self._kv_blocks.truncate(slot.index, slot.kv_written)
+                # Blocks past the trusted rows (a diverged history) go
+                # back, and a shared tail block is copied before any write
+                # can land in it.
+                self._paged_sync_resident(slot)
+                reused = min(reused, slot.kv_written)
             if reused:
                 self._m_prefix.inc(reused)
+            if not reused:
+                # The radix tree's longest cached chain, unless a longer
+                # parked entry of this session should restore instead.
+                reused = self._radix_admit(req, slot, prompt)
+            if not reused:
+                reused = self._try_restore(req, slot, prompt)
             if not reused and self.shared_prefix:
                 reused = self._share_from_other_slot(slot, prompt)
             todo = prompt[reused:]
@@ -965,56 +1080,52 @@ class TorchEngine(EngineBase):
     # ---------------- shared prefix ----------------
 
     def _share_from_other_slot(self, slot: Slot, prompt: list[int]) -> int:
-        """Cross-session stamp: copy the longest prefix resident in another
-        slot onto this fresh one. Dense shares round down to the stamp
-        granule; paged shares copy every shared row (the count JAX's block
-        aliasing serves). The source's rows [0, share) are stable: its own
-        writes go to positions at or past its kept length. Returns the
-        prompt tokens now resident."""
+        """Cross-session stamp: the longest prefix resident in another slot
+        serves this fresh one. Dense: a row copy rounded down to the stamp
+        granule (JAX ``_stamp_prefix`` :2343); paged: the source's full
+        blocks are aliased and a partially shared tail block copied (JAX
+        ``_paged_alias`` :2978). The source's rows [0, share) are stable:
+        its own writes go to positions at or past its kept length. Returns
+        the prompt tokens now resident."""
         src, share = self.slots.best_shared_prefix(slot, prompt)
         if src is None:
             return 0
-        if not self.paged:
+        if self.paged:
+            share = self._paged_alias(src, slot, share)
+        else:
             share -= share % self._STAMP_GRANULE
-        if share < self._STAMP_GRANULE or not self._copy_prefix(src, slot,
-                                                                 share):
-            return 0
-        slot.tokens = list(prompt[:share])
-        slot.kv_written = share
-        self._count_shared(share)
+            if share < self._STAMP_GRANULE:
+                return 0
+            self._copy_prefix(src, slot, share)
+        if share:
+            slot.tokens = list(prompt[:share])
+            slot.kv_written = share
+            self._count_shared(share)
         return share
 
     def _count_shared(self, rows: int) -> None:
         self.prefix_tokens_shared += rows
         self._m_shared.inc(rows)
 
-    def _copy_prefix(self, src: Slot, dst: Slot, rows: int) -> bool:
-        """Copy the source slot's leading ``rows`` KV rows (and their scale
-        rows on the int8 tier) onto ``dst``; on the paged tier through the
-        two block tables into blocks of dst's own (False when the pool
-        cannot hold them). PyTorch has no executable family to bound, so
-        one slice copy serves any length (JAX decomposes the share into
-        power-of-two chunks, :2362-2379)."""
-        if self.paged:
-            if not self._kv_blocks.ensure(dst.index, rows):
-                return False
-            read = self._paged_read_indices(src.index, rows)
-            write = self._paged_read_indices(dst.index, rows)
-            for pool in self.cache:
-                if pool is not None:
-                    pool[:, write] = pool[:, read]
-            return True
+    def _copy_prefix(self, src: Slot, dst: Slot, rows: int) -> None:
+        """Copy the source slot's leading ``rows`` rows of the dense cache
+        (and their scale rows on the int8 tier) onto ``dst``. PyTorch has
+        no executable family to bound, so one slice copy serves any length
+        (JAX decomposes the share into power-of-two chunks, :2362-2379)."""
         for part in self.cache:
             if part is not None:
                 part[:, dst.index, :rows] = part[:, src.index, :rows]
-        return True
 
     def _prefill_batched_shared(self, batch: list[_Item]) -> None:
         """Intra-burst shared prefix (JAX :4421): when fresh admissions of
         one burst share a long leading prefix, prefill the longest prompt
-        first, copy the shared rows onto the others, and batch-prefill only
-        their deltas. A share that cannot shrink a member's prefill bucket
-        is skipped (two waves would be slower than one)."""
+        first, give the shared rows to the others (dense: a row copy;
+        paged: the leader's blocks aliased) and batch-prefill only their
+        deltas. A share that cannot shrink a member's prefill bucket is
+        skipped (two waves would be slower than one). The JAX engine
+        copies dense rows on the paged tier too and fails there (ROADMAP
+        Queue C); the paged members here alias as every other paged share
+        does."""
         fresh = [item for item in batch if item[2] == 0]
         members: list[tuple[_Item, int]] = []
         leader = None
@@ -1052,10 +1163,17 @@ class TorchEngine(EngineBase):
                             if b >= max(1, len(req.prompt_tokens) - share)),
                            None)
             if lreq.finished or share < self._INTRA_SHARE_MIN \
-                    or delta_b is None or share + delta_b > self.max_len \
-                    or not self._copy_prefix(lslot, slot, share):
+                    or delta_b is None or share + delta_b > self.max_len:
                 second.append((req, slot, 0, req.prompt_tokens))
                 continue
+            if self.paged:
+                if self._paged_alias(lslot, slot, share) != share:
+                    # The tail block found no free block: share nothing.
+                    self._kv_blocks.release(slot.index)
+                    second.append((req, slot, 0, req.prompt_tokens))
+                    continue
+            else:
+                self._copy_prefix(lslot, slot, share)
             slot.tokens = list(req.prompt_tokens[:share])
             slot.kv_written = share
             req.prefill_tokens = len(req.prompt_tokens) - share
@@ -1272,6 +1390,12 @@ class TorchEngine(EngineBase):
         s = slot.index
         slot.active = True
         req.slot = slot
+        if req.admitted_at is not None and req.prefill_tokens:
+            # Measured prefill throughput: the restore policy's cost model
+            # (admission to activation, the overheads a restore competes
+            # against; JAX :4665-4677).
+            self._kv_policy.note_prefill(
+                req.prefill_tokens, time.monotonic() - req.admitted_at)
         self._running[s] = req
         self._positions[s] = len(slot.tokens)
         self._active_mask[s] = True
@@ -1609,10 +1733,17 @@ class TorchEngine(EngineBase):
                 # in-flight calls' late writes into those blocks are ahead
                 # of any new owner's writes on the stream.
                 self._kv_blocks.truncate(slot.index, slot.kv_written)
+                # The finished turn's full blocks below kv_written go to
+                # the radix tree now, before a deferred release drops the
+                # table. Late writes of the calls in flight land at or
+                # past kv_written (the host mirror lags the device), so
+                # none reaches a donated block (JAX :5258-5271).
+                self._radix_insert_slot(slot)
             sid = slot.session_id
             if sid is not None and sid in self._release_after:
                 self._release_after.discard(sid)
                 self.slots.release_session(sid)
+                self._kv_pool.purge(sid)
         self._by_id.pop(req.request_id, None)
 
         if not suppress_flush and req.detok is not None \
@@ -1860,9 +1991,252 @@ class TorchEngine(EngineBase):
 
     def _on_slot_unpin(self, slot: Slot) -> None:
         """SlotManager hook: a session leaving its slot (eviction or
-        release) drops its whole block table."""
+        release) drops its whole block table; aliased blocks live on
+        through their other referents. With the radix cache on, the
+        session's clean prefix blocks are donated to the tree first."""
         if self.paged:
+            self._radix_insert_slot(slot)
             self._kv_blocks.release(slot.index)
+
+    def _paged_copy_block(self, src_blk: int, dst_blk: int) -> None:
+        """Copy one block's rows of every layer (and their scale rows on
+        the int8 tier) to another block: the copy-on-write primitive (JAX
+        ``kv_block_copy`` :2898-2953), a tensor copy on the stream."""
+        bs = self.kv_block_size
+        src = slice(src_blk * bs, (src_blk + 1) * bs)
+        dst = slice(dst_blk * bs, (dst_blk + 1) * bs)
+        for pool in self.cache:
+            if pool is not None:
+                pool[:, dst] = pool[:, src]
+
+    def _paged_sync_resident(self, slot: Slot) -> None:
+        """Reconcile the slot's table with its (possibly just truncated)
+        trusted rows: drop blocks past kv_written, and copy the tail block
+        on write when it is shared and the next write would land inside it
+        (JAX :2955-2976). With the pool empty the slot falls back to the
+        block boundary and the dropped tail rows prefill again."""
+        alloc = self._kv_blocks
+        kvw = slot.kv_written
+        alloc.truncate(slot.index, kvw)
+        tail = kvw % self.kv_block_size
+        if tail and alloc.tail_shared(slot.index):
+            pair = alloc.cow_tail(slot.index)
+            if pair is None:
+                aligned = kvw - tail
+                slot.tokens = slot.tokens[:aligned]
+                slot.kv_written = aligned
+                alloc.truncate(slot.index, aligned)
+                return
+            self._paged_copy_block(*pair)
+
+    def _paged_alias(self, src: Slot, slot: Slot, share: int) -> int:
+        """The paged shared-prefix stamp: alias the source's full blocks
+        into this fresh slot's table (refcounts, no row copy) and copy the
+        partially shared tail block (JAX :2978-2998). Returns the prompt
+        tokens now resident."""
+        if share < self._STAMP_GRANULE:
+            return 0
+        bs = self.kv_block_size
+        alloc = self._kv_blocks
+        full, tail = divmod(share, bs)
+        n = alloc.alias(src.index, slot.index, full) if full else 0
+        reused = n * bs
+        if n == full and tail:
+            blk = alloc.append_block(slot.index)
+            if blk is not None:
+                self._paged_copy_block(alloc.table(src.index)[full], blk)
+                alloc.cow_copies += 1
+                reused += tail
+        return reused
+
+    # ---------------- radix prefix cache ----------------
+    # (kvcache/radix.py; JAX engine.py :3003-3068. Engine thread only.)
+
+    def _radix_insert_slot(self, slot: Slot) -> int:
+        """Donate a slot's fully written prefix blocks to the radix tree
+        (allocator holds on the blocks it did not cache yet)."""
+        tree = self._kv_radix
+        if tree is None or slot.session_id is None:
+            return 0
+        kept = min(slot.kv_written, len(slot.tokens))
+        if kept < self.kv_block_size:
+            return 0
+        return tree.insert(slot.tokens, self._kv_blocks.table(slot.index),
+                           written=kept)
+
+    def _radix_admit(self, req: _Request, slot: Slot,
+                     prompt: list[int]) -> int:
+        """Alias the longest radix-cached block chain into this fresh
+        slot; the delta prefills from a block boundary. On a short match
+        another slot's longer resident prefix seeds the tree first. A
+        longer parked host entry of this session wins (0 returned, the
+        restore runs next). Returns the prompt tokens now resident."""
+        tree = self._kv_radix
+        if tree is None:
+            return 0
+        bs = self.kv_block_size
+        # At least one prompt token must run through the model.
+        max_blocks = (len(prompt) - 1) // bs
+        if max_blocks <= 0:
+            return 0
+        blocks, _digest = tree.match(prompt, max_blocks=max_blocks)
+        matched = len(blocks) * bs
+        if self.shared_prefix and matched < max_blocks * bs:
+            src, share = self.slots.best_shared_prefix(slot, prompt)
+            if src is not None \
+                    and min(share, src.kv_written) // bs * bs > matched:
+                self._radix_insert_slot(src)
+                blocks, _digest = tree.match(prompt, max_blocks=max_blocks,
+                                             count=False)
+                matched = len(blocks) * bs
+        if matched < bs:
+            return 0
+        if self._kv_pool.enabled:
+            entry = self._kv_pool.get(req.session_id)
+            if entry is not None:
+                hm = _lcp(entry.tokens, prompt,
+                          min(entry.kept, len(prompt) - 1))
+                if hm > matched and self._kv_policy.should_restore(
+                        hm, entry.nbytes):
+                    return 0
+        self._kv_blocks.alias_blocks(slot.index, blocks)
+        slot.tokens = list(prompt[:matched])
+        slot.kv_written = matched
+        tree.note_hit(matched)
+        self._count_shared(matched)
+        return matched
+
+    # ---------------- host KV offload ----------------
+    # (kvcache/offload.py; JAX engine.py :2477-2721. Engine thread only,
+    # but _kv_wait_discount.)
+
+    def _park_on_evict(self, victim: Slot) -> None:
+        """SlotManager eviction hook (inside ``acquire``): snapshot the
+        victim's kept rows before the slot is cleared for its new session.
+        The snapshot is enqueued on the stream here, before anything of the
+        new occupant; the host copy runs on the offload thread."""
+        if not self._kv_pool.enabled:
+            return
+        kept = min(victim.kv_written, len(victim.tokens))
+        if kept < self._kv_policy.min_tokens:
+            return
+        if self._kv_pool.parked_len(victim.session_id) >= kept \
+                or self._kv_offload.parking(victim.session_id):
+            return  # an up-to-date snapshot is parked or in flight
+        self._park_slot(victim, kept)
+
+    def _park_slot(self, slot: Slot, kept: int) -> None:
+        """Snapshot ``kept`` rows of the slot on the device and hand them
+        to the offload thread. Dense: the JAX bucket of rows; paged: the
+        slot's whole blocks covering ``kept`` (exact per-block bytes)."""
+        t0 = time.monotonic()
+        bucket = kv_bucket(kept, self.max_len)
+        if self.paged:
+            bucket = max(bucket, self.kv_block_size)
+            rows = paged_kv_slice(self.cache, self._paged_read_indices(
+                slot.index, blocks_for(kept, self.kv_block_size)
+                * self.kv_block_size))
+        else:
+            rows = kv_slice(self.cache, slot.index, bucket)
+        self._kv_offload.park(slot.session_id, list(slot.tokens[:kept]),
+                              kept, bucket, rows, t0)
+
+    def _try_restore(self, req: _Request, slot: Slot,
+                     prompt: list[int]) -> int:
+        """Restore a returning session's kept prefix from the host pool
+        into its fresh slot (JAX :2546-2677). Returns the leading prompt
+        tokens now resident (0: no entry, or the policy chose prefill). A
+        failed restore purges the entry, empties the slot's table again
+        and falls back to a full prefill."""
+        if not self._kv_pool.enabled:
+            return 0
+        entry = self._kv_pool.get(req.session_id)
+        if entry is None:
+            self._kv_pool.note_lookup(False)
+            return 0
+        # Only the matched prefix is trusted, and one prompt token at least
+        # must run through the model.
+        match = _lcp(entry.tokens, prompt, min(entry.kept, len(prompt) - 1))
+        if not self._kv_policy.should_restore(match, entry.nbytes) \
+                or (self.kv_quant and entry.k_scale is None):
+            self._kv_pool.note_lookup(False)
+            return 0  # the entry stays parked for a later, longer match
+        if self.paged and not self._kv_blocks.ensure(slot.index, match):
+            self._kv_pool.note_lookup(False)
+            return 0
+        t0 = time.monotonic()
+        prestaged = entry.k_dev is not None
+        try:
+            if _fp.enabled:
+                _fp.fire("kv.restore.dispatch", request_id=req.request_id,
+                         session_id=req.session_id)
+            rows = upload(entry, self.device)
+            if self.paged:
+                # Only the rows of the blocks ensure() gave the slot.
+                n = blocks_for(match, self.kv_block_size) * self.kv_block_size
+                paged_kv_restore(self.cache, rows,
+                                 self._paged_read_indices(slot.index, n))
+            else:
+                kv_restore(self.cache, rows, slot.index)
+        except Exception as e:
+            log.error(f"kv restore failed for {req.session_id}: {e}; "
+                      "falling back to full prefill")
+            self.kv_restore_failed += 1
+            if self.paged:
+                # The slot's table must be empty again before a
+                # shared-prefix alias, which requires a fresh table.
+                self._kv_blocks.truncate(slot.index, slot.kv_written)
+            self._kv_pool.purge(req.session_id)
+            self._kv_pool.note_lookup(False)
+            return 0
+        slot.tokens = list(entry.tokens[:match])
+        slot.kv_written = match
+        # Consumed: the rows are on the device again; a later eviction
+        # parks the longer history.
+        self._kv_pool.take(req.session_id)
+        self._kv_pool.note_lookup(True)
+        self._kv_offload.note_restore(time.monotonic() - t0)
+        log.debug(f"restored {match} rows of {req.session_id} "
+                  f"({entry.nbytes} bytes, prestaged={prestaged})")
+        return match
+
+    def _kv_wait_discount(self, session_id: str,
+                          prompt: list[int]) -> float:
+        """Seconds a restore would save this request (asyncio side; the
+        entry's token list is immutable, so the LCP runs outside the pool
+        lock)."""
+        if not self._kv_pool.enabled:
+            return 0.0
+        entry = self._kv_pool.get(session_id)
+        if entry is None:
+            return 0.0
+        match = _lcp(entry.tokens, prompt, min(entry.kept, len(prompt) - 1))
+        return self._kv_policy.restore_saving_s(match, entry.nbytes)
+
+    def _kv_tick(self) -> None:
+        """Once a second: the pool's TTL sweep, and a park of every
+        pinned session idle past KV_PARK_IDLE_S (the slot stays pinned;
+        the host copy makes a later eviction free)."""
+        if not self._kv_pool.enabled:
+            return
+        now = time.monotonic()
+        if now - self._kv_last_tick < 1.0:
+            return
+        self._kv_last_tick = now
+        self._kv_pool.sweep(now)
+        if self._kv_park_idle_s <= 0:
+            return
+        for slot in self.slots.slots:
+            if slot.session_id is None or slot.active:
+                continue
+            kept = min(slot.kv_written, len(slot.tokens))
+            if kept < self._kv_policy.min_tokens \
+                    or now - slot.last_used < self._kv_park_idle_s:
+                continue
+            if self._kv_pool.parked_len(slot.session_id) >= kept \
+                    or self._kv_offload.parking(slot.session_id):
+                continue
+            self._park_slot(slot, kept)
 
     def _paged_table(self, nb: int, slots: list[int]) -> torch.Tensor:
         """[len(slots), nb] int32 block table on the device. Unallocated
@@ -1907,7 +2281,12 @@ class TorchEngine(EngineBase):
                           + self._paged_reserve_tokens(req))
         need = blocks_for(need_tokens, bs) \
             - self._kv_blocks.slot_blocks(slot.index)
-        if need <= self._kv_blocks.available():
+        avail = self._kv_blocks.available()
+        if self._kv_radix is not None:
+            # Blocks only the tree holds are reclaimed on demand (the
+            # allocator's pressure callback), so they count as free.
+            avail += self._kv_radix.evictable_blocks()
+        if need <= avail:
             return True
         self._paged_exhausted_finish(
             req, f"KV block pool exhausted: prompt needs {need} more "
@@ -1927,8 +2306,13 @@ class TorchEngine(EngineBase):
         hold this prompt now, a running generation must finish first."""
         if not self.paged:
             return 0.0
-        if blocks_for(prompt_len, self.kv_block_size) \
-                <= self._kv_blocks.available():
+        avail = self._kv_blocks.available()
+        if self._kv_radix is not None:
+            try:
+                avail += self._kv_radix.evictable_blocks()
+            except RuntimeError:
+                pass  # the engine thread changed the tree mid-walk
+        if blocks_for(prompt_len, self.kv_block_size) <= avail:
             return 0.0
         return self._paged_retry_after()
 
@@ -1963,4 +2347,5 @@ class TorchEngine(EngineBase):
                         "to free blocks")
             if slot is not None and slot.session_id is not None:
                 self.slots.release_session(slot.session_id)
+                self._kv_pool.purge(slot.session_id)
         return False

@@ -211,6 +211,8 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
              + (f" (group {group})" if tier == "int4" else "") + ", "
              f"kv_layout={cfg.kv_layout}, kv_quant={cfg.kv_quant}, "
              f"spec_decode={cfg.spec_decode}, "
+             f"kv_radix={cfg.kv_radix_enabled}, "
+             f"kv_host_budget_mb={cfg.kv_host_budget_mb}, "
              f"kv_cache={acct['kv_cache_bytes'] / 2**30:.3f} GiB")
     return TorchEngine(
         model_cfg, params, tokenizer, device=dev,
@@ -232,6 +234,13 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         kv_pool_blocks=acct["kv_pool_blocks"],
         kv_reserve_policy=cfg.kv_reserve_policy,
         kv_reserve_tokens=cfg.kv_reserve_tokens,
+        kv_host_budget_mb=cfg.kv_host_budget_mb,
+        kv_park_ttl_s=cfg.kv_park_ttl_s,
+        kv_park_idle_s=cfg.kv_park_idle_s,
+        kv_restore_min_tokens=cfg.kv_restore_min_tokens,
+        kv_radix=cfg.kv_radix_enabled,
+        kv_radix_min_blocks=cfg.kv_radix_min_blocks,
+        kv_radix_evict_policy=cfg.kv_radix_evict_policy,
         structured=cfg.structured_mode,
         structured_max_states=cfg.structured_max_states,
         structured_state_budget=cfg.structured_state_budget,

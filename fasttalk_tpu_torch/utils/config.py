@@ -26,10 +26,13 @@ Structured decoding reads ``STRUCTURED_MODE`` (auto|on|off),
 under the same names, defaults and messages (``fasttalk_tpu/utils/
 config.py`` :613-649, :1161-1181); the port has no mesh, so ``on`` has
 nothing to reject.
-Features of the JAX package that the port does not carry yet (host KV
-offload, the radix cache, a device mesh) are rejected
-with a named error when their variable asks for them; they are never
-silently ignored.
+The session host-offload tier (``KV_HOST_BUDGET_MB``, ``KV_PARK_TTL_S``,
+``KV_PARK_IDLE_S``, ``KV_RESTORE_MIN_TOKENS``) and the radix prefix cache
+(``KV_RADIX_ENABLED``, ``KV_RADIX_MIN_BLOCKS``, ``KV_RADIX_EVICT_POLICY``)
+resolve and fail as in ``fasttalk_tpu/utils/config.py`` :519-534,
+:599-611, :1073-1082, :1144-1160, :1200-1214.
+A device mesh, which the port does not carry yet, is rejected with a named
+error when its variable asks for it; it is never silently ignored.
 
 The device is not configuration: it is an argument of the entry points
 (``resolve_device``), ``cuda`` unless the caller asks for the CPU.
@@ -222,6 +225,35 @@ class Config:
         default_factory=lambda: _env_str("KV_RESERVE_POLICY", "fixed"))
     kv_reserve_tokens: int = field(
         default_factory=lambda: _env_int("KV_RESERVE_TOKENS", 128))
+    # ---- Session KV host-offload tier (kvcache/) ----
+    # Host-RAM budget for parked session KV (MB); 0 disables the tier (an
+    # evicted session re-prefills its history). Above the machine's RAM a
+    # warning is logged.
+    kv_host_budget_mb: float = field(
+        default_factory=lambda: _env_float("KV_HOST_BUDGET_MB", 0.0))
+    # Parked entries idle past this are dropped.
+    kv_park_ttl_s: float = field(
+        default_factory=lambda: _env_float("KV_PARK_TTL_S", 600.0))
+    # A pinned session idle this long is parked as well (its slot stays
+    # pinned); 0 parks on eviction only.
+    kv_park_idle_s: float = field(
+        default_factory=lambda: _env_float("KV_PARK_IDLE_S", 30.0))
+    # Matched prefix below which a restore is never worth its copy.
+    kv_restore_min_tokens: int = field(
+        default_factory=lambda: _env_int("KV_RESTORE_MIN_TOKENS", 32))
+    # ---- Radix prefix cache (kvcache/radix.py; KV_LAYOUT=paged) ----
+    # Finished and departing sessions donate their clean prefix blocks to
+    # a radix tree; an admission aliases the longest cached chain and
+    # prefills only the delta.
+    kv_radix_enabled: bool = field(
+        default_factory=lambda: _env_bool("KV_RADIX_ENABLED", False))
+    # Free-block headroom the tree keeps after an insert (0 = rely on
+    # eviction under pressure alone); below KV_POOL_BLOCKS when that is set.
+    kv_radix_min_blocks: int = field(
+        default_factory=lambda: _env_int("KV_RADIX_MIN_BLOCKS", 0))
+    # "lru" (least recently matched leaves first) or "fifo".
+    kv_radix_evict_policy: str = field(
+        default_factory=lambda: _env_str("KV_RADIX_EVICT_POLICY", "lru"))
     # ---- Structured decoding (structured/) ----
     # "auto" (default): constrained requests are served whenever the engine
     # supports them, else rejected with a named reason; "on": an
@@ -263,12 +295,6 @@ class Config:
             self.quantize = {"off": "none"}.get(self.weight_quant,
                                                 self.weight_quant)
         errs: list[str] = []
-        if _env_float("KV_HOST_BUDGET_MB", 0.0) > 0:
-            errs.append("KV_HOST_BUDGET_MB>0 asks for the host KV-offload "
-                        "tier: not implemented yet in fasttalk_tpu_torch")
-        if _env_bool("KV_RADIX_ENABLED", False):
-            errs.append("KV_RADIX_ENABLED=true asks for the radix prefix "
-                        "cache: not implemented yet in fasttalk_tpu_torch")
         for name in ("TPU_TP_SIZE", "TPU_DP_SIZE", "TPU_SP_SIZE"):
             if _env_int(name, 1) != 1:
                 errs.append(f"{name}>1 asks for a device mesh: not "
@@ -381,6 +407,33 @@ class Config:
                 and self.kv_block_size > self.max_model_len:
             errs.append(f"kv_block_size ({self.kv_block_size}) must not "
                         f"exceed max_model_len ({self.max_model_len})")
+        if self.kv_host_budget_mb < 0:
+            errs.append("kv_host_budget_mb must be >= 0 (0 disables "
+                        "the host-offload tier)")
+        if self.kv_park_ttl_s <= 0:
+            errs.append("kv_park_ttl_s must be > 0")
+        if self.kv_park_idle_s < 0:
+            errs.append("kv_park_idle_s must be >= 0 (0 disables "
+                        "idle parking)")
+        if self.kv_restore_min_tokens < 1:
+            errs.append("kv_restore_min_tokens must be >= 1")
+        if self.kv_radix_enabled and self.kv_layout != "paged":
+            errs.append(
+                "KV_RADIX_ENABLED=true requires KV_LAYOUT=paged (the "
+                "radix prefix cache holds device pool blocks; the "
+                "dense layout has no block pool to cache into)")
+        if self.kv_radix_min_blocks < 0:
+            errs.append("kv_radix_min_blocks must be >= 0")
+        elif self.kv_radix_enabled and self.kv_pool_blocks \
+                and self.kv_radix_min_blocks >= self.kv_pool_blocks:
+            errs.append(
+                f"kv_radix_min_blocks ({self.kv_radix_min_blocks}) "
+                f"must be < kv_pool_blocks ({self.kv_pool_blocks}) — "
+                "a headroom floor covering the whole pool leaves the "
+                "cache nothing to hold")
+        if self.kv_radix_evict_policy not in ("lru", "fifo"):
+            errs.append(f"kv_radix_evict_policy must be lru|fifo, "
+                        f"got {self.kv_radix_evict_policy!r}")
         if self.structured_mode not in ("auto", "on", "off"):
             errs.append(f"structured_mode must be auto|on|off, "
                         f"got {self.structured_mode!r}")
@@ -404,6 +457,23 @@ class Config:
                         f"got {self.structured_json_depth}")
         if errs:
             raise ValueError("Invalid configuration:\n  " + "\n  ".join(errs))
+        if self.kv_host_budget_mb > 0:
+            # Warn (do not fail) when the budget exceeds the host's RAM: the
+            # pool would page or be killed long before it fills.
+            try:
+                import psutil
+
+                total_mb = psutil.virtual_memory().total / (1024 * 1024)
+                if self.kv_host_budget_mb > total_mb:
+                    import logging
+
+                    logging.getLogger("fasttalk.config").warning(
+                        "KV_HOST_BUDGET_MB=%.0f exceeds detectable "
+                        "host RAM (%.0f MB); the pool will hit swap "
+                        "or the OOM killer before its budget",
+                        self.kv_host_budget_mb, total_mb)
+            except Exception:
+                pass
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -459,9 +459,6 @@ def _default_device_engine():
 
 
 @pytest.mark.parametrize("env", [
-    {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true"},
-    {"KV_HOST_BUDGET_MB": "64"},
-    {"KV_RADIX_ENABLED": "true"},
     {"TPU_TP_SIZE": "2"}, {"WEIGHT_QUANT": "int4", "TPU_TP_SIZE": "2"}])
 def test_config_rejects_features_outside_the_slice(monkeypatch, env):
     from fasttalk_tpu_torch.utils.config import Config
@@ -477,11 +474,17 @@ def test_config_rejects_features_outside_the_slice(monkeypatch, env):
     {"KV_QUANT": "int8"},
     {"TPU_SPEC_DECODE": "eagle"}, {"TPU_SPEC_DRAFT": "0"},
     {"SCHED_DEFAULT_PRIORITY": "vip"}, {"TPU_SAMPLING": "topk"},
-    {"STRUCTURED_MODE": "maybe"}])
+    {"STRUCTURED_MODE": "maybe"},
+    {"KV_RADIX_ENABLED": "true"}, {"KV_RADIX_EVICT_POLICY": "mru"},
+    {"KV_HOST_BUDGET_MB": "-1"},
+    {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true",
+     "KV_POOL_BLOCKS": "64", "KV_RADIX_MIN_BLOCKS": "64"}])
 def test_config_rejects_bad_engine_settings_as_jax_does(monkeypatch, env):
     """Speculative decoding with int8 KV (also by the auto default), a bad
     TPU_SPEC_DECODE, TPU_SPEC_DRAFT=0, a bad SCHED_DEFAULT_PRIORITY, a bad
-    TPU_SAMPLING and a bad STRUCTURED_MODE fail at startup with the JAX
+    TPU_SAMPLING, a bad STRUCTURED_MODE, the radix cache without the paged
+    layout, a bad KV_RADIX_EVICT_POLICY, a negative KV_HOST_BUDGET_MB and a
+    radix headroom covering the whole pool fail at startup with the JAX
     Config's own messages."""
     from fasttalk_tpu.utils.config import Config as JaxConfig
     from fasttalk_tpu_torch.utils.config import Config
@@ -497,6 +500,40 @@ def test_config_rejects_bad_engine_settings_as_jax_does(monkeypatch, env):
         (want, str(port_err.value))
 
 
+KV_HIERARCHY = ("kv_host_budget_mb", "kv_park_ttl_s", "kv_park_idle_s",
+                "kv_restore_min_tokens", "kv_radix_enabled",
+                "kv_radix_min_blocks", "kv_radix_evict_policy")
+
+
+@pytest.mark.parametrize("env", [
+    {"KV_LAYOUT": "paged", "KV_RADIX_ENABLED": "true"},
+    {"KV_HOST_BUDGET_MB": "64", "KV_PARK_TTL_S": "30", "KV_PARK_IDLE_S": "0",
+     "KV_RESTORE_MIN_TOKENS": "16"}])
+def test_config_accepts_the_kv_hierarchy_as_jax_does(monkeypatch, env):
+    """The radix cache on the paged pool and the host-offload tier are
+    accepted, and their seven settings resolve to the JAX Config's values;
+    build_engine passes them to the engine."""
+    from fasttalk_tpu.utils.config import Config as JaxConfig
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.utils.config import Config
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    port, ref = Config(), JaxConfig(llm_provider="tpu")
+    assert {f: getattr(port, f) for f in KV_HIERARCHY} == \
+        {f: getattr(ref, f) for f in KV_HIERARCHY}
+    port.model_name, port.model_path = "test-tiny", ""
+    port.max_model_len = port.default_context_window = 512
+    port.decode_slots = 2
+    eng = build_engine(port, device="cpu")
+    try:
+        assert (eng._kv_radix is not None) == port.kv_radix_enabled
+        assert eng._kv_pool.enabled == (port.kv_host_budget_mb > 0)
+        assert eng._kv_policy.min_tokens == port.kv_restore_min_tokens
+    finally:
+        eng.shutdown()
+
+
 def test_config_has_the_jax_serving_defaults():
     """With no environment, the settings of the JAX engine's serving path
     (sampling, shared prefix, speculative decoding, the scheduler) have the
@@ -507,7 +544,7 @@ def test_config_has_the_jax_serving_defaults():
     fields = ("sampling", "shared_prefix", "spec_decode", "spec_draft_len",
               "spec_breakeven", "sched_queue_bound",
               "sched_default_deadline_s", "sched_default_priority",
-              "sched_bulk_aging_s", "sched_drain_timeout_s")
+              "sched_bulk_aging_s", "sched_drain_timeout_s") + KV_HIERARCHY
     port, ref = Config(), JaxConfig(llm_provider="tpu")
     assert {f: getattr(port, f) for f in fields} == \
         {f: getattr(ref, f) for f in fields}

@@ -2,16 +2,18 @@
 CPU, mirroring tests/test_shared_prefix.py.
 
 A fresh session whose prompt starts with rows resident in another slot
-gets them by a copy instead of a prefill (dense: rounded down to the
-16-token granule, the JAX engine's count; paged: through the two block
-tables into the new slot's own blocks); a burst of fresh sessions with one
-long system prompt prefills its longest prompt first and copies the shared
-rows to the others. The bar is JAX's: greedy streams identical to an
-engine without sharing, the copy safe while the source decodes, divergent
-prompts never share, a share that cannot shrink the prefill bucket is
-skipped; the port's shared-token count equals the JAX engine's on the same
-prompts. A burst of 4 fresh requests prefills in one batched call, with the
-streams of one-at-a-time requests.
+gets them without a prefill (dense: a row copy rounded down to the 16-token
+granule, the JAX engine's count; paged: the source's full blocks aliased,
+a partially shared tail block copied); a burst of fresh sessions with one
+long system prompt prefills its longest prompt first and gives the shared
+rows to the others (on the paged pool by aliasing, where the JAX engine's
+dense stamp fails). On a tight pool the aliased sessions fit where copies
+would shed, as in the JAX engine. The bar is JAX's: greedy streams
+identical to an engine without sharing, the copy safe while the source
+decodes, divergent prompts never share, a share that cannot shrink the
+prefill bucket is skipped; the port's shared-token count equals the JAX
+engine's on the same prompts. A burst of 4 fresh requests prefills in one
+batched call, with the streams of one-at-a-time requests.
 """
 
 import asyncio
@@ -107,8 +109,8 @@ def _jax_shared_count(prompts) -> float:
 @pytest.mark.parametrize("layout", ["dense", "paged"])
 def test_shared_prefix_stream_identical_and_counted(layout):
     """Session b's system prompt comes from session a's slot (dense: a
-    slice copy; paged: a row copy through the block tables), its stream
-    is a cold engine's, and the shared count is the JAX engine's."""
+    slice copy; paged: a's blocks aliased), its stream is a cold engine's,
+    and the shared count is the JAX engine's."""
     params = _params(3)
     kw = dict(kv_layout="paged", kv_pool_blocks=128) \
         if layout == "paged" else {}
@@ -183,8 +185,9 @@ def _burst(params, shared, n=4, system=SYSTEM * 3, **kw):
 @pytest.mark.parametrize("layout", ["dense", "paged"])
 def test_intra_batch_burst_shares_leader_prefix(layout):
     """A cold burst of 4 sessions with one long system prompt: the leader
-    prefills, the others get the shared rows by copy and batch-prefill
-    only their deltas; streams identical to a no-sharing engine."""
+    prefills, the others get the shared rows (a copy, or the leader's
+    blocks aliased) and batch-prefill only their deltas; streams identical
+    to a no-sharing engine."""
     params = _params(6)
     kw = dict(kv_layout="paged", kv_pool_blocks=512) \
         if layout == "paged" else {}
@@ -286,3 +289,138 @@ def test_burst_of_four_prefills_in_one_batched_call():
     assert together == alone
     assert (stats["batched_prefill_calls"], stats["batched_prefill_rows"]) \
         == (1, 4)
+
+
+# ---------------------------------------------------------------------
+# The paged tier aliases shared blocks (JAX _paged_alias :2978)
+# ---------------------------------------------------------------------
+
+def _jax_tiny(**kw):
+    from fasttalk_tpu.engine.engine import TPUEngine
+    from fasttalk_tpu.engine.tokenizer import ByteTokenizer as JaxBytes
+    from fasttalk_tpu.models.configs import get_model_config as jax_cfg
+    from fasttalk_tpu.models.llama import init_params as jax_init
+
+    cfg = jax_cfg("test-tiny")
+    eng = TPUEngine(cfg, jax_init(cfg, jax.random.PRNGKey(3)), JaxBytes(),
+                    seed=0, kv_host_budget_mb=0.0, kv_park_idle_s=0.0, **kw)
+    eng.start()
+    return eng
+
+
+def _sequential_pinned(eng, params_cls, n=4):
+    """n sessions one after another with SYSTEM * 3, all left pinned:
+    each terminal event and the pool's stats after the last."""
+    async def run():
+        ends = []
+        for i in range(n):
+            async for ev in eng.generate(
+                    f"r{i}", f"s{i}", [{"role": "system",
+                                        "content": SYSTEM * 3},
+                                       {"role": "user",
+                                        "content": f"question {i}"}],
+                    params_cls(max_tokens=8, ignore_eos=True, **GREEDY)):
+                if ev["type"] != "token":
+                    ends.append((ev["type"], ev.get("code")))
+        return ends
+    ends = asyncio.run(asyncio.wait_for(run(), 120))
+    st = eng.get_stats()["kv_blocks"]
+    return ends, {k: st.get(k) for k in ("in_use", "aliased", "alias_events",
+                                         "cow_copies", "tables")}
+
+
+def test_tight_pool_admits_every_sharing_session_as_jax_does():
+    """48 blocks of 16 rows for 4 pinned sessions that share a ~390-token
+    system prompt: aliased once, the prompt and the four deltas fit, so
+    the JAX engine admits all four; copying the prompt per session (the
+    port before aliasing) ran out of blocks and shed with
+    kv_blocks_exhausted. Both engines admit, with equal pool stats."""
+    from fasttalk_tpu.engine.engine import GenerationParams as JaxParams
+
+    kw = dict(num_slots=4, max_len=1024, prefill_chunk=512,
+              kv_layout="paged", kv_pool_blocks=48, kv_reserve_policy="none")
+    jeng = _jax_tiny(**kw)
+    try:
+        want = _sequential_pinned(jeng, JaxParams)
+    finally:
+        jeng.shutdown()
+    eng = _engine(_params(3), **kw)
+    try:
+        got = _sequential_pinned(eng, GenerationParams)
+        eng._kv_blocks.check_leaks()
+    finally:
+        eng.shutdown()
+    assert want[0] == [("done", None)] * 4
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert got[1]["aliased"] > 0
+
+
+def test_paged_cold_burst_aliases_where_the_jax_engine_fails():
+    """A cold burst of 4 fresh sessions with one long system prompt on the
+    paged pool. The JAX engine stamps the leader's rows with its dense
+    ``_stamp_prefix`` into the 4-D pool and ends every request
+    ``internal_error`` (ROADMAP Queue C: the reference deviates). The port's
+    members alias the leader's full blocks: the streams equal an engine
+    without sharing, and the pool holds fewer blocks than that engine's."""
+    from fasttalk_tpu.engine.engine import GenerationParams as JaxParams
+
+    kw = dict(num_slots=4, max_len=1024, prefill_chunk=512,
+              kv_layout="paged", kv_pool_blocks=512)
+    jeng = _jax_tiny(shared_prefix=True, **kw)
+    admit = jeng._admit
+    jeng._admit = lambda: len(jeng._sched) >= 4 and admit()
+
+    async def jax_burst():
+        async def one(i):
+            ends = []
+            async for ev in jeng.generate(
+                    f"r{i}", f"s-r{i}", [{"role": "system",
+                                          "content": SYSTEM * 3},
+                                         {"role": "user",
+                                          "content": f"question {i}"}],
+                    JaxParams(max_tokens=16, **GREEDY)):
+                if ev["type"] != "token":
+                    ends.append((ev["type"], ev.get("code")))
+            return ends
+        return await asyncio.gather(*(one(i) for i in range(4)))
+    try:
+        ends = asyncio.run(asyncio.wait_for(jax_burst(), 120))
+    finally:
+        jeng.shutdown()
+    assert ends == [[("error", "internal_error")]] * 4
+
+    params = _params(6)
+    runs = {}
+    for shared in (False, True):
+        eng = _engine(params, shared=shared, max_len=1024, prefill_chunk=512,
+                      kv_layout="paged", kv_pool_blocks=512)
+        seen: dict = {}
+        consume = eng._consume_token
+
+        def rec(req, tok, seen=seen, consume=consume):
+            seen.setdefault(req.request_id, []).append(tok)
+            consume(req, tok)
+        eng._consume_token = rec
+        admit = eng._admit
+        eng._admit = lambda eng=eng, admit=admit: (len(eng._sched) >= 4
+                                                   and admit())
+
+        async def run(eng=eng):
+            return await asyncio.gather(*(_stream(
+                eng, f"r{i}", [{"role": "system", "content": SYSTEM * 3},
+                               {"role": "user", "content": f"question {i}"}],
+                16) for i in range(4)))
+        try:
+            texts = asyncio.run(asyncio.wait_for(run(), 120))
+            runs[shared] = (seen, texts, eng.get_stats())
+            eng._kv_blocks.check_leaks()
+        finally:
+            eng.shutdown()
+    assert runs[True][:2] == runs[False][:2]
+    stats, plain = runs[True][2], runs[False][2]
+    assert stats["prefix_tokens_shared"] >= 3 * 64
+    assert stats["kv_blocks"]["alias_events"] > 0
+    assert stats["kv_blocks"]["aliased"] > 0
+    assert stats["kv_blocks"]["in_use"] < plain["kv_blocks"]["in_use"]
+    assert stats["kv_blocks"]["tables"] == plain["kv_blocks"]["tables"]
