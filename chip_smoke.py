@@ -82,9 +82,21 @@ no result line):
    16 parks and one restore; against the same traffic with the pool off;
    one restore is timed with CUDA events; (d) (c) briefly on the paged int8
    pool. No park or restore may fail in phase 11, and the kernels of each
-   part must have launched.
+   part must have launched;
+12. the observability stack (``phase12``): phase 5's configuration served
+   through ``serve``, the monitoring app on its own port, 16 sessions x 64
+   tokens bracketed by ``/profiler/start`` and ``/profiler/stop``; every
+   route of the monitoring app must answer, ``/perf``'s programs must
+   ``fsum`` to ``device_busy_s`` within its window with every served kind
+   busy and ``mfu`` and ``hbm.bw_util`` set, the watchdog must see no
+   stall, and a ``/debug/bundle`` must hold ``cuda_trace/``. The union of
+   kernel time in the profiler's trace is logged beside ``/perf``'s
+   ``device_busy_s``, and host ms a decode step and decode tok/s with the
+   stack on and off (``PROF_ENABLED=false``, tracer off). Flight bundles and
+   profiler traces go under ``build/`` (``FLIGHT_DIR``,
+   ``PROFILER_TRACE_DIR``).
 
-In phases 5-11 the kernels' launch counts are zeroed just before the
+In phases 5-12 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
 launched. Each served phase logs decode tok/s, TTFT p50/p99 from the
 ``done`` frames, batched prefill calls, shared-prefix tokens and decode
@@ -96,6 +108,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import os
@@ -137,14 +150,22 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn(i)`` over ``iters`` calls: the calls are
     captured into one CUDA graph and the replay is timed with CUDA events,
     so the host's launch cost (eager PyTorch and ctypes) does not enter the
-    figure."""
+    figure. The served phases time steps while their server still runs its
+    host sampler thread: the garbage collector stays off during the capture
+    (a collection on another thread that frees a captured tensor or an
+    event ends the capture), and only this thread's calls are checked."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(i)
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for i in range(iters):
+                fn(i)
+    finally:
+        gc.enable()
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), \
@@ -1666,6 +1687,277 @@ def phase11(counters: dict) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------------------ phase 12: observability
+
+# Every route of the monitoring app (fasttalk_tpu_torch/monitoring/monitor.py,
+# the JAX app's :503-521). POST /debug/fault answers 403, as the JAX app does
+# with FAULT_HTTP off; every other route must answer 200.
+MONITOR_ROUTES = (
+    ("GET", "/health"), ("GET", "/health/ready"), ("GET", "/health/live"),
+    ("GET", "/slo"), ("GET", "/perf"), ("POST", "/debug/bundle"),
+    ("GET", "/debug/profile"), ("GET", "/debug/fault"),
+    ("POST", "/debug/fault"), ("GET", "/events"), ("GET", "/metrics"),
+    ("GET", "/metrics.json"), ("GET", "/info"), ("POST", "/profiler/start"),
+    ("POST", "/profiler/stop"), ("GET", "/profiler/memory"),
+    ("GET", "/debug/requests"), ("GET", "/traces"),
+    ("GET", "/traces/{request_id}"))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def kernel_union_ms(trace_path: str) -> tuple[float, int]:
+    """(ms covered by the union of the CUDA kernels' intervals, kernel
+    count) in a torch.profiler Chrome trace."""
+    with open(trace_path, encoding="utf-8") as fp:
+        events = json.load(fp)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") == "kernel" and e.get("ph") == "X")
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3, len(spans)
+
+
+def phase12(counters: dict) -> dict:
+    """Phase 12: phase 5's configuration served through ``serve`` (the
+    entry point of ``python -m fasttalk_tpu_torch websocket``), the
+    monitoring app on its own port. Runs of 16 sessions x 64 tokens:
+
+    1. bracketed by ``/profiler/start`` and ``/profiler/stop``, the tracer
+       and the host sampler on, the step ring cleared just before and
+       ``/perf`` read just after, so it covers the window of the
+       profiler's trace. The
+       layer matmul, the lm_head and ``decode_attend`` must launch. Then
+       every route of the monitoring app is read (and the serving port's
+       ``/slo``, ``/traces/{id}``, ``/health``, ``/stats``); the phase
+       fails on a status other than the expected, a route missing from the
+       app, ``/perf`` programs that do not ``fsum`` to ``device_busy_s``,
+       ``device_busy_s`` above the window, a served program kind with no
+       busy time, a null ``mfu.mfu`` or ``hbm.bw_util``, a watchdog stall
+       or cancel, or a ``/debug/bundle`` without ``cuda_trace/``;
+    2. host ms a decode step and decode tok/s, no torch.profiler, four
+       runs in turn: the stack on, the sampler stopped (``PROF_ENABLED=
+       false``), the tracer off as well, the stack on again.
+    """
+    import aiohttp
+
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.monitoring.monitor import build_monitoring_app
+    from fasttalk_tpu_torch.observability import reset_observability
+    from fasttalk_tpu_torch.observability.flight import get_flight
+    from fasttalk_tpu_torch.observability.profiler import get_profiler
+    from fasttalk_tpu_torch.observability.trace import get_tracer
+    from fasttalk_tpu_torch.serving.server import serve
+    from fasttalk_tpu_torch.utils.config import Config
+
+    served_routes = {(r.method, r.resource.canonical)
+                     for r in build_monitoring_app().router.routes()
+                     if r.method != "HEAD"}
+    missing = set(MONITOR_ROUTES) - served_routes
+    if missing:
+        fail(f"phase 12: routes missing from the monitoring app: {missing}")
+    os.environ["PROF_ENABLED"] = "true"
+    os.environ["FLIGHT_AUTOPROF_S"] = "1"
+    reset_observability()  # the singletons read PROF_* and FLIGHT_* anew
+    port, mon_port = free_port(), free_port()
+    cfg = Config(model_name="llama3.2:1b", model_path="", weight_quant="int8",
+                 decode_slots=SLOTS, max_model_len=MAX_LEN, prefill_chunk=512,
+                 default_context_window=MAX_LEN, default_max_tokens=64,
+                 host="127.0.0.1", port=port, monitoring_host="127.0.0.1",
+                 monitoring_port=mon_port)
+    t12 = time.monotonic()
+    engine = build_engine(cfg, device="cuda")
+    engine.start()
+    base = f"http://127.0.0.1:{mon_port}"
+
+    async def run_traffic(label: str) -> dict:
+        before = engine.get_stats()
+        out = await drive_sessions(port, SLOTS, 64)
+        d = stat_delta(before, engine.get_stats())
+        if out["errors"]:
+            fail(f"phase 12 ({label}): error frames: {out['errors'][:3]}")
+        out["tok_s"] = out["tokens"] / out["wall_s"]
+        out["host_ms_per_step"] = 1e3 * d["decode_host_s"] / d["decode_steps"]
+        out["delta"] = d
+        log(f"phase 12 ({label}): {out['tokens']} tokens in "
+            f"{out['wall_s']:.6g} s ({out['tok_s']:.6g} decode tok/s), host "
+            f"ms a decode step {out['host_ms_per_step']:.6g} "
+            f"({d['decode_steps']} steps, {d['decode_calls']} calls, "
+            f"{d['spec_calls']} speculative)")
+        return out
+
+    async def call(http, method: str, url: str, want: int = 200, **kw):
+        async with http.request(method, url, **kw) as r:
+            body = await r.read()
+            if r.status != want:
+                fail(f"phase 12: {method} {url} answered {r.status} "
+                     f"(expected {want}): {body[:300]!r}")
+            try:
+                return json.loads(body)
+            except ValueError:
+                return body.decode()
+
+    async def run() -> dict:
+        stop = asyncio.Event()
+        server = asyncio.create_task(serve(cfg, engine, stop))
+        try:
+            async with aiohttp.ClientSession() as http:
+                for _ in range(200):
+                    try:
+                        await call(http, "GET", base + "/health/ready")
+                        break
+                    except aiohttp.ClientError:
+                        await asyncio.sleep(0.05)
+                warm = await drive_sessions(port, 1, 8)
+                if warm["errors"]:
+                    fail(f"phase 12 warm-up failed: {warm['errors']}")
+                # Run 1: /perf and the profiler's trace over one window.
+                zero_launches()
+                get_tracer().clear()
+                started = await call(http, "POST", base + "/profiler/start",
+                                     json={"log_dir": "phase12"})
+                profiled = await run_traffic("profiled, stack on")
+                # /perf's window then ends where the traffic does.
+                perf = await call(http, "GET", base + "/perf")
+                stopped = await call(http, "POST", base + "/profiler/stop")
+                launches = {k: c() for k, c in counters.items()}
+                bodies = {}
+                for method, path in MONITOR_ROUTES:
+                    if path.startswith("/profiler/") and method == "POST":
+                        continue  # run around the traffic above
+                    if path == "/traces/{request_id}":
+                        rid = bodies["/traces"]["completed"][-1]
+                        url = base + f"/traces/{rid}"
+                    else:
+                        url = base + path
+                    want = 403 if (method, path) == ("POST",
+                                                     "/debug/fault") else 200
+                    bodies[path if method == "GET" else method + " " + path] \
+                        = await call(http, method, url, want)
+                serving = f"http://127.0.0.1:{port}"
+                for path in ("/slo", f"/traces/{rid}", "/health", "/stats"):
+                    bodies["serving " + path.split("/")[1]] = await call(
+                        http, "GET", serving + path)
+                # The bundle's timed capture must end before the next run.
+                flight = get_flight()
+                for _ in range(1200):
+                    if flight.bundles_written >= 1:
+                        break
+                    await asyncio.sleep(0.1)
+                # The overhead runs: the stack on, the sampler off (tracer
+                # on), both off, then on again.
+                runs = {"on": await run_traffic("stack on")}
+                get_profiler().stop()
+                runs["sampler_off"] = await run_traffic(
+                    "PROF_ENABLED=false, tracer on")
+                get_tracer().enabled = False
+                try:
+                    runs["off"] = await run_traffic(
+                        "PROF_ENABLED=false, tracer off")
+                finally:
+                    get_tracer().enabled = True
+                get_profiler().start()
+                runs["on_again"] = await run_traffic("stack on again")
+            stop.set()
+            await server
+        finally:
+            if not server.done():
+                server.cancel()
+        return {"started": started, "stopped": stopped, "launches": launches,
+                "bodies": bodies, "perf": perf, "profiled": profiled,
+                "runs": runs}
+
+    try:
+        res = asyncio.run(asyncio.wait_for(run(), timeout=600))
+    finally:
+        engine.shutdown()
+    bodies, perf = res["bodies"], res["perf"]
+    log(f"  launches in the profiled run: {res['launches']}")
+    for name in ("int8_matmul", "int8_matmul_t", "decode_attend"):
+        if res["launches"][name] <= 0:
+            fail(f"phase 12: kernel {name} never launched")
+    progs = perf["programs"]["by_program"]
+    busy, wall = perf["programs"]["total_busy_s"], perf["wall"]
+    if math.fsum(p["busy_s"] for p in progs) != busy \
+            or round(busy, 4) != wall["device_busy_s"]:
+        fail(f"phase 12: /perf programs do not fsum to device_busy_s: "
+             f"{[p['busy_s'] for p in progs]} vs {busy}")
+    if wall["device_busy_s"] > wall["window_s"]:
+        fail(f"phase 12: device_busy_s {wall['device_busy_s']} above the "
+             f"window {wall['window_s']}")
+    kinds: dict[str, float] = {}
+    for p in progs:
+        kind = p["program"].split(" ")[0]
+        kinds[kind] = kinds.get(kind, 0.0) + p["busy_s"]
+    d = res["profiled"]["delta"]
+    # Every served kind must show busy time: plain and speculative decode
+    # calls as the run made them, and prefill (batched or chunked) always.
+    for kind, names, calls in (
+            ("decode", ("decode",), d["plain_calls"]),
+            ("spec", ("spec_decode",), d["spec_calls"]),
+            ("prefill", ("batched_prefill", "prefill"), 1)):
+        got = sum(kinds.get(n, 0.0) for n in names)
+        if calls and got <= 0:
+            fail(f"phase 12: {kind} ran {calls} calls but has no busy time "
+                 f"in /perf: {kinds}")
+    if perf["mfu"]["mfu"] is None or perf["hbm"]["bw_util"] is None:
+        fail(f"phase 12: /perf reports mfu {perf['mfu']} / hbm "
+             f"{perf['hbm']} on {torch.cuda.get_device_name(0)}")
+    wd = bodies["/health"]["watchdog"]
+    stalls = [e for e in bodies["/events"]["events"]
+              if e["kind"] in ("stall_detected", "watchdog_cancel")]
+    if not wd["ok"] or stalls:
+        fail(f"phase 12: watchdog stall in normal traffic: {wd}, {stalls}")
+    bundle = bodies["POST /debug/bundle"]["dir"]
+    bundle_trace = os.path.join(bundle, "cuda_trace", "trace.json")
+    if not os.path.isfile(bundle_trace):
+        fail(f"phase 12: /debug/bundle {bundle} holds no cuda_trace/: "
+             f"{sorted(os.listdir(bundle))}")
+    kernel_ms, n_kernels = kernel_union_ms(res["stopped"]["trace"])
+    share = wall["device_busy_s"] / wall["window_s"]
+    log(f"phase 12: /perf over the profiled run: device_busy_s "
+        f"{wall['device_busy_s']} of a {wall['window_s']} s window (busy "
+        f"share {share:.6g}), host_gap_s {wall['host_gap_s']}, idle_s "
+        f"{wall['idle_s']}; programs {[(p['program'], p['calls'], p['busy_s']) for p in progs]}")
+    log(f"  torch.profiler over the same run: {n_kernels} kernels, union of "
+        f"kernel time {kernel_ms:.6g} ms ({kernel_ms / 1e3 / wall['window_s']:.6g}"
+        f" of the window) against /perf device_busy_s "
+        f"{wall['device_busy_s'] * 1e3:.6g} ms")
+    log(f"  mfu {perf['mfu']}; hbm {perf['hbm']}; tokens {perf['tokens']}")
+    runs = res["runs"]
+    log("  observability overhead, host ms a decode step / decode tok/s: "
+        + "; ".join(f"{k} {r['host_ms_per_step']:.6g} / {r['tok_s']:.6g}"
+                    for k, r in runs.items()))
+    log(f"phase 12: {time.monotonic() - t12:.6g} s")
+    return {"perf_wall": wall, "busy_share": share,
+            "programs": [{k: p[k] for k in ("program", "calls", "busy_s")}
+                         for p in progs],
+            "mfu": perf["mfu"]["mfu"], "achieved_tflops":
+                perf["mfu"]["achieved_tflops"],
+            "hbm_bw_util": perf["hbm"]["bw_util"],
+            "hbm_read_gbps": perf["hbm"]["read_gbps"],
+            "profiler_kernels": n_kernels,
+            "profiler_kernel_union_ms": kernel_ms,
+            "profiled_run": {k: res["profiled"][k] for k in (
+                "tokens", "wall_s", "tok_s", "host_ms_per_step")},
+            "overhead_runs": {
+                name: {k: r[k] for k in ("tokens", "wall_s", "tok_s",
+                                         "host_ms_per_step")}
+                for name, r in runs.items()},
+            "launches": res["launches"], "bundle": bundle}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1676,6 +1968,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # Flight bundles and profiler traces stay inside the checkout.
+    os.environ.setdefault("FLIGHT_DIR", os.path.join(REPO, "build", "flight"))
+    os.environ.setdefault("PROFILER_TRACE_DIR",
+                          os.path.join(REPO, "build", "profiler_trace"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1954,6 +2250,7 @@ def main() -> int:
         spec_decode="off")
     p11 = phase11(counters)
     launches_11 = p11["launches"]
+    p12 = phase12(counters)
 
     launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
                    "int8_matmul_t": st10["launches"]["int8_matmul_t"],
@@ -2046,7 +2343,8 @@ def main() -> int:
                     "prefill_delta_wave_a": {
                         f"turn {t}": deltas(x, t)
                         for t in range(2, x["turns"] + 1)}}
-            for label, x in p11.items() if label != "launches"}}),
+            for label, x in p11.items() if label != "launches"},
+        "observability": {**p12, "card": card}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,6 +85,17 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   ``STRUCTURED_JF_MIN`` tokens is emitted by jump-forward: one prefill
   writes its rows and a masked sample restarts decoding.
 
+- **Observability** (JAX :796-920, :1633-1727): the scheduler consults
+  the SLO engine (``slo_gate``) and ``_finish`` feeds it one sample per
+  request; the loop stamps a heartbeat each pass, ``progress_report`` and
+  ``force_fail`` serve the stall watchdog; the tracer gets the JAX
+  engine's span and step names (``queue_wait``, ``prefill``,
+  ``decode_step``, ``decode``, ``detokenize``, ``engine_step``,
+  ``engine_prefill``, ``engine_op``), and each step record's interval is
+  the call's device span from CUDA events (observability/perf.py
+  ``DeviceClock``), keyed by ``program_key`` for the perf ledger. A
+  request with ``journey`` carries per-token stamps on its token events.
+
 A device mesh, ``prefill_only`` (the disaggregated tier), the migration
 of parked entries and ``restart()`` are not part of this engine.
 """
@@ -119,6 +130,10 @@ from fasttalk_tpu_torch.kvcache.radix import RadixTree
 from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.models.llama import (KVCache, forward, init_cache,
                                              init_paged_cache)
+from fasttalk_tpu_torch.observability.perf import (DeviceClock, get_perf,
+                                                   program_key)
+from fasttalk_tpu_torch.observability.slo import get_slo
+from fasttalk_tpu_torch.observability.trace import get_tracer
 from fasttalk_tpu_torch.ops.attention import paged_gather_indices
 from fasttalk_tpu_torch.ops.kv_quant import granule_dim
 from fasttalk_tpu_torch.ops.sampling import sample_tokens
@@ -133,7 +148,8 @@ from fasttalk_tpu_torch.structured.fsm import FSMTooLarge, TokenFSM
 from fasttalk_tpu_torch.structured.runtime import (ArenaFull, FSMArena,
                                                    pack_mask_row)
 from fasttalk_tpu_torch.utils.config import resolve_device
-from fasttalk_tpu_torch.utils.errors import (AdmissionRejected, ErrorCategory,
+from fasttalk_tpu_torch.utils.errors import (ENGINE_SHED_CODES,
+                                             AdmissionRejected, ErrorCategory,
                                              LLMServiceError)
 from fasttalk_tpu_torch.utils.logger import get_logger
 from fasttalk_tpu_torch.utils.metrics import get_metrics
@@ -142,6 +158,13 @@ log = get_logger("engine")
 
 _KV_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def _tree_bytes(tree: Any) -> int:
+    """Bytes of every tensor leaf of a params tree (dicts of tensors)."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def _kv_bucket(need: int, max_len: int) -> int:
@@ -176,6 +199,9 @@ class GenerationParams:
     # "regex" | "tool_call", ...}, compiled to a token FSM whose mask
     # applies at every sample. None = unconstrained.
     structured: Any = None
+    # Per-token journey (observability/journey.py): token events carry the
+    # retirement's fetch-wait start, fetch landing and enqueue stamps.
+    journey: bool = False
 
     def __post_init__(self) -> None:
         if not (math.isfinite(self.repeat_penalty)
@@ -253,6 +279,15 @@ class _Request:
     fsm_entry: Any = None      # structured/runtime._Entry while pinned
     fsm_state: int = 0         # local FSM state after the consumed tokens
     jump_tokens: int = 0       # tokens emitted by jump-forward
+    # Observability stamps (JAX _Request :255-268): phase transitions,
+    # the inter-token SLI and the watchdog's progress marks.
+    decode_started_at: float | None = None  # activation (prefill done)
+    last_token_at: float | None = None
+    last_progress_at: float | None = None   # any forward progress
+    detok_s: float = 0.0                    # cumulative detokenize time
+    max_gap_ms: float = 0.0                 # worst inter-token gap
+    stall_failed: bool = False              # terminated by the watchdog
+    slo_recorded: bool = False              # sample fed to the SLO
 
 
 @dataclass
@@ -262,6 +297,7 @@ class _PrefillState:
     start: int
     todo: list[int]
     last_logits: Any = None
+    t0: float = field(default_factory=time.monotonic)
 
 
 # One admitted request bound for a batched prefill: (request, slot, rows
@@ -347,6 +383,11 @@ class _Call:
     snapshot: list[tuple[int, _Request]]
     # The FSM tables a constrained call reads, held until it retires.
     tables: FSMTables | None = None
+    # The call's device span (DeviceClock marks; None with tracing off),
+    # its program key and KV horizon, for its step record.
+    marks: tuple[Any, Any] | None = None
+    program: str = ""
+    kv_len: int = 0
 
 
 class TorchEngine(EngineBase):
@@ -545,9 +586,16 @@ class TorchEngine(EngineBase):
         # Admission control (scheduling/scheduler.py): submissions go into
         # the scheduler from the asyncio side, so a shed is synchronous;
         # the engine thread pops.
+        self._slo = get_slo()
         self._sched = RequestScheduler(
             queue_bound=queue_bound, default_deadline_s=default_deadline_s,
-            bulk_aging_s=bulk_aging_s, slots=num_slots)
+            bulk_aging_s=bulk_aging_s, slots=num_slots,
+            # SLO-aware shedding: while the interactive class page-burns,
+            # incoming bulk sheds at the door (JAX :796-805).
+            slo_gate=self._slo.should_shed)
+        # Engine-loop heartbeat (observability/watchdog.py): stamped once
+        # per loop pass; a stale stamp with pending work is a hung call.
+        self._hb_mono: float | None = None
         self._prefilling: list[_PrefillState] = []
         self._running: dict[int, _Request] = {}
         self._by_id: dict[str, _Request] = {}
@@ -582,8 +630,27 @@ class TorchEngine(EngineBase):
         self._m_requests = m.counter("engine_requests_total",
                                      "generation requests accepted")
         self._m_ttft = m.histogram("engine_ttft_ms", "time to first token")
+        self._m_step = m.histogram(
+            "engine_decode_wait_ms",
+            "host blocking wait per retired K-step decode call "
+            "(near zero when retirement overlaps the next call)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1000, 4000))
+        self._m_prefill = m.histogram(
+            "engine_prefill_ms", "prefill wall time per request",
+            buckets=(4, 16, 64, 256, 1000, 4000, 16000, 60000))
+        self._m_active = m.gauge("engine_active_slots", "slots decoding")
+        self._m_queue = m.gauge("engine_queue_depth", "requests waiting")
         self._m_queue_wait = m.histogram(
             "queue_wait_ms", "wait from request submit to slot admission")
+        self._m_prefill_req = m.histogram(
+            "prefill_ms",
+            "prefill wall time per request, admission to first-token "
+            "sample", buckets=(4, 16, 64, 256, 1000, 4000, 16000, 60000))
+        self._m_intertok = m.histogram(
+            "inter_token_ms",
+            "gap between consecutive tokens of one request",
+            buckets=(0.5, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1000,
+                     4000))
         self._m_prefix = m.counter("engine_prefix_tokens_reused_total",
                                    "prompt tokens served from resident KV")
         self._m_shared = m.counter(
@@ -602,6 +669,42 @@ class TorchEngine(EngineBase):
             "structured_jump_forward_tokens_total",
             "forced tokens emitted by jump-forward without decode "
             "steps")
+        self._tracer = get_tracer()
+        # Journey stamps of the current retirement: the blocking fetch's
+        # start and landing (JAX :890-895).
+        self._j_wait0 = 0.0
+        self._j_fetched = 0.0
+        # Program-key attributes of cache-touching calls (JAX :503-509).
+        self._kvq_attrs: dict[str, Any] = (
+            {"kv_quant": "int8"} if self.kv_quant else {})
+        if self.weight_quant == "int4":
+            self._kvq_attrs["weight_quant"] = "int4"
+        # The perf ledger's byte and FLOP facts (JAX :896-929), at the
+        # resident element sizes: bytes one decode step reads per (slot,
+        # position) row across all layers (int8 rows + f32 scales on the
+        # int8 tier), and the weight bytes a step streams (an untied
+        # embedding is only gathered, not streamed).
+        kv_elt = 1 if self.kv_quant else dtype.itemsize
+        self._kv_row_bytes = 2 * model_cfg.num_layers * (
+            model_cfg.num_kv_heads * model_cfg.head_dim * kv_elt
+            + (self.kv_scale_granule * 4 if self.kv_quant else 0))
+        self._weight_bytes_per_step = _tree_bytes(params)
+        if "lm_head" in params:
+            self._weight_bytes_per_step -= _tree_bytes(params["embed"])
+        self._perf = get_perf()
+        self._perf.bind_model(
+            model_cfg, num_slots, str(dtype).replace("torch.", ""),
+            kv_quant=kv_quant, kv_row_bytes=self._kv_row_bytes,
+            weight_quant=self.weight_quant,
+            weight_bytes_per_step=self._weight_bytes_per_step,
+            attention_kernel=("decode_attend_paged" if self.paged
+                              else "decode_attend"),
+            device=self.device)
+        # Device spans of the step records (CUDA events on the card), and
+        # the prefill/op records whose end mark the stream has not passed
+        # yet: (name, start mark, end mark, attrs), in stream order.
+        self._devclock = DeviceClock(self.device)
+        self._dev_pending: deque[tuple[str, Any, Any, dict]] = deque()
 
     def _reset_decode_state(self) -> None:
         s = self.num_slots
@@ -711,7 +814,19 @@ class TorchEngine(EngineBase):
                     recoverable=False) from e
             req.fsm_state = req.fsm.start
             self._m_st_requests.inc()
+            if self._tracer.enabled:
+                self._tracer.add_span(
+                    request_id, "fsm_compile", req.submitted_at,
+                    time.monotonic(),
+                    kind=params.structured.get("kind"),
+                    states=req.fsm.n_states, classes=req.fsm.n_classes)
         self._m_requests.inc()
+        # The serving layer starts the trace first (it owns the finish);
+        # engine-seam callers own it here (JAX :1533-1540).
+        trace_owned = self._tracer.start(request_id, session_id)
+        if self._tracer.enabled:
+            self._tracer.set_phase(request_id, "queued",
+                                   priority=params.priority)
         # Registered before the submit, so an immediate cancel() cannot
         # race the engine thread's command drain.
         self._by_id[request_id] = req
@@ -728,6 +843,11 @@ class TorchEngine(EngineBase):
         except AdmissionRejected:
             self._by_id.pop(request_id, None)
             req.finished = True
+            self._slo.record_shed(params.priority)
+            if self._tracer.enabled:
+                self._tracer.event(request_id, "shed")
+            if trace_owned:
+                self._tracer.finish(request_id)
             raise
         if self._kv_pool.enabled:
             # Best-effort: upload this session's parked rows while the
@@ -746,6 +866,8 @@ class TorchEngine(EngineBase):
             if not terminal:
                 # Caller abandoned the stream: free the slot.
                 self.cancel(request_id)
+            if trace_owned:
+                self._tracer.finish(request_id)
 
     def cancel(self, request_id: str) -> bool:
         req = self._by_id.get(request_id)
@@ -768,6 +890,121 @@ class TorchEngine(EngineBase):
     def pending_requests(self) -> int:
         """Requests not yet terminal (queued, prefilling or running)."""
         return len(self._by_id)
+
+    # ---------------- watchdog surfaces (observability/watchdog.py) ----
+
+    def heartbeat_age(self, now: float | None = None) -> float | None:
+        """Seconds since the engine loop last began a pass (None before
+        the first). A large age with pending work is a blocked call."""
+        hb = self._hb_mono
+        if hb is None:
+            return None
+        return (time.monotonic() if now is None else now) - hb
+
+    def progress_report(self, now: float | None = None,
+                        ) -> list[dict[str, Any]]:
+        """Admitted, unfinished requests with how long each has gone
+        without forward progress (a token, a prefill chunk, activation).
+        Queued requests are the scheduler's deadline sweep's."""
+        now = time.monotonic() if now is None else now
+        out: list[dict[str, Any]] = []
+        for req in list(self._by_id.values()):
+            if req.finished or req.admitted_at is None:
+                continue
+            last = max(filter(None, (req.last_token_at,
+                                     req.last_progress_at,
+                                     req.admitted_at)))
+            out.append({
+                "request_id": req.request_id,
+                "session_id": req.session_id,
+                "phase": "decode" if req.decode_started_at is not None
+                else "prefill",
+                "no_progress_s": round(now - last, 3),
+            })
+        return out
+
+    def force_fail(self, request_id: str, error: str,
+                   code: str = "stalled") -> bool:
+        """Watchdog termination: the terminal error event goes out now,
+        from outside the engine thread (which may be hung). The request
+        is marked cancelled and a cancel queued, so a live engine thread
+        frees the slot through ``_finish`` (whose late event is dropped
+        by the closed stream). The check-and-set against ``_finish`` is
+        atomic under the terminal lock (JAX :1667-1727)."""
+        req = self._by_id.get(request_id)
+        if req is None:
+            return False
+        with self._term_lock:
+            if req.finished or req.stall_failed:
+                return False
+            req.stall_failed = True
+            req.cancelled = True
+        self._record_slo(req, ok=False)
+        self._emit(req, {"type": "error", "error": error, "code": code})
+        self._commands.put(("cancel", request_id))
+        return True
+
+    def _record_slo(self, req: _Request, ok: bool) -> None:
+        """Feed one finished request into the SLO engine, once (the
+        watchdog's force_fail and _finish can both reach a request)."""
+        with self._term_lock:
+            if req.slo_recorded:
+                return
+            req.slo_recorded = True
+        ttft_ms = ((req.first_token_at - req.submitted_at) * 1000.0
+                   if req.first_token_at is not None else None)
+        qw_ms = ((req.admitted_at - req.submitted_at) * 1000.0
+                 if req.admitted_at is not None else None)
+        # A single-token reply has no inter-token gap to judge.
+        gap_ms = req.max_gap_ms if req.generated >= 2 else None
+        self._slo.record_request(req.params.priority, ok=ok,
+                                 ttft_ms=ttft_ms, queue_wait_ms=qw_ms,
+                                 max_gap_ms=gap_ms)
+
+    # ---------------- perf ledger records ----------------
+
+    def _decode_program(self, kv_len: int, steps: int, st_on: bool) -> str:
+        return program_key(
+            "decode", kv_len=kv_len, steps=steps,
+            **({"structured": True} if st_on else {}),
+            **self._kvq_attrs,
+            **({"kv_layout": "paged"} if self.paged else {}))
+
+    def _prefill_program(self, start: int, bucket: int) -> str:
+        if self.paged:
+            ctx = _kv_bucket(start + bucket, self.max_len)
+            return program_key("prefill", chunk=bucket, ctx=ctx,
+                               kv_layout="paged", **self._kvq_attrs)
+        return program_key("prefill", chunk=bucket, **self._kvq_attrs)
+
+    def _dev_mark(self) -> Any:
+        """A device mark for a step record (None with tracing off)."""
+        return self._devclock.mark() if self._tracer.enabled else None
+
+    def _dev_record(self, name: str, m0: Any, **attrs: Any) -> None:
+        """Close a prefill or op span opened by ``_dev_mark`` and queue
+        its step record; it is written once the stream has passed it."""
+        if m0 is None:
+            return
+        self._dev_pending.append((name, m0, self._devclock.mark(), attrs))
+        self._flush_dev_records()
+
+    def _flush_dev_records(self) -> None:
+        """Write the queued records whose end mark the stream has passed
+        (stream order: stop at the first one still pending)."""
+        clock = self._devclock
+        while self._dev_pending and clock.done(self._dev_pending[0][2]):
+            name, m0, m1, attrs = self._dev_pending.popleft()
+            self._tracer.step(name, clock.to_monotonic(m0),
+                              clock.to_monotonic(m1), **attrs)
+
+    def _kv_read_rows(self, snapshot: list[tuple[int, _Request]],
+                      kv_len: int) -> int:
+        """KV rows one decode step streams: the attention kernels prune
+        each slot to its length (whole blocks on the paged tier)."""
+        bs = self.kv_block_size if self.paged else 1
+        return sum(min(kv_len, blocks_for(int(self._positions[s]), bs) * bs)
+                   for s, _ in snapshot)
 
     def scheduler_debug(self) -> dict:
         """The scheduler's state and its queued entries (position,
@@ -821,6 +1058,8 @@ class TorchEngine(EngineBase):
             structured["arena"] = self._st_arena.stats()
         out = {"slots": self.slots.stats(), "waiting": len(self._sched),
                "scheduler": self._sched.stats(),
+               "kv_quant": "int8" if self.kv_quant else "none",
+               "kv_layout": "paged" if self.paged else "dense",
                "prefilling": len(self._prefilling),
                "running": len(self._running),
                "tokens_generated": self.tokens_generated,
@@ -867,9 +1106,17 @@ class TorchEngine(EngineBase):
                  device=str(self.device))
         reason = "engine shut down"
         try:
+            self._devclock.anchor()
             while True:
+                # Watchdog heartbeat: one float store per pass; an idle
+                # loop still passes every 50 ms (the command timeout).
+                self._hb_mono = time.monotonic()
                 idle = not self._running and not self._inflight \
                     and not self._prefilling and not self._pending_firsts
+                if idle and self._dev_pending:
+                    self._flush_dev_records()
+                if idle and not self._dev_pending and self._tracer.enabled:
+                    self._devclock.maybe_reanchor(self._hb_mono)
                 if not self._drain_commands(block=idle):
                     break
                 if len(self._sched):
@@ -905,6 +1152,8 @@ class TorchEngine(EngineBase):
                         self._retire_oldest()
                 elif self._inflight:
                     self._retire_oldest()
+                self._m_active.set(len(self._running))
+                self._m_queue.set(len(self._sched) + len(self._prefilling))
                 self._kv_tick()
         except Exception as e:
             log.critical(f"engine thread crashed: {e}", exc_info=True)
@@ -923,6 +1172,7 @@ class TorchEngine(EngineBase):
             if req.fsm is not None:
                 # The abort path bypasses _finish: unpin the FSM here.
                 self._st_release(req)
+            self._record_slo(req, ok=False)
             self._emit(req, {"type": "error", "error": reason,
                              "code": "internal_error"})
         self._by_id.clear()
@@ -968,6 +1218,11 @@ class TorchEngine(EngineBase):
             req = entry.payload
             if req is None or req.finished:
                 continue
+            if self._tracer.enabled:
+                self._tracer.add_span(req.request_id, "queue_wait",
+                                      req.submitted_at, now,
+                                      priority=entry.priority,
+                                      expired=True)
             self._finish(
                 req, "error",
                 error=f"request expired after {now - req.submitted_at:.1f}s "
@@ -1019,6 +1274,12 @@ class TorchEngine(EngineBase):
             req.admitted_at = time.monotonic()
             self._m_queue_wait.observe(
                 (req.admitted_at - req.submitted_at) * 1000)
+            if self._tracer.enabled:
+                self._tracer.add_span(req.request_id, "queue_wait",
+                                      req.submitted_at, req.admitted_at,
+                                      slot=slot.index,
+                                      priority=entry.priority)
+                self._tracer.set_phase(req.request_id, "prefill")
             prompt = req.prompt_tokens
             reused = self.slots.reuse_prefix(slot, prompt)
             if self.paged:
@@ -1187,6 +1448,7 @@ class TorchEngine(EngineBase):
     def _prefill_batched(self, batch: list[_Item]) -> None:
         """Prefill single-bucket prompts in one forward per bucket, at most
         ``num_slots`` rows a group; an error ends only its group."""
+        t0 = time.monotonic()
         by_bucket: dict[int, list[_Item]] = {}
         for item in batch:
             bucket = next(b for b in _PREFILL_BUCKETS
@@ -1201,6 +1463,7 @@ class TorchEngine(EngineBase):
                     log.error(f"batched prefill failed: {e}", exc_info=True)
                     for req, _, _, _ in sub:
                         self._finish(req, "error", error=str(e))
+        self._m_prefill.observe((time.monotonic() - t0) * 1000)
 
     def _prefill_group(self, bucket: int, sub: list[_Item]) -> None:
         """One ``[group, bucket]`` forward and one first-token sample for a
@@ -1225,6 +1488,7 @@ class TorchEngine(EngineBase):
             if not sub:
                 return
         g, dev = len(sub), self.device
+        m0 = self._dev_mark()
         tokens = np.zeros((g, bucket), np.int64)
         for j, (_, _, _, todo) in enumerate(sub):
             tokens[j, :len(todo)] = todo
@@ -1268,6 +1532,17 @@ class TorchEngine(EngineBase):
             torch.tensor([r.params.top_p for r, _, _, _ in sub],
                          dtype=torch.float32, device=dev),
             method=self.sampling_method)
+        # One step record: g x bucket rows computed, the real prompt
+        # tokens useful (the port pads no group rows).
+        real = sum(len(todo) for _, _, _, todo in sub)
+        self._dev_record(
+            "engine_prefill", m0, bucket=bucket, tokens=real,
+            rows=g * bucket, kind="batched", group=g,
+            program=program_key(
+                "batched_prefill", chunk=bucket, group=g, ctx=ctx,
+                **self._kvq_attrs,
+                **({"kv_layout": "paged"} if self.paged else {})),
+            flops=self._perf.call_flops(real, ctx))
         self.batched_prefill_calls += 1
         self.batched_prefill_rows += g
         entries = []
@@ -1315,15 +1590,27 @@ class TorchEngine(EngineBase):
                     req, "KV block pool exhausted during prefill")
                 return
             chunk = st.todo[:take]
+            prog = self._prefill_program(st.start, bucket)
+            m0 = self._dev_mark()
             st.last_logits = self._run_chunk_prefill(slot, chunk, st.start,
                                                      bucket)
             slot.tokens.extend(chunk)
             st.start += take
             slot.kv_written = st.start
             st.todo = st.todo[take:]
+            self._dev_record("engine_prefill", m0, bucket=bucket,
+                             tokens=take, rows=bucket, kind="chunk",
+                             program=prog,
+                             flops=self._perf.call_flops(take, st.start))
+            # A chunk is forward progress for every request in the
+            # prefill FIFO, not only the head (JAX :4362-4370).
+            now = time.monotonic()
+            for waiting in self._prefilling:
+                waiting.req.last_progress_at = now
             if st.todo:
                 return  # next chunk on a later iteration
             self._prefilling.pop(0)
+            self._m_prefill.observe((time.monotonic() - st.t0) * 1000)
             if req.fsm is not None:
                 self._activate(req, slot)
                 self._st_sample_place(req, slot, st.last_logits)
@@ -1390,12 +1677,24 @@ class TorchEngine(EngineBase):
         s = slot.index
         slot.active = True
         req.slot = slot
-        if req.admitted_at is not None and req.prefill_tokens:
-            # Measured prefill throughput: the restore policy's cost model
-            # (admission to activation, the overheads a restore competes
-            # against; JAX :4665-4677).
-            self._kv_policy.note_prefill(
-                req.prefill_tokens, time.monotonic() - req.admitted_at)
+        req.decode_started_at = time.monotonic()
+        req.last_progress_at = req.decode_started_at
+        if req.admitted_at is not None:
+            self._m_prefill_req.observe(
+                (req.decode_started_at - req.admitted_at) * 1000)
+            if req.prefill_tokens:
+                # Measured prefill throughput: the restore policy's cost
+                # model (admission to activation, the overheads a restore
+                # competes against; JAX :4665-4677).
+                self._kv_policy.note_prefill(
+                    req.prefill_tokens,
+                    req.decode_started_at - req.admitted_at)
+            if self._tracer.enabled:
+                self._tracer.add_span(
+                    req.request_id, "prefill", req.admitted_at,
+                    req.decode_started_at, slot=s,
+                    prompt_tokens=len(req.prompt_tokens))
+                self._tracer.set_phase(req.request_id, "decode")
         self._running[s] = req
         self._positions[s] = len(slot.tokens)
         self._active_mask[s] = True
@@ -1551,9 +1850,11 @@ class TorchEngine(EngineBase):
             if need <= self.max_len:
                 kv_len = _kv_bucket(need, self.max_len)
                 t0 = time.perf_counter()
+                m0 = self._dev_mark()
                 toks = spec_steps(self.params, self.cfg, self.cache,
                                   self._dev, steps, kv_len, self.spec_draft,
                                   table=self._decode_table(kv_len), **kw)
+                marks = None if m0 is None else (m0, self._devclock.mark())
                 dt = time.perf_counter() - t0
                 self.decode_host_s += dt
                 self.spec_host_s += dt
@@ -1569,7 +1870,10 @@ class TorchEngine(EngineBase):
                     _HostCopy(toks),
                     promise=steps * min(float(t), max(1.0, self._spec_ema)),
                     advance=exp_adv, max_advance=worst_adv,
-                    snapshot=snapshot))
+                    snapshot=snapshot, marks=marks,
+                    program=program_key("spec_decode", kv_len=kv_len,
+                                        steps=steps),
+                    kv_len=kv_len))
                 return
         # A plain step emits a token for every slot, so its bucket must hold
         # the most the calls ahead of it can advance.
@@ -1577,9 +1881,11 @@ class TorchEngine(EngineBase):
                             + steps, self.max_len)
         tables = self._st_call_tables() if st_on else None
         t0 = time.perf_counter()
+        m0 = self._dev_mark()
         toks = plain_steps(self.params, self.cfg, self.cache, self._dev,
                            steps, kv_len, table=self._decode_table(kv_len),
                            fsm=tables, **kw)
+        marks = None if m0 is None else (m0, self._devclock.mark())
         dt = time.perf_counter() - t0
         self.decode_host_s += dt
         self.decode_calls += 1
@@ -1588,9 +1894,11 @@ class TorchEngine(EngineBase):
             self.structured_host_s += dt
             self.structured_calls += 1
             self.structured_steps += steps
-        self._inflight.append(_Call(_HostCopy(toks), promise=steps,
-                                    advance=steps, max_advance=steps,
-                                    snapshot=snapshot, tables=tables))
+        self._inflight.append(_Call(
+            _HostCopy(toks), promise=steps, advance=steps, max_advance=steps,
+            snapshot=snapshot, tables=tables, marks=marks,
+            program=self._decode_program(kv_len, steps, st_on),
+            kv_len=kv_len))
 
     def _decode_table(self, kv_len: int) -> torch.Tensor | None:
         return (self._paged_table(kv_len // self.kv_block_size,
@@ -1603,17 +1911,25 @@ class TorchEngine(EngineBase):
         tokens (the last column)."""
         call = self._inflight.popleft()
         snapshot = call.snapshot
+        gen_before = ({id(req): req.generated for _, req in snapshot}
+                      if call.marks is not None else {})
         if any(req.first_pending for _, req in snapshot):
             self._drain_firsts(block=True)
+        t0 = time.monotonic()
         res = call.copy.result()
+        self._j_wait0 = t0
+        self._j_fetched = time.monotonic()
+        self._m_step.observe((self._j_fetched - t0) * 1000)
         if self._pending_firsts:
             self._drain_firsts(block=False)
+        consumed = 0  # tokens fed to requests (the step record's tokens)
         for k in range(res.shape[0]):
             for s, req in snapshot:
                 if req.finished or self._running.get(s) is not req:
                     continue  # ended earlier, or the slot was re-admitted
                 if res.ndim == 2:
                     self._positions[s] += 1
+                    consumed += 1
                     self._consume_token(req, int(res[k, s]))
                     continue
                 n = int(res[k, s, -1])
@@ -1629,9 +1945,44 @@ class TorchEngine(EngineBase):
                     if req.finished or self._running.get(s) is not req:
                         break
                     self._positions[s] += 1
+                    consumed += 1
                     self._consume_token(req, int(res[k, s, i]))
         for _, req in snapshot:
             self._flush_emit(req)
+        if call.marks is not None:
+            self._record_step(call, res, consumed, gen_before)
+        self._flush_dev_records()
+
+    def _record_step(self, call: _Call, res: np.ndarray, consumed: int,
+                     gen_before: dict[int, int]) -> None:
+        """One ``engine_step`` record for a retired call over its device
+        span (the host copy waited on the stream past its end mark) and
+        one ``decode_step`` span per request in it (JAX :5067-5115):
+        batch occupancy at dispatch, the rows the call computed, the
+        tokens consumed, and the FLOPs, KV bytes and weight bytes read."""
+        clock, snapshot = self._devclock, call.snapshot
+        t0, t1 = (clock.to_monotonic(m) for m in call.marks)
+        spec = res.ndim == 3
+        steps = int(res.shape[0])
+        constrained = sum(1 for _, r in snapshot if r.fsm is not None)
+        occupancy = round(len(snapshot) / max(1, self.num_slots), 3)
+        rows = steps * self.num_slots * (res.shape[2] - 1 if spec else 1)
+        self._tracer.step(
+            "engine_step", t0, t1, steps=steps, batch=len(snapshot),
+            slots=self.num_slots, occupancy=occupancy,
+            kind="spec" if spec else "plain", program=call.program,
+            tokens=consumed, rows=rows, kv_len=call.kv_len,
+            flops=self._perf.call_flops(consumed, call.kv_len),
+            kv_bytes=steps * self._kv_read_rows(snapshot, call.kv_len)
+            * self._kv_row_bytes,
+            weight_bytes=steps * self._weight_bytes_per_step,
+            **({"constrained": constrained} if constrained else {}))
+        for s, req in snapshot:
+            self._tracer.add_span(
+                req.request_id, "decode_step", t0, t1, slot=s,
+                batch=len(snapshot), occupancy=occupancy,
+                tokens=req.generated - gen_before.get(id(req), 0),
+                kind="spec" if spec else "plain")
 
     def _consume_token(self, req: _Request, token_id: int) -> None:
         """Handle one newly sampled token for a request (host side)."""
@@ -1650,11 +2001,21 @@ class TorchEngine(EngineBase):
             req.fsm_state = req.fsm.step(req.fsm_state, token_id)
         self.tokens_generated += 1
         self._m_tokens.inc()
+        now = time.monotonic()
+        if req.last_token_at is not None:
+            gap_ms = (now - req.last_token_at) * 1000
+            self._m_intertok.observe(gap_ms)
+            if gap_ms > req.max_gap_ms:
+                req.max_gap_ms = gap_ms  # the SLO's inter-token SLI
+        req.last_token_at = now
         if req.first_token_at is None:
-            req.first_token_at = time.monotonic()
+            req.first_token_at = now
             self._m_ttft.observe(
                 (req.first_token_at - req.submitted_at) * 1000)
+            self._tracer.event(req.request_id, "first_token")
+        t_detok = time.monotonic()
         delta = req.detok.push(token_id)
+        req.detok_s += time.monotonic() - t_detok
         if delta:
             self._stream_text(req, delta)
         if req.finished:
@@ -1708,6 +2069,18 @@ class TorchEngine(EngineBase):
             # Admission-to-finish time feeds the scheduler's service-time
             # EMA (wait estimates, retry_after).
             self._sched.note_service_time(time.monotonic() - req.admitted_at)
+        if reason != "cancelled":
+            # Cancels are the client's choice, not an SLO sample; sheds
+            # (deadline expiry, block exhaustion) count as sheds, not
+            # errors (JAX :5217-5236).
+            if code in ENGINE_SHED_CODES and error is not None:
+                with self._term_lock:
+                    already = req.slo_recorded
+                    req.slo_recorded = True
+                if not already:
+                    self._slo.record_shed(req.params.priority)
+            else:
+                self._record_slo(req, ok=error is None)
         if req.fsm is not None:
             self._st_release(req)
         slot = req.slot
@@ -1759,6 +2132,8 @@ class TorchEngine(EngineBase):
             req.emit_buf += text
         req.pending_text = ""
         self._flush_emit(req)
+        if self._tracer.enabled:
+            self._trace_finish(req, reason)
         if error is not None:
             event = {"type": "error", "error": error, "code": code}
             if retry_after is not None:
@@ -1784,11 +2159,44 @@ class TorchEngine(EngineBase):
             "type": "cancelled" if reason == "cancelled" else "done",
             "finish_reason": reason, "stats": stats})
 
+    def _trace_finish(self, req: _Request, reason: str) -> None:
+        """The request's summary spans at its end (JAX :5293-5327)."""
+        now = time.monotonic()
+        if req.admitted_at is None:
+            # Never admitted: the whole lifetime was queue wait.
+            self._tracer.add_span(req.request_id, "queue_wait",
+                                  req.submitted_at, now, summary=True)
+        if req.decode_started_at is not None:
+            attrs: dict[str, Any] = {
+                "tokens": req.generated, "finish_reason": reason,
+                "prompt_tokens": len(req.prompt_tokens)}
+            if req.spec_drafted:
+                attrs["spec_accepted"] = req.spec_accepted
+                attrs["spec_rejected"] = req.spec_drafted - req.spec_accepted
+            if req.fsm is not None:
+                attrs["structured"] = True
+                attrs["jump_tokens"] = req.jump_tokens
+            self._tracer.add_span(req.request_id, "decode",
+                                  req.decode_started_at, now,
+                                  summary=True, **attrs)
+        if req.detok_s > 0:
+            # One aggregate span of the detokenize time, ending at finish.
+            self._tracer.add_span(req.request_id, "detokenize",
+                                  now - req.detok_s, now, summary=True,
+                                  aggregate=True)
+        self._tracer.set_phase(req.request_id, "finishing")
+
     def _flush_emit(self, req: _Request) -> None:
-        """Send the text batched during one retirement as one token event."""
+        """Send the text batched during one retirement as one token event;
+        with ``journey`` it carries the retirement's fetch-wait start, the
+        fetch landing and the enqueue instant (JAX :5353-5372)."""
         if req.emit_buf:
             text, req.emit_buf = req.emit_buf, ""
-            self._emit(req, {"type": "token", "text": text})
+            event: dict = {"type": "token", "text": text}
+            if req.params.journey:
+                event["j"] = {"w": self._j_wait0, "f": self._j_fetched,
+                              "e": time.monotonic()}
+            self._emit(req, event)
 
     def _emit(self, req: _Request, event: dict) -> None:
         try:
@@ -1898,6 +2306,7 @@ class TorchEngine(EngineBase):
         row = pack_mask_row(req.fsm, req.fsm_state, self._st_arena.words,
                             req.fsm.eos_ids)
         t = self._st_tables
+        m0 = self._dev_mark()
         allow = unpack_mask(self._upload(row.view(np.int32)), t.powers,
                             self.sample_vocab)
         lg = last_logits[:self.sample_vocab].to(torch.float32)
@@ -1911,6 +2320,8 @@ class TorchEngine(EngineBase):
         self._dev.cur[slot.index] = first[0]
         self._dev.fst[slot.index] = t.nexts[gstate, t.cls[entry.sel,
                                                           first[0]]]
+        self._dev_record("engine_op", m0, kind="st_sample",
+                         program=program_key("st_sample"))
         # This wrote the slot's authoritative state (after the first
         # token). A patch queued for the slot's previous occupant (its
         # finish -> FREE) would now rewind the device FSM by one token,
@@ -1970,7 +2381,15 @@ class TorchEngine(EngineBase):
             if self.paged and not self._kv_blocks.ensure(slot.index,
                                                          start + bucket):
                 continue  # no blocks: the decode steps emit the chain
+            t0 = time.monotonic()
+            m0 = self._dev_mark()
             last_logits = self._run_chunk_prefill(slot, feed, start, bucket)
+            self._dev_record("engine_prefill", m0, bucket=bucket,
+                             tokens=len(feed), rows=bucket,
+                             kind="jump_forward",
+                             program=self._prefill_program(start, bucket),
+                             flops=self._perf.call_flops(len(feed),
+                                                         start + n))
             self._positions[slot.index] = start + n + 1
             slot.kv_written = start + n + 1
             self._dirty_slots.add(slot.index)
@@ -1982,6 +2401,9 @@ class TorchEngine(EngineBase):
                 self.structured_jump_tokens += 1
                 self._m_st_jump.inc()
             self._flush_emit(req)
+            if self._tracer.enabled:
+                self._tracer.add_span(req.request_id, "jump_forward", t0,
+                                      time.monotonic(), tokens=n)
             if req.finished:
                 continue
             self._st_sample_place(req, slot, last_logits)
@@ -2005,9 +2427,13 @@ class TorchEngine(EngineBase):
         bs = self.kv_block_size
         src = slice(src_blk * bs, (src_blk + 1) * bs)
         dst = slice(dst_blk * bs, (dst_blk + 1) * bs)
+        m0 = self._dev_mark()
         for pool in self.cache:
             if pool is not None:
                 pool[:, dst] = pool[:, src]
+        self._dev_record("engine_op", m0, kind="kv_block_copy",
+                         program=program_key("kv_block_copy", block_size=bs,
+                                             **self._kvq_attrs))
 
     def _paged_sync_resident(self, slot: Slot) -> None:
         """Reconcile the slot's table with its (possibly just truncated)
@@ -2130,6 +2556,7 @@ class TorchEngine(EngineBase):
         to the offload thread. Dense: the JAX bucket of rows; paged: the
         slot's whole blocks covering ``kept`` (exact per-block bytes)."""
         t0 = time.monotonic()
+        m0 = self._dev_mark()
         bucket = kv_bucket(kept, self.max_len)
         if self.paged:
             bucket = max(bucket, self.kv_block_size)
@@ -2138,6 +2565,11 @@ class TorchEngine(EngineBase):
                 * self.kv_block_size))
         else:
             rows = kv_slice(self.cache, slot.index, bucket)
+        self._dev_record("engine_op", m0, kind="kv_offload",
+                         program=program_key(
+                             "kv_offload", bucket=bucket, **self._kvq_attrs,
+                             **({"kv_layout": "paged"} if self.paged
+                                else {})))
         self._kv_offload.park(slot.session_id, list(slot.tokens[:kept]),
                               kept, bucket, rows, t0)
 
@@ -2165,6 +2597,7 @@ class TorchEngine(EngineBase):
             self._kv_pool.note_lookup(False)
             return 0
         t0 = time.monotonic()
+        m0 = self._dev_mark()
         prestaged = entry.k_dev is not None
         try:
             if _fp.enabled:
@@ -2196,6 +2629,16 @@ class TorchEngine(EngineBase):
         self._kv_pool.take(req.session_id)
         self._kv_pool.note_lookup(True)
         self._kv_offload.note_restore(time.monotonic() - t0)
+        if self._tracer.enabled:
+            self._tracer.add_span(req.request_id, "kv_restore", t0,
+                                  time.monotonic(), tokens=match,
+                                  bytes=entry.nbytes, prestaged=prestaged)
+        self._dev_record("engine_op", m0, kind="kv_restore",
+                         program=program_key(
+                             "kv_restore", bucket=entry.bucket,
+                             **self._kvq_attrs,
+                             **({"kv_layout": "paged"} if self.paged
+                                else {})))
         log.debug(f"restored {match} rows of {req.session_id} "
                   f"({entry.nbytes} bytes, prestaged={prestaged})")
         return match

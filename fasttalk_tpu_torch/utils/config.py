@@ -31,6 +31,12 @@ The session host-offload tier (``KV_HOST_BUDGET_MB``, ``KV_PARK_TTL_S``,
 (``KV_RADIX_ENABLED``, ``KV_RADIX_MIN_BLOCKS``, ``KV_RADIX_EVICT_POLICY``)
 resolve and fail as in ``fasttalk_tpu/utils/config.py`` :519-534,
 :599-611, :1073-1082, :1144-1160, :1200-1214.
+The observability settings (``LLM_MONITORING_PORT``/``_HOST``, ``SLO_*``,
+``WATCHDOG_*``, ``METRICS_WINDOW_S``, ``PERF_*``, ``PROF_*``, ``FLIGHT_*``
+and ``JOURNEY_*``) have the JAX names, defaults and messages
+(``fasttalk_tpu/utils/config.py`` :650-780, :1217-1276), but for
+``FLIGHT_DIR``, whose default is the port's own directory; the
+observability singletons read the same names at construction.
 A device mesh, which the port does not carry yet, is rejected with a named
 error when its variable asks for it; it is never silently ignored.
 
@@ -41,7 +47,8 @@ The device is not configuration: it is an argument of the entry points
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
+from typing import Any
 
 import torch
 
@@ -176,6 +183,12 @@ class Config:
     dtype: str = field(default_factory=lambda: _env_str("TPU_DTYPE", "bfloat16"))
     host: str = field(default_factory=lambda: _env_str("LLM_HOST", "0.0.0.0"))
     port: int = field(default_factory=lambda: _env_int("LLM_PORT", 8000))
+    # The monitoring app (monitoring/monitor.py) that ``serve`` starts
+    # beside the serving port (0 = an ephemeral port).
+    monitoring_port: int = field(
+        default_factory=lambda: _env_int("LLM_MONITORING_PORT", 9092))
+    monitoring_host: str = field(
+        default_factory=lambda: _env_str("LLM_MONITORING_HOST", "0.0.0.0"))
     max_connections: int = field(
         default_factory=lambda: _env_int("LLM_MAX_CONNECTIONS", 50))
     system_prompt: str = field(default_factory=lambda: _env_str(
@@ -283,7 +296,122 @@ class Config:
     structured_json_depth: int = field(
         default_factory=lambda: _env_int("STRUCTURED_JSON_DEPTH", 3))
 
+    # ---- SLOs + stall watchdog (observability/slo.py, watchdog.py). The
+    # observability singletons read the same environment names at
+    # construction; these fields are their one validated surface. ----
+    # Latency promises for the interactive class (ms); bulk relaxes the
+    # latency targets by SLO_BULK_FACTOR (default 4x) unless overridden
+    # per class (SLO_BULK_TTFT_P95_MS, ...).
+    slo_ttft_p95_ms: float = field(
+        default_factory=lambda: _env_float("SLO_TTFT_P95_MS", 1500.0))
+    slo_inter_token_p99_ms: float = field(
+        default_factory=lambda: _env_float("SLO_INTER_TOKEN_P99_MS",
+                                           250.0))
+    slo_queue_wait_p95_ms: float = field(
+        default_factory=lambda: _env_float("SLO_QUEUE_WAIT_P95_MS",
+                                           1000.0))
+    slo_error_rate: float = field(
+        default_factory=lambda: _env_float("SLO_ERROR_RATE", 0.01))
+    # Burn-rate alert thresholds: page on fast+mid windows burning at
+    # >= page_burn, warn on mid+long windows at >= warn_burn.
+    slo_page_burn: float = field(
+        default_factory=lambda: _env_float("SLO_PAGE_BURN", 10.0))
+    slo_warn_burn: float = field(
+        default_factory=lambda: _env_float("SLO_WARN_BURN", 2.0))
+    # While the interactive class page-burns, shed incoming bulk at
+    # admission (scheduling/scheduler.py slo_gate).
+    slo_shed_bulk_on_page: bool = field(
+        default_factory=lambda: _env_bool("SLO_SHED_BULK_ON_PAGE", True))
+    # Watchdog: a request with no token for token_stall_s is flagged;
+    # past WATCHDOG_CANCEL_STALL_S (default 2x) it is terminated with a
+    # terminal error frame. An engine loop heartbeat older than
+    # step_stall_s with pending work is a hung step.
+    watchdog_token_stall_s: float = field(
+        default_factory=lambda: _env_float("WATCHDOG_TOKEN_STALL_S",
+                                           30.0))
+    watchdog_step_stall_s: float = field(
+        default_factory=lambda: _env_float("WATCHDOG_STEP_STALL_S",
+                                           15.0))
+    # Unset (-1) resolves to 2x the token stall in __post_init__,
+    # matching the watchdog's own env fallback.
+    watchdog_cancel_stall_s: float = field(
+        default_factory=lambda: _env_float("WATCHDOG_CANCEL_STALL_S",
+                                           -1.0))
+    watchdog_interval_s: float = field(
+        default_factory=lambda: _env_float("WATCHDOG_INTERVAL_S", 1.0))
+    watchdog_loop_lag_ms: float = field(
+        default_factory=lambda: _env_float("WATCHDOG_LOOP_LAG_MS",
+                                           500.0))
+    # Percentile-window horizon for /stats histograms (seconds): p95s
+    # reflect the last metrics_window_s (utils/metrics.py). <= 0 restores
+    # the pure sample-count window.
+    metrics_window_s: float = field(
+        default_factory=lambda: _env_float("METRICS_WINDOW_S", 300.0))
+    # ---- Performance attribution ledger (observability/perf.py) ----
+    # Rolling window the attribution report covers (seconds).
+    perf_window_s: float = field(
+        default_factory=lambda: _env_float("PERF_WINDOW_S", 60.0))
+    # Gap between device spans longer than this counts as idle (no
+    # work); shorter gaps are host overhead between calls.
+    perf_idle_gap_ms: float = field(
+        default_factory=lambda: _env_float("PERF_IDLE_GAP_MS", 250.0))
+    # Roofline peaks for MFU (bf16 TFLOP/s) and HBM bandwidth (GB/s);
+    # 0 = read them from the card's name; other devices report null.
+    perf_peak_tflops: float = field(
+        default_factory=lambda: _env_float("PERF_PEAK_TFLOPS", 0.0))
+    perf_peak_hbm_gbps: float = field(
+        default_factory=lambda: _env_float("PERF_PEAK_HBM_GBPS", 0.0))
+    # ---- Continuous host profiler (observability/profiler.py) ----
+    # Master switch: off spawns no sampler thread.
+    prof_enabled: bool = field(
+        default_factory=lambda: _env_bool("PROF_ENABLED", True))
+    # Sampling rate of the host stack sampler (Hz).
+    prof_hz: float = field(
+        default_factory=lambda: _env_float("PROF_HZ", 67.0))
+    # Bound on distinct collapsed stacks kept.
+    prof_max_stacks: int = field(
+        default_factory=lambda: _env_int("PROF_MAX_STACKS", 2000))
+    # ---- Incident flight recorder (observability/flight.py) ----
+    flight_enabled: bool = field(
+        default_factory=lambda: _env_bool("FLIGHT_ENABLED", True))
+    # The port's own directory (the JAX package's is
+    # /tmp/fasttalk-tpu-flight): the two packages never share bundles.
+    flight_dir: str = field(
+        default_factory=lambda: _env_str("FLIGHT_DIR",
+                                         "/tmp/fasttalk-tpu-torch-flight"))
+    # Retention: only the newest N bundle directories are kept.
+    flight_max_bundles: int = field(
+        default_factory=lambda: _env_int("FLIGHT_MAX_BUNDLES", 8))
+    # Rate limit: at most one automatic bundle per this many seconds.
+    flight_min_interval_s: float = field(
+        default_factory=lambda: _env_float("FLIGHT_MIN_INTERVAL_S",
+                                           120.0))
+    # > 0: each bundle also captures a torch.profiler Chrome trace of
+    # the next N seconds (cuda_trace/).
+    flight_autoprof_s: float = field(
+        default_factory=lambda: _env_float("FLIGHT_AUTOPROF_S", 0.0))
+    # This many serving-time recompile events within
+    # flight_recompile_window_s trigger a bundle.
+    flight_recompile_burst: int = field(
+        default_factory=lambda: _env_int("FLIGHT_RECOMPILE_BURST", 5))
+    flight_recompile_window_s: float = field(
+        default_factory=lambda: _env_float("FLIGHT_RECOMPILE_WINDOW_S",
+                                           60.0))
+    # How many newest-first events each bundle's events.json carries.
+    flight_events_tail: int = field(
+        default_factory=lambda: _env_int("FLIGHT_EVENTS_TAIL", 256))
+    # ---- The token journey (observability/journey.py) ----
+    # Server-side kill switch; the per-session journey:true opt-in is
+    # ignored when false.
+    journey_enabled: bool = field(
+        default_factory=lambda: _env_bool("JOURNEY_ENABLED", True))
+    # Reconciliation tolerance for derived checks of the hop sums.
+    journey_tol: float = field(
+        default_factory=lambda: _env_float("JOURNEY_TOL", 0.10))
+
     def __post_init__(self) -> None:
+        if self.watchdog_cancel_stall_s == -1.0:  # unset: 2x token stall
+            self.watchdog_cancel_stall_s = 2.0 * self.watchdog_token_stall_s
         # WEIGHT_QUANT unset: take the legacy TPU_QUANTIZE tier; set: it is
         # authoritative and the legacy field is brought into agreement. Two
         # different tiers are a named error below, never a silent precedence
@@ -455,6 +583,57 @@ class Config:
         if not 1 <= self.structured_json_depth <= 8:
             errs.append(f"structured_json_depth must be in 1..8, "
                         f"got {self.structured_json_depth}")
+        if self.port == self.monitoring_port and self.port != 0:
+            errs.append("port and monitoring_port must differ")
+        for name in ("slo_ttft_p95_ms", "slo_inter_token_p99_ms",
+                     "slo_queue_wait_p95_ms", "slo_page_burn",
+                     "slo_warn_burn", "watchdog_token_stall_s",
+                     "watchdog_step_stall_s", "watchdog_interval_s",
+                     "watchdog_cancel_stall_s", "watchdog_loop_lag_ms"):
+            if getattr(self, name) <= 0:
+                errs.append(f"{name} must be > 0")
+        if not (0.0 < self.slo_error_rate <= 1.0):
+            errs.append("slo_error_rate must be in (0, 1]")
+        if self.perf_window_s <= 0:
+            errs.append("perf_window_s must be > 0")
+        if self.perf_idle_gap_ms <= 0:
+            errs.append("perf_idle_gap_ms must be > 0")
+        if self.perf_peak_tflops < 0:
+            errs.append("perf_peak_tflops must be >= 0 (0 = detect "
+                        "from the device kind)")
+        if self.perf_peak_hbm_gbps < 0:
+            errs.append("perf_peak_hbm_gbps must be >= 0 (0 = detect "
+                        "from the device kind)")
+        if self.prof_hz <= 0 or self.prof_hz > 1000:
+            errs.append("prof_hz must be in (0, 1000] — the host "
+                        "stack sampler rate in Hz")
+        if self.prof_max_stacks < 16:
+            errs.append("prof_max_stacks must be >= 16 (the bound on "
+                        "distinct stacks kept per thread role)")
+        if not self.flight_dir.strip():
+            errs.append("flight_dir must be a non-empty path")
+        if self.flight_max_bundles < 1:
+            errs.append("flight_max_bundles must be >= 1")
+        if self.flight_min_interval_s < 0:
+            errs.append("flight_min_interval_s must be >= 0")
+        if self.flight_autoprof_s < 0:
+            errs.append("flight_autoprof_s must be >= 0 (0 disables "
+                        "the automatic profiler capture)")
+        if self.flight_recompile_burst < 2:
+            errs.append("flight_recompile_burst must be >= 2 (one "
+                        "recompile is an event, not an incident)")
+        if self.flight_recompile_window_s <= 0:
+            errs.append("flight_recompile_window_s must be > 0")
+        if self.flight_events_tail < 1:
+            errs.append("flight_events_tail must be >= 1")
+        if not (0 < self.journey_tol < 1):
+            errs.append("journey_tol must be in (0, 1) — a fraction "
+                        "of wall clock the hop sum may miss by")
+        if self.watchdog_cancel_stall_s < self.watchdog_token_stall_s:
+            # Cancellation cannot precede detection; a smaller value
+            # would silently mean max(token, cancel) (watchdog.py).
+            errs.append("watchdog_cancel_stall_s must be >= "
+                        "watchdog_token_stall_s")
         if errs:
             raise ValueError("Invalid configuration:\n  " + "\n  ".join(errs))
         if self.kv_host_budget_mb > 0:
@@ -474,6 +653,9 @@ class Config:
                         self.kv_host_budget_mb, total_mb)
             except Exception:
                 pass
+
+    def to_dict(self) -> dict[str, Any]:
+        return {f.name: getattr(self, f.name) for f in fields(self)}
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,4 +1,4 @@
-"""Error taxonomy and circuit breaker of the serving path.
+"""Error taxonomy, circuit breaker and error history of the serving path.
 
 A subset of ``fasttalk_tpu/utils/errors.py`` (same classes, same wire
 dict), kept as the port's own copy.
@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
+from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any
 
@@ -153,3 +155,70 @@ class CircuitBreaker:
         with self._lock:
             self._maybe_half_open()
             return {"state": self._state, "failures": self._failures}
+
+
+@dataclass
+class ErrorRecord:
+    ts: float
+    category: str
+    severity: str
+    message: str
+    context: dict[str, Any] = field(default_factory=dict)
+
+
+class ErrorHandler:
+    """Categorizes foreign exceptions and keeps a bounded history (the
+    ``errors`` block of ``/stats``)."""
+
+    _PATTERNS: list[tuple[tuple[str, ...], ErrorCategory, ErrorSeverity]] = [
+        (("connection", "refused", "unreachable", "reset by peer"),
+         ErrorCategory.CONNECTION, ErrorSeverity.HIGH),
+        (("timeout", "timed out", "deadline"),
+         ErrorCategory.TIMEOUT, ErrorSeverity.MEDIUM),
+        (("out of memory", "oom", "resource exhausted", "hbm"),
+         ErrorCategory.RESOURCE, ErrorSeverity.CRITICAL),
+        (("rate limit", "too many requests"),
+         ErrorCategory.RATE_LIMIT, ErrorSeverity.MEDIUM),
+        (("invalid", "validation", "must be", "expected"),
+         ErrorCategory.VALIDATION, ErrorSeverity.LOW),
+        (("cancel",), ErrorCategory.CANCELLED, ErrorSeverity.LOW),
+    ]
+
+    def __init__(self, history_size: int = 200):
+        self._history: deque[ErrorRecord] = deque(maxlen=history_size)
+        self._counts: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def handle_error(self, exc: BaseException,
+                     context: dict[str, Any] | None = None) -> LLMServiceError:
+        if isinstance(exc, LLMServiceError):
+            err = exc
+        else:
+            text = str(exc).lower()
+            category, severity = ErrorCategory.INTERNAL, ErrorSeverity.MEDIUM
+            for needles, cat, sev in self._PATTERNS:
+                if any(n in text for n in needles):
+                    category, severity = cat, sev
+                    break
+            err = LLMServiceError(str(exc) or type(exc).__name__,
+                                  category=category, severity=severity)
+        with self._lock:
+            self._history.append(ErrorRecord(
+                ts=time.time(), category=err.category.value,
+                severity=err.severity.value, message=err.message,
+                context=context or {}))
+            self._counts[err.category.value] = self._counts.get(err.category.value, 0) + 1
+        return err
+
+    def get_error_stats(self) -> dict[str, Any]:
+        with self._lock:
+            recent = [
+                {"ts": r.ts, "category": r.category, "severity": r.severity,
+                 "message": r.message}
+                for r in list(self._history)[-10:]
+            ]
+            return {
+                "total_errors": sum(self._counts.values()),
+                "by_category": dict(self._counts),
+                "recent": recent,
+            }

@@ -23,6 +23,7 @@ import sys
 
 import pytest
 import torch
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")
@@ -424,6 +425,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import fasttalk_tpu_torch.resilience.failpoints\n"
         "import fasttalk_tpu_torch.observability.trace\n"
         "import fasttalk_tpu_torch.serving.openai_api\n"
+        "import fasttalk_tpu_torch.monitoring.monitor\n"
+        "import fasttalk_tpu_torch.observability.flight\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

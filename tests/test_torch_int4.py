@@ -52,6 +52,7 @@ from fasttalk_tpu_torch.models.configs import get_model_config
 from fasttalk_tpu_torch.models.loader import from_jax_params
 from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul, int4_matmul_plain
 from fasttalk_tpu_torch.quantization import int4 as t4
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")

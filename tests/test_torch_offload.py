@@ -43,6 +43,7 @@ from fasttalk_tpu_torch.kvcache import policy as tpolicy
 from fasttalk_tpu_torch.kvcache.blocks import blocks_for
 from fasttalk_tpu_torch.models.configs import get_model_config
 from fasttalk_tpu_torch.models.llama import init_params
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")
@@ -65,18 +66,6 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(autouse=True)
-def _fresh_port_metrics():
-    """The port's process-wide metrics and events start and end each test
-    empty, so this file's counts never reach a later test's reading."""
-    from fasttalk_tpu_torch.observability.events import reset_events
-    from fasttalk_tpu_torch.utils.metrics import reset_metrics
-
-    reset_metrics()
-    reset_events()
-    yield
-    reset_metrics()
-    reset_events()
 
 
 # ---------------------------------------------------------------------

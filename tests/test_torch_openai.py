@@ -35,6 +35,7 @@ from fasttalk_tpu_torch.utils.errors import CircuitBreaker
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_structured import (_jax_engine, _torch_engine,  # noqa: E402
                                    json_tinychat, validates)
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 GREEDY = {"temperature": 0.0, "top_k": 0, "top_p": 1.0}
 DEFAULTS = {"temperature": 0.7, "top_p": 0.9, "top_k": 40, "max_tokens": 8,
@@ -59,19 +60,6 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(autouse=True)
-def _fresh_port_metrics():
-    """The port's process-wide metrics and events start and end each test
-    empty (tests/conftest.py does this for the JAX package's), so the
-    sheds and counts of these tests never reach a later test's reading."""
-    from fasttalk_tpu_torch.observability.events import reset_events
-    from fasttalk_tpu_torch.utils.metrics import reset_metrics
-
-    reset_metrics()
-    reset_events()
-    yield
-    reset_metrics()
-    reset_events()
 
 
 class _Spy:

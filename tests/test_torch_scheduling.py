@@ -30,6 +30,7 @@ from fasttalk_tpu_torch.scheduling.scheduler import \
     RequestScheduler as TorchSched
 from fasttalk_tpu_torch.utils.errors import AdmissionRejected
 from fasttalk_tpu_torch.utils.metrics import reset_metrics
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 TINY = get_model_config("test-tiny")
 GREEDY = dict(temperature=0.0, top_k=0, top_p=1.0)

@@ -11,9 +11,9 @@ error in both packages; ``tts_chunking`` frames carry the same speakable
 chunks for the same token stream; the admission keys ``priority`` and
 ``deadline_s`` reach the generation parameters in both, from
 ``start_session`` and from ``update_config``, and so does ``structured``,
-which gives the port a constrained generation; the session key of a feature
-the port does not carry (``journey``) gets an ``invalid_config`` frame
-naming the key and never reaches the engine; ``/``,
+which gives the port a constrained generation; ``journey``, the last session
+key of the JAX server the port refused, now reaches the generation in both
+and gives the same waterfall; ``/``,
 ``/stats`` (with the engine's ``scheduler`` section) and ``/metrics``
 answer; and ``serve`` drains on shutdown: a running generation completes,
 a new submission sheds as a rate-limit frame.
@@ -35,10 +35,13 @@ from fasttalk_tpu.utils.config import Config as JaxConfig
 from fasttalk_tpu_torch.serving.server import WebSocketLLMServer as TorchServer
 from fasttalk_tpu_torch.serving.text_processor import extract_speakable_chunk
 from fasttalk_tpu_torch.utils.config import Config as TorchConfig
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")
 GREEDY = {"temperature": 0.0, "top_k": 0, "top_p": 1.0}
+# Session keys the port once refused by name; each now reaches the
+# generation as in the JAX server.
 UNSUPPORTED = {"journey": True}
 STRUCTURED = {"kind": "json_schema", "schema": {
     "type": "object", "properties": {"mood": {"enum": ["happy", "sad"]},
@@ -291,26 +294,40 @@ def test_tts_chunking_gives_the_same_speakable_frames(monkeypatch,
 @pytest.mark.parametrize("key", sorted(UNSUPPORTED))
 @pytest.mark.parametrize("message", ["start_session", "update_config"])
 def test_unsupported_session_keys_are_refused_by_name(key, message,
+                                                      monkeypatch,
                                                       tiny_engine):
-    frames = [{"type": message, "config": {"max_tokens": 2,
-                                           key: UNSUPPORTED[key]}},
-              {"type": "user_message", "text": "hi"}]
+    """The port refuses no session key of the JAX server any more: the key
+    it once refused by name (``journey``), set by ``start_session`` or
+    ``update_config``, is answered as the JAX server answers it, reaches
+    ``GenerationParams`` in both, and ``response_complete`` carries the
+    same journey waterfall keys."""
+    cfg = {key: UNSUPPORTED[key]}
+    frames = ([{"type": "start_session", "config": {"max_tokens": 2, **cfg}}]
+              if message == "start_session" else
+              [{"type": "start_session", "config": {"max_tokens": 2}},
+               {"type": "update_config", "config": cfg}])
+    frames.append({"type": "user_message", "text": "hi"})
+    jax_srv, fake = _jax_server(monkeypatch)
+    jax_frames = _run(jax_srv, frames)
     spy = _Spy(tiny_engine)
     try:
-        got = _run(TorchServer(_tiny_config(), tiny_engine), frames)
+        port_frames = _run(TorchServer(_tiny_config(), tiny_engine), frames)
     finally:
         del tiny_engine.generate
-    err = got[1]
-    assert err["type"] == "error" and err["error"]["code"] == "invalid_config"
-    assert repr(key) in err["error"]["message"]
-    assert "not implemented yet" in err["error"]["message"]
-    # Nothing of the refused message applied: the generation runs on the
-    # server's defaults and the key never reached the engine.
-    assert got[-1]["type"] == "response_complete"
-    assert len(spy.seen) == 1
-    params = spy.seen[0]["params"]
-    assert params.max_tokens == _tiny_config().default_max_tokens
-    assert not hasattr(params, key)
+    def kinds(frames):
+        return [f["type"] for f in frames if f["type"] != "token"]
+
+    assert kinds(port_frames) == kinds(jax_frames)
+    for got in (jax_frames, port_frames):
+        assert "error" not in [f["type"] for f in got], got
+        assert got[-1]["type"] == "response_complete", got
+    assert getattr(spy.seen[0]["params"], key) is \
+        getattr(fake.requests_seen[0]["params"], key) is True
+    port_j = port_frames[-1]["stats"]["journey"]
+    jax_j = jax_frames[-1]["stats"]["journey"]
+    assert set(port_j) == set(jax_j)
+    assert set(port_j["hops_ms"]) == set(jax_j["hops_ms"])
+    assert all("st" in f for f in port_frames if f["type"] == "token")
 
 
 @pytest.mark.parametrize("key", sorted(ADMISSION))
@@ -436,7 +453,8 @@ def test_serve_drains_on_shutdown():
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    cfg = _tiny_config(host="127.0.0.1", port=port)
+    cfg = _tiny_config(host="127.0.0.1", port=port,
+                       monitoring_host="127.0.0.1", monitoring_port=0)
     engine = build_engine(cfg, device="cpu")
     engine.start()
 

@@ -27,6 +27,7 @@ from fasttalk_tpu_torch.engine.slots import SlotManager, _lcp
 from fasttalk_tpu_torch.engine.tokenizer import ByteTokenizer
 from fasttalk_tpu_torch.models.configs import get_model_config
 from fasttalk_tpu_torch.models.llama import init_params
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 TINY = get_model_config("test-tiny")
 GREEDY = dict(temperature=0.0, top_k=0, top_p=1.0)

@@ -33,6 +33,7 @@ from fasttalk_tpu_torch.models.configs import get_model_config
 from fasttalk_tpu_torch.models.llama import forward, init_cache, init_params
 from fasttalk_tpu_torch.ops.sampling import penalize_values
 from fasttalk_tpu_torch.utils.metrics import get_metrics
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")

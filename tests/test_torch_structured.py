@@ -33,6 +33,7 @@ from fasttalk_tpu_torch.structured import fsm as tfsm
 from fasttalk_tpu_torch.structured import regex_dfa as tdfa
 from fasttalk_tpu_torch.structured import runtime as truntime
 from fasttalk_tpu_torch.structured import schema as tschema
+from tests._port_isolation import port_isolation  # noqa: F401,E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "fasttalk_tpu", "assets")
@@ -52,19 +53,6 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(autouse=True)
-def _fresh_port_metrics():
-    """The port's process-wide metrics and events start and end each test
-    empty (tests/conftest.py does this for the JAX package's), so the
-    sheds and counts of these tests never reach a later test's reading."""
-    from fasttalk_tpu_torch.observability.events import reset_events
-    from fasttalk_tpu_torch.utils.metrics import reset_metrics
-
-    reset_metrics()
-    reset_events()
-    yield
-    reset_metrics()
-    reset_events()
 
 
 def validates(instance, schema) -> bool:
