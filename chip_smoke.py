@@ -94,9 +94,17 @@ no result line):
    ``device_busy_s``, and host ms a decode step and decode tok/s with the
    stack on and off (``PROF_ENABLED=false``, tracer off). Flight bundles and
    profiler traces go under ``build/`` (``FLIGHT_DIR``,
-   ``PROFILER_TRACE_DIR``).
+   ``PROFILER_TRACE_DIR``);
+13. the engine's lifecycle (``phase13``) through ``ServerLauncher`` at
+   phase 5's width with the agent on: warm-up and a first wave of 16
+   sessions, a ``crash_thread`` armed through ``POST /debug/fault``
+   mid-burst (one error frame per in-flight session, the supervisor's
+   restart, no second KV cache on the card, requests of the crash race
+   window served, the greedy control unchanged, a parked session
+   restored), then a restart storm that exhausts
+   SUPERVISOR_MAX_RESTARTS=2 (``/health`` dead) and a clean shutdown.
 
-In phases 5-12 the kernels' launch counts are zeroed just before the
+In phases 5-13 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
 launched. Each served phase logs decode tok/s, TTFT p50/p99 from the
 ``done`` frames, batched prefill calls, shared-prefix tokens and decode
@@ -1958,6 +1966,471 @@ def phase12(counters: dict) -> dict:
             "launches": res["launches"], "bundle": bundle}
 
 
+PHASE13_CONTROL = {"system_prompt": "You keep a lighthouse. Answer in one "
+                                    "short sentence.",
+                   "max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
+
+
+def cuda_memory() -> tuple[int, int]:
+    """(bytes allocated, peak bytes allocated) on the card (0, 0 without
+    one, as in a CPU rehearsal)."""
+    if not torch.cuda.is_available():
+        return 0, 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+
+
+async def ws_turn(ws, text: str, config: dict | None = None,
+                  timeout: float = 300) -> tuple[list[str], dict]:
+    """One turn on an open WS session (``config``: start_session first):
+    (the token frames' texts, the terminal frame)."""
+    if config is not None:
+        await ws.send_json({"type": "start_session", "config": config})
+        json.loads((await ws.receive(timeout=60)).data)
+    await ws.send_json({"type": "user_message", "text": text})
+    tokens = []
+    while True:
+        frame = json.loads((await ws.receive(timeout=timeout)).data)
+        if frame["type"] == "token":
+            tokens.append(frame["data"])
+        elif frame["type"] != "tool_call":
+            return tokens, frame
+
+
+async def until(pred, timeout: float, what: str, step: float = 0.005):
+    """Poll ``pred`` (sync or async) until true; fail after ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if asyncio.iscoroutine(got):
+            got = await got
+        if got:
+            return time.monotonic()
+        await asyncio.sleep(step)
+    fail(f"phase 13: {what} within {timeout} s")
+
+
+def phase13(counters: dict) -> dict:
+    """Phase 13: the engine's lifecycle through ``ServerLauncher`` (the
+    entry point of ``python -m fasttalk_tpu_torch websocket``) at phase 5's
+    full width (llama3.2:1b int8, dense bf16 KV, 16 slots, max_len 2048),
+    with the tool-calling agent on (``WEB_SEARCH_BACKEND=offline``),
+    ``FAULT_HTTP`` on, a host KV pool (``KV_HOST_BUDGET_MB=4096``, idle
+    sessions parked after 1 s), the supervisor checking every 0.25 s and
+    speculative decoding off (greedy tokens must not depend on which decode
+    program ran):
+
+    (a) ``TPU_WARMUP=fast`` (its launches counted), then a first wave of 16
+        sessions x 64 tokens: its TTFT p50/p99 is logged and the layer
+        matmul, the lm_head and ``decode_attend`` must launch;
+    (b) a greedy control session and a session left idle until it parks;
+        then ``engine.decode.dispatch=crash_thread;count=1`` armed through
+        ``POST /debug/fault`` mid-burst (16 sessions x 512 tokens, armed
+        once at least half of them run and 64 decode steps passed): every
+        burst session must end with exactly one terminal frame, an error;
+        the supervisor must restart the engine (``engine_restarts_total``
+        +1, ``/health`` supervisor ok, ``/health/ready`` 200), the allocated
+        bytes after the restart must not hold a second KV cache, and the
+        peak during it neither. Then a second crash at ``engine.loop.tick``
+        with four requests submitted at the engine seam in the crash race
+        window (the engine's liveness check held true for the window, as
+        tests/test_chaos.py does): all must be served after the restart.
+        Once the circuit breaker (opened by the burst's errors) lets
+        traffic through again, the control prompt must give the same tokens
+        as before the crash, and the parked session's next turn must
+        restore its host rows (``restored_total`` +1). The three kernels must launch in the post-restart traffic;
+    (c) a restart storm on a second launcher with SUPERVISOR_MAX_RESTARTS=2:
+        ``engine.loop.tick=crash_thread`` without a count kills every new
+        thread; the supervisor must make exactly 2 attempts, ``/health``
+        read ``dead`` and ``/health/ready`` 503, and the launcher then shut
+        down cleanly (the engine thread gone).
+    """
+    import aiohttp
+
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+    from fasttalk_tpu_torch.observability import reset_observability
+    from fasttalk_tpu_torch.serving.launcher import ServerLauncher
+    from fasttalk_tpu_torch.utils.config import Config
+    from fasttalk_tpu_torch.utils.metrics import get_metrics
+
+    def config(**kw) -> Config:
+        return Config(model_name="llama3.2:1b", model_path="",
+                      weight_quant="int8", decode_slots=SLOTS,
+                      max_model_len=MAX_LEN, prefill_chunk=512,
+                      default_context_window=MAX_LEN, default_max_tokens=64,
+                      spec_decode="off", host="127.0.0.1", port=0,
+                      monitoring_host="127.0.0.1", monitoring_port=0,
+                      web_search_backend="offline", fault_http_enabled=True,
+                      **kw)
+
+    def counted_restarts(engine) -> list[dict]:
+        """Wrap ``engine.restart`` (the supervisor looks it up each tick):
+        for each call its ms and the bytes allocated on the card before
+        and after it and at its peak."""
+        calls: list[dict] = []
+        inner = engine.restart
+
+        def restart() -> bool:
+            before, _ = cuda_memory()
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            t = time.monotonic()
+            try:
+                return inner()
+            finally:
+                ms = (time.monotonic() - t) * 1e3
+                after, peak = cuda_memory()
+                calls.append({"ms": ms, "allocated_before": before,
+                              "allocated_after": after, "peak": peak})
+        engine.restart = restart
+        return calls
+
+    # Phase 12 left the flight recorder profiling each bundle for 1 s: an
+    # automatic bundle of the crash below would then run torch.profiler
+    # beside the restart. Back to the default (0), read anew.
+    os.environ["FLIGHT_AUTOPROF_S"] = "0"
+    reset_observability()
+    # Engines of earlier phases still in reference cycles: gone before the
+    # memory readings below.
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    restarts_total = get_metrics().counter("engine_restarts_total")
+    t13 = time.monotonic()
+    launcher = ServerLauncher(
+        config(kv_host_budget_mb=4096.0, kv_park_idle_s=1.0, warmup="fast"),
+        device="cuda", watchdog_interval_s=0.25)
+    engine = launcher.engine
+    if launcher.agent is None or launcher.server.agent is not launcher.agent:
+        fail("phase 13: the launcher built no agent with the default "
+             "ENABLE_PYDANTIC_AI / ENABLE_TOOLS")
+    restart_calls = counted_restarts(engine)
+    kv_bytes = sum(x.numel() * x.element_size() for x in engine.cache
+                   if x is not None)
+    log(f"phase 13: ServerLauncher built (llama3.2:1b int8, agent on) in "
+        f"{time.monotonic() - t13:.3f} s; KV cache {kv_bytes} bytes")
+
+    async def post_fault(http, mon: str, body: dict) -> None:
+        async with http.post(mon + "/debug/fault", json=body) as r:
+            if r.status != 200:
+                fail(f"phase 13: POST /debug/fault {body} answered "
+                     f"{r.status}: {await r.text()}")
+
+    async def ready(http, mon: str) -> bool:
+        try:
+            async with http.get(mon + "/health/ready") as r:
+                return r.status == 200
+        except aiohttp.ClientError:
+            return False
+
+    async def get_json(http, url: str) -> dict:
+        async with http.get(url) as r:
+            return await r.json()
+
+    async def burst_session(http, port: int) -> tuple[int, list[dict]]:
+        """One burst session: (token frames, every frame after the last
+        token, up to 1 s after the first terminal one)."""
+        ws = await http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm")
+        await ws.receive(timeout=60)
+        tokens, term = await ws_turn(ws, "Write a long story about ships.", {
+            "max_tokens": 512, "temperature": 0.7, "ignore_eos": True})
+        after = [term]
+        try:
+            while True:
+                after.append(json.loads((await ws.receive(timeout=1.0)).data))
+        except asyncio.TimeoutError:
+            pass
+        await ws.close()
+        return len(tokens), after
+
+    async def seam_request(i: int) -> list[dict]:
+        """A request submitted at the engine seam (the agent the server
+        uses), as one arriving in the crash race window."""
+        sid = f"race-{i}"
+        events = [ev async for ev in launcher.agent.generate(
+            sid, sid, [{"role": "user", "content": f"Count to {i + 3}."}],
+            GenerationParams(max_tokens=16, temperature=0.0,
+                             ignore_eos=True))]
+        launcher.agent.release_session(sid)
+        return events
+
+    async def run_ab() -> dict:
+        out: dict = {}
+        zero_launches()
+        t_run = time.monotonic()
+        task = asyncio.create_task(launcher.run())
+        while "monitoring" not in launcher.addresses:
+            if task.done():
+                task.result()
+                fail("phase 13: the launcher stopped before serving")
+            await asyncio.sleep(0.02)
+        out["warmup_to_serving_s"] = time.monotonic() - t_run
+        out["launches_warmup"] = {k: c() for k, c in counters.items()}
+        port = launcher.addresses["serving"][1]
+        mon = f"http://127.0.0.1:{launcher.addresses['monitoring'][1]}"
+        serving = f"http://127.0.0.1:{port}"
+        try:
+            async with aiohttp.ClientSession() as http:
+                # (a) the first wave after the warm-up.
+                zero_launches()
+                wave = await drive_sessions(port, SLOTS, 64)
+                out["launches_first_wave"] = {k: c()
+                                              for k, c in counters.items()}
+                if wave["errors"]:
+                    fail(f"phase 13 (a): error frames: {wave['errors'][:3]}")
+                out["first_wave"] = {
+                    "tokens": wave["tokens"], "wall_s": wave["wall_s"],
+                    "tok_s": wave["tokens"] / wave["wall_s"],
+                    "ttft_p50_ms": pct(wave["ttft_ms"], 50),
+                    "ttft_p99_ms": pct(wave["ttft_ms"], 99)}
+                # (b) the control, and a session left to park.
+                ws = await http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm")
+                await ws.receive(timeout=60)
+                before, term = await ws_turn(ws, "Why is the sea salty?",
+                                             PHASE13_CONTROL)
+                await ws.close()
+                if term["type"] != "response_complete":
+                    fail(f"phase 13 (b): control run failed: {term}")
+                park = await http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm")
+                sid = json.loads((await park.receive(timeout=60)).data)[
+                    "session_id"]
+                _, term = await ws_turn(park, "Tell me about the ocean.", {
+                    "max_tokens": 32, "temperature": 0.0,
+                    "ignore_eos": True})
+                if term["type"] != "response_complete":
+                    fail(f"phase 13 (b): the session to park failed: {term}")
+                await until(lambda: engine.parked_kv_info(sid), 30,
+                            "the idle session never parked", 0.05)
+                out["parked"] = engine.parked_kv_info(sid)
+                mem_before, _ = cuda_memory()
+                # The burst, and the crash mid-burst.
+                restarts0 = restarts_total.value
+                steps0 = engine.decode_steps
+                burst = [asyncio.create_task(burst_session(http, port))
+                         for _ in range(SLOTS)]
+                # Mid-burst: the sessions decode, tokens streaming.
+                await until(lambda: len(engine._running) >= SLOTS // 2
+                            and engine.decode_steps - steps0 >= 64, 120,
+                            "the burst never decoded")
+                await post_fault(http, mon, {
+                    "spec": "engine.decode.dispatch=crash_thread;count=1"})
+                t_arm = time.monotonic()
+                t_dead = await until(lambda: not engine.check_connection(),
+                                     60, "the crash never killed the thread")
+                mem_dead, _ = cuda_memory()
+                await post_fault(http, mon, {"clear": True})
+                t_ready = await until(lambda: ready(http, mon), 120,
+                                      "/health/ready never came back", 0.02)
+                results = await asyncio.gather(*burst)
+                mem_after, _ = cuda_memory()
+                restart = restart_calls[0]
+                health = await get_json(http, mon + "/health")
+                out["crash"] = {
+                    "arm_to_dead_ms": (t_dead - t_arm) * 1e3,
+                    "crash_to_ready_ms": (t_ready - t_dead) * 1e3,
+                    "restart_ms": restart["ms"],
+                    "memory_allocated_before": mem_before,
+                    "memory_allocated_at_crash": mem_dead,
+                    "memory_allocated_after": mem_after,
+                    "restart_allocated_before": restart["allocated_before"],
+                    "restart_allocated_after": restart["allocated_after"],
+                    "restart_peak_allocated": restart["peak"],
+                    "kv_cache_bytes": kv_bytes,
+                    "burst_token_frames": [n for n, _ in results],
+                    "burst_terminals": [[f["type"] for f in fr]
+                                        for _, fr in results],
+                    "health_status": health["status"],
+                    "supervisor": health.get("supervisor")}
+                bad = [fr for _, fr in results
+                       if len(fr) != 1 or fr[0]["type"] != "error"]
+                if bad:
+                    fail(f"phase 13 (b): a burst session did not end with "
+                         f"exactly one error frame: {bad[:2]}")
+                if restarts_total.value - restarts0 != 1:
+                    fail(f"phase 13 (b): engine_restarts_total moved by "
+                         f"{restarts_total.value - restarts0}, not 1")
+                if (health.get("supervisor") or {}).get("state") != "ok":
+                    fail(f"phase 13 (b): /health supervisor after the "
+                         f"restart: {health.get('supervisor')}")
+                if mem_after - mem_before > kv_bytes // 2 \
+                        or restart["peak"] - restart["allocated_before"] \
+                        > kv_bytes // 2:
+                    fail(f"phase 13 (b): a second KV cache on the card: "
+                         f"{mem_before} bytes before the burst, {mem_after} "
+                         f"after the restart; the restart {restart} (KV "
+                         f"cache {kv_bytes})")
+                # The post-restart traffic's launches, from here.
+                zero_launches()
+                # The crash race window: submissions at the engine seam
+                # while its liveness check still reads true.
+                engine.check_connection = lambda: True
+                try:
+                    await post_fault(http, mon, {
+                        "spec": "engine.loop.tick=crash_thread;count=1"})
+                    await until(lambda: not engine._thread.is_alive(), 60,
+                                "the loop-tick crash never killed the thread")
+                    await post_fault(http, mon, {"clear": True})
+                    queued = [asyncio.create_task(seam_request(i))
+                              for i in range(4)]
+                    # The agent submits each as its first round, "<id>.t0".
+                    await until(lambda: sum(rid.startswith("race-")
+                                            for rid in engine._by_id) == 4,
+                                30, "the race-window requests were not "
+                                "queued")
+                finally:
+                    del engine.__dict__["check_connection"]
+                served = await asyncio.wait_for(asyncio.gather(*queued), 120)
+                for events in served:
+                    if events[-1]["type"] != "done" or sum(
+                            e["type"] == "token" for e in events) < 1:
+                        fail(f"phase 13 (b): a request queued during the "
+                             f"outage was not served: {events[-2:]}")
+                out["queued_during_outage"] = [
+                    e[-1]["stats"]["tokens_generated"] for e in served]
+                # The breaker opened on the burst's errors: wait for it.
+                t_breaker = time.monotonic()
+                await until(lambda: _breaker_passes(http, serving), 90,
+                            "the circuit breaker never half-opened", 0.5)
+                out["breaker_wait_s"] = time.monotonic() - t_breaker
+                ws = await http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm")
+                await ws.receive(timeout=60)
+                after, term = await ws_turn(ws, "Why is the sea salty?",
+                                            PHASE13_CONTROL)
+                await ws.close()
+                if term["type"] != "response_complete" or after != before:
+                    fail(f"phase 13 (b): the control after the restart "
+                         f"differs: {term}, {after[:8]} vs {before[:8]}")
+                restored0 = engine.get_stats()["kv_host"]["restored_total"]
+                _, term = await ws_turn(park, "And what lives in it?")
+                await park.close()
+                stats = term.get("stats", {})
+                restored = engine.get_stats()["kv_host"]["restored_total"]
+                # (The agent's response_complete carries no prefill_tokens:
+                # the pool's restore count is the evidence.)
+                out["restored_turn"] = {
+                    "prompt_tokens": stats.get("prompt_tokens"),
+                    "ttft_ms": stats.get("ttft_ms"),
+                    "restored": restored - restored0}
+                if term["type"] != "response_complete" \
+                        or restored - restored0 < 1:
+                    fail(f"phase 13 (b): the parked session did not restore "
+                         f"after the restart: {term}, restored "
+                         f"{restored - restored0}")
+                out["launches_after_restart"] = {
+                    k: c() for k, c in counters.items()}
+                out["restarts_total"] = restarts_total.value - restarts0
+        finally:
+            launcher.stop()
+            await asyncio.wait_for(task, 120)
+        return out
+
+    res = asyncio.run(asyncio.wait_for(run_ab(), timeout=900))
+    for key in ("launches_warmup", "launches_first_wave",
+                "launches_after_restart"):
+        for name in ("int8_matmul", "int8_matmul_t", "decode_attend"):
+            if res[key][name] <= 0:
+                fail(f"phase 13: kernel {name} never launched in "
+                     f"{key.replace('launches_', '')}")
+    if engine._thread.is_alive():
+        fail("phase 13: the engine thread outlived the launcher")
+    w, c = res["first_wave"], res["crash"]
+    log(f"phase 13 (a): TPU_WARMUP=fast to serving in "
+        f"{res['warmup_to_serving_s']:.6g} s; first wave {w['tokens']} "
+        f"tokens in {w['wall_s']:.6g} s ({w['tok_s']:.6g} decode tok/s), TTFT "
+        f"p50 {w['ttft_p50_ms']} ms, p99 {w['ttft_p99_ms']} ms")
+    log(f"phase 13 (b): crash to ready {c['crash_to_ready_ms']:.6g} ms "
+        f"(armed to dead {c['arm_to_dead_ms']:.6g} ms; restart() "
+        f"{c['restart_ms']:.6g} ms); memory allocated "
+        f"{c['memory_allocated_before']} bytes before the burst, "
+        f"{c['memory_allocated_at_crash']} at the crash, "
+        f"{c['memory_allocated_after']} after; in restart() "
+        f"{c['restart_allocated_before']} -> {c['restart_allocated_after']}"
+        f", peak {c['restart_peak_allocated']} (KV cache "
+        f"{c['kv_cache_bytes']}); /health {c['health_status']}, supervisor "
+        f"{c['supervisor']}; token frames before the crash "
+        f"{c['burst_token_frames']}")
+    log(f"  queued during the outage, served: {res['queued_during_outage']} "
+        f"tokens; breaker wait {res['breaker_wait_s']:.6g} s; restored turn "
+        f"{res['restored_turn']}; parked {res['parked']}")
+    log(f"  launches: warm-up {res['launches_warmup']}, first wave "
+        f"{res['launches_first_wave']}, after the restart "
+        f"{res['launches_after_restart']}")
+    del launcher, engine
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # (c) the restart storm.
+    storm = ServerLauncher(config(supervisor_max_restarts=2,
+                                  supervisor_backoff_s=0.25, warmup="off"),
+                           device="cuda", watchdog_interval_s=0.25)
+    attempts = counted_restarts(storm.engine)
+
+    async def run_c() -> dict:
+        task = asyncio.create_task(storm.run())
+        while "monitoring" not in storm.addresses:
+            if task.done():
+                task.result()
+                fail("phase 13 (c): the launcher stopped before serving")
+            await asyncio.sleep(0.02)
+        port = storm.addresses["serving"][1]
+        mon = f"http://127.0.0.1:{storm.addresses['monitoring'][1]}"
+        try:
+            async with aiohttp.ClientSession() as http:
+                first = await drive_sessions(port, 1, 8)
+                if first["errors"]:
+                    fail(f"phase 13 (c): {first['errors']}")
+                await post_fault(http, mon,
+                                 {"spec": "engine.loop.tick=crash_thread"})
+                t0 = time.monotonic()
+
+                async def dead() -> bool:
+                    return (await get_json(http, mon + "/health"))[
+                        "status"] == "dead"
+                t_dead = await until(dead, 60, "/health never read dead",
+                                     0.05)
+                await asyncio.sleep(1.0)  # no attempt after exhaustion
+                async with http.get(mon + "/health/ready") as r:
+                    ready_status = r.status
+                health = await get_json(http, mon + "/health")
+                await post_fault(http, mon, {"clear": True})
+        finally:
+            t_stop = time.monotonic()
+            storm.stop()
+            await asyncio.wait_for(task, 120)
+        return {"to_dead_s": t_dead - t0, "attempts": len(attempts),
+                "restart_ms": [a["ms"] for a in attempts],
+                "ready_status": ready_status,
+                "supervisor": health.get("supervisor"),
+                "shutdown_s": time.monotonic() - t_stop}
+
+    storm_res = asyncio.run(asyncio.wait_for(run_c(), timeout=300))
+    if storm_res["attempts"] != 2 or storm_res["ready_status"] != 503 \
+            or (storm_res["supervisor"] or {}).get("state") != "exhausted":
+        fail(f"phase 13 (c): the storm did not exhaust the budget as "
+             f"expected: {storm_res}")
+    if storm.engine._thread.is_alive():
+        fail("phase 13 (c): the engine thread outlived the launcher")
+    log(f"phase 13 (c): restart storm: {storm_res['attempts']} attempts "
+        f"({storm_res['restart_ms']} ms), /health dead after "
+        f"{storm_res['to_dead_s']:.6g} s, /health/ready "
+        f"{storm_res['ready_status']}, clean shutdown in "
+        f"{storm_res['shutdown_s']:.6g} s")
+    log(f"phase 13: {time.monotonic() - t13:.6g} s")
+    del storm
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return {**res, "storm": storm_res}
+
+
+async def _breaker_passes(http, serving: str) -> bool:
+    """The serving port's circuit breaker lets a request through."""
+    async with http.get(serving + "/health") as r:
+        body = await r.json()
+    return body.get("circuit_breaker", {}).get("state") != "open"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2251,6 +2724,7 @@ def main() -> int:
     p11 = phase11(counters)
     launches_11 = p11["launches"]
     p12 = phase12(counters)
+    p13 = phase13(counters)
 
     launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
                    "int8_matmul_t": st10["launches"]["int8_matmul_t"],
@@ -2305,6 +2779,11 @@ def main() -> int:
             **({"launches_structured": launches_st[name]}
                if name in launches_st else {}),
             "launches_phase11": launches_11[name],
+            **({"launches_phase13": {
+                part: p13[f"launches_{part}"][name]
+                for part in ("warmup", "first_wave", "after_restart")}}
+               if name in ("int8_matmul", "int8_matmul_t", "decode_attend")
+               else {}),
             "work": r["work"], "card": card})
     print(json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
@@ -2344,7 +2823,9 @@ def main() -> int:
                         f"turn {t}": deltas(x, t)
                         for t in range(2, x["turns"] + 1)}}
             for label, x in p11.items() if label != "launches"},
-        "observability": {**p12, "card": card}}),
+        "observability": {**p12, "card": card},
+        "lifecycle": {**{k: v for k, v in p13.items()
+                         if not k.startswith("launches_")}, "card": card}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

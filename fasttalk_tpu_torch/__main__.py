@@ -1,9 +1,12 @@
 """Command line of the port.
 
-``python -m fasttalk_tpu_torch websocket [--device cuda|cpu]`` builds the
-engine from the environment (utils/config.py: LLM_MODEL, MODEL_PATH,
-TPU_DECODE_SLOTS, TPU_MAX_MODEL_LEN, WEIGHT_QUANT, LLM_PORT, ...) and serves
-the WebSocket protocol on ``/ws/llm`` until interrupted.
+``python -m fasttalk_tpu_torch websocket [--device cuda|cpu]`` runs the
+launcher (serving/launcher.py): the engine from the environment
+(utils/config.py: LLM_PROVIDER, LLM_MODEL, MODEL_PATH, TPU_DECODE_SLOTS,
+TPU_MAX_MODEL_LEN, WEIGHT_QUANT, LLM_PORT, ...), the tool-calling agent
+around it unless ENABLE_PYDANTIC_AI or ENABLE_TOOLS is false, warm-up
+(TPU_WARMUP), the WebSocket protocol on ``/ws/llm``, the monitoring port
+and the restart supervisor, until SIGINT or SIGTERM.
 
 ``python -m fasttalk_tpu_torch quantize --model tinychat --model-path
 fasttalk_tpu/assets [--group 128] [--calib corpus|FILE] [--calib-samples 16]
@@ -20,8 +23,6 @@ group and dtype restores it. The counterpart of
 from __future__ import annotations
 
 import argparse
-import asyncio
-import signal
 import sys
 
 
@@ -126,25 +127,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "quantize":
         return quantize(args)
 
-    from fasttalk_tpu_torch.engine.factory import build_engine
-    from fasttalk_tpu_torch.serving.server import serve
+    from fasttalk_tpu_torch.serving.launcher import ServerLauncher
     from fasttalk_tpu_torch.utils.config import Config
 
-    config = Config()
-    engine = build_engine(config, device=args.device)
-    engine.start()
-
-    async def run() -> None:
-        stop = asyncio.Event()
-        loop = asyncio.get_running_loop()
-        for sig in (signal.SIGINT, signal.SIGTERM):
-            loop.add_signal_handler(sig, stop.set)
-        await serve(config, engine, stop)
-
-    try:
-        asyncio.run(run())
-    finally:
-        engine.shutdown()
+    ServerLauncher(Config(), device=args.device).start()
     return 0
 
 

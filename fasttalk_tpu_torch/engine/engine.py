@@ -96,8 +96,22 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   ``DeviceClock``), keyed by ``program_key`` for the perf ledger. A
   request with ``journey`` carries per-token stamps on its token events.
 
-A device mesh, ``prefill_only`` (the disaggregated tier), the migration
-of parked entries and ``restart()`` are not part of this engine.
+- **Lifecycle** (JAX :1034-1215): ``warmup(level)`` runs the serving
+  shapes through the model before ``start()`` (building the kernels on the
+  card), its writes going only into gathered copies or masked rows;
+  ``shutdown(timeout_s)`` waits once for the thread and logs a stuck
+  thread's stack; ``restart()`` recovers from an engine-thread crash: it
+  waits for the card to finish what the dead thread queued (a sticky CUDA
+  error fails it), keeps the host KV pool and the requests submitted in
+  the crash race window, and rebuilds the slots, the paged allocator and
+  radix tree, the KV cache (the old one released first) and the decode
+  state before a new thread starts on the same command queue. The
+  failpoint seams ``engine.loop.tick``, ``engine.prefill.dispatch``,
+  ``engine.decode.dispatch`` and ``engine.retire.fetch`` are the JAX
+  engine's (resilience/failpoints.py).
+
+A device mesh, ``prefill_only`` (the disaggregated tier) and the migration
+of parked entries are not part of this engine.
 """
 
 from __future__ import annotations
@@ -130,6 +144,7 @@ from fasttalk_tpu_torch.kvcache.radix import RadixTree
 from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.models.llama import (KVCache, forward, init_cache,
                                              init_paged_cache)
+from fasttalk_tpu_torch.observability.events import get_events
 from fasttalk_tpu_torch.observability.perf import (DeviceClock, get_perf,
                                                    program_key)
 from fasttalk_tpu_torch.observability.slo import get_slo
@@ -335,6 +350,10 @@ class EngineBase:
     def shutdown(self) -> None:
         raise NotImplementedError
 
+    def warmup(self, level: str = "off") -> None:
+        """Run the hot shapes before serving traffic (no-op by default;
+        ``TorchEngine`` overrides)."""
+
     def begin_drain(self) -> None:
         """Graceful drain: refuse new submissions (with retry_after) while
         queued and running requests finish. No-op by default."""
@@ -433,6 +452,13 @@ class TorchEngine(EngineBase):
                  structured_cache: int = 64,
                  structured_json_depth: int = 3):
         self.device = resolve_device(device)
+        # The card the tensors live on: "cuda" without an index is the
+        # constructing thread's current device, which the engine's own
+        # threads must bind too.
+        self._cuda_index = (
+            (self.device.index if self.device.index is not None
+             else torch.cuda.current_device())
+            if self.device.type == "cuda" else None)
         self.cfg = model_cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -519,13 +545,7 @@ class TorchEngine(EngineBase):
                 or num_slots * self.max_len // bs
             self._kv_blocks = BlockAllocator(self.kv_pool_blocks, bs,
                                              num_slots)
-            self.cache: KVCache = init_paged_cache(
-                model_cfg, self.kv_pool_blocks, bs, dtype, self.device,
-                quantized=self.kv_quant, scale_granule=self.kv_scale_granule)
-        else:
-            self.cache = init_cache(model_cfg, num_slots, self.max_len, dtype,
-                                    self.device, quantized=self.kv_quant,
-                                    scale_granule=self.kv_scale_granule)
+        self.cache: KVCache | None = self._make_cache()
         # Radix prefix cache (JAX :551-576): the tree owns pool blocks, so
         # it needs the paged layout (Config fails the same way).
         if kv_radix and not self.paged:
@@ -603,6 +623,11 @@ class TorchEngine(EngineBase):
         self._thread: threading.Thread | None = None
         self._stopped = threading.Event()
         self._started = False
+        # start/shutdown/restart serialise here; a shut-down engine is never
+        # restarted (JAX :822-829).
+        self._lifecycle_lock = threading.Lock()
+        self._closed = False
+        self._events = get_events()
         self._term_lock = threading.Lock()
         self.tokens_generated = 0
         self.decode_calls = 0
@@ -706,6 +731,18 @@ class TorchEngine(EngineBase):
         self._devclock = DeviceClock(self.device)
         self._dev_pending: deque[tuple[str, Any, Any, dict]] = deque()
 
+    def _make_cache(self) -> KVCache:
+        """A zeroed KV cache: the block pool (paged) or one region per slot
+        (dense)."""
+        if self.paged:
+            return init_paged_cache(
+                self.cfg, self.kv_pool_blocks, self.kv_block_size, self.dtype,
+                self.device, quantized=self.kv_quant,
+                scale_granule=self.kv_scale_granule)
+        return init_cache(self.cfg, self.num_slots, self.max_len, self.dtype,
+                          self.device, quantized=self.kv_quant,
+                          scale_granule=self.kv_scale_granule)
+
     def _reset_decode_state(self) -> None:
         s = self.num_slots
         self._positions = np.zeros((s,), np.int64)
@@ -740,6 +777,8 @@ class TorchEngine(EngineBase):
         self._st_tables: FSMTables | None = None
         self._st_dirty: set[int] = set()
         self._st_jf_pending: set[str] = set()
+        if self._st_arena is not None:
+            self._st_arena.dirty = True   # fresh state: upload the tables
 
     # ---------------- public (asyncio side) ----------------
 
@@ -753,15 +792,215 @@ class TorchEngine(EngineBase):
         self._thread.start()
 
     def shutdown(self, timeout_s: float = 30.0) -> None:
-        if self._started:
-            self._commands.put(("stop", None))
-            self._stopped.wait(timeout=timeout_s)
-            if self._thread is not None:
-                self._thread.join(timeout=timeout_s)
+        """Stop the engine thread, waiting up to ``timeout_s`` for it once;
+        a thread still stuck then is reported with its stack and left
+        behind (JAX :1044-1082)."""
+        with self._lifecycle_lock:
+            self._closed = True
+            if self._started:
+                self._commands.put(("stop", None))
+                deadline = time.monotonic() + timeout_s
+                if self._stopped.wait(timeout=timeout_s):
+                    # _stopped is the thread's last act: the join is short.
+                    if self._thread is not None:
+                        self._thread.join(
+                            timeout=max(0.0, deadline - time.monotonic()))
+                else:
+                    self._log_stuck_thread(timeout_s)
+                self._started = False
+                if self._st_compiler is not None:
+                    self._st_compiler.shutdown()
+            self._kv_offload.shutdown()
+
+    def _log_stuck_thread(self, timeout_s: float) -> None:
+        """The thread did not stop in time: log where it is stuck and emit
+        a critical ``engine_shutdown_stuck`` event carrying the stack."""
+        import sys
+        import traceback
+
+        thread = self._thread
+        stack = ""
+        if thread is not None and thread.ident is not None:
+            frame = sys._current_frames().get(thread.ident)
+            if frame is not None:
+                stack = "".join(traceback.format_stack(frame))
+        log.critical(
+            f"engine thread failed to stop within {timeout_s:.0f}s; "
+            f"leaking it. Stuck at:\n{stack or '<thread already gone>'}")
+        self._events.emit("engine_shutdown_stuck", severity="critical",
+                          timeout_s=timeout_s,
+                          stack=stack[-2000:] if stack else "")
+
+    def restart(self) -> bool:
+        """Recover from an engine-thread crash (JAX :1084-1206): rebuild
+        the device state and start a new thread on the same command queue,
+        so requests submitted during the outage are served. Session
+        residency on the card is dropped (a session's next turn restores
+        its parked host rows or prefills); the host KV pool is kept.
+
+        The card first finishes everything the dead thread queued (decode
+        calls, first-token and KV snapshot copies, the offload side
+        stream's uploads), so nothing still reads the cache and decode
+        state that are dropped next. A CUDA error there is sticky (the
+        context is lost): the restart fails and the supervisor's budget
+        runs out, never carrying on on the CPU. Returns False after
+        ``shutdown``, while the old thread is still alive, or on failure.
+        """
+        with self._lifecycle_lock:
+            if self._closed:
+                return False  # shutdown won; never resurrect past it
+            if self.check_connection():
+                return True
+            if self._thread is not None and self._thread.is_alive():
+                return False  # still tearing down; try again later
+            log.warning("engine restart: rebuilding device decode state")
+            self._events.emit("engine_restart", severity="critical",
+                              parked_sessions=len(self._kv_pool))
+            try:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            except Exception as e:
+                log.critical(f"engine restart failed: the device did not "
+                             f"finish the crashed thread's work: {e}")
+                return False
+            # Requests _abort_all ended must not be admitted; ones submitted
+            # after its sweep (the crash race window) stay queued and
+            # registered, pruned in place since generate() may register
+            # concurrently.
+            self._sched.remove_finished()
+            self._prefilling.clear()
+            self._running.clear()
+            self._release_after.clear()
+            for rid in [rid for rid, r in self._by_id.items()
+                        if r.finished]:
+                self._by_id.pop(rid, None)
+            self.slots = SlotManager(self.num_slots, self.max_len,
+                                     on_evict=self._park_on_evict,
+                                     on_unpin=self._on_slot_unpin)
+            if self.paged:
+                # Every session re-prefills, so no table survives; the tree
+                # is rebuilt empty over the fresh pool.
+                self._kv_blocks = BlockAllocator(
+                    self.kv_pool_blocks, self.kv_block_size, self.num_slots)
+                if self._kv_radix is not None:
+                    self._kv_radix = RadixTree(
+                        self._kv_blocks,
+                        min_free_blocks=self._kv_radix.min_free_blocks,
+                        evict_policy=self._kv_radix.evict_policy,
+                        token_bytes=self._kv_radix.token_bytes)
+                    self._kv_blocks.set_pressure(self._kv_radix.evict)
+            # Release the old cache and everything the dead thread's calls
+            # held before allocating anew: holding both would double the
+            # KV cache on the card. Its CUDA events are dropped unread. The
+            # rows are freed outright, whoever still holds the tensors (a
+            # frame of the dead thread kept alive elsewhere): after the
+            # sync above nothing reads them again.
+            old, self.cache = self.cache, None
+            for part in old or ():
+                if part is not None:
+                    part.untyped_storage().resize_(0)
+            del old
+            self._inflight.clear()
+            self._pending_firsts.clear()
+            self._dev_pending.clear()
+            self._dev = None
+            try:
+                self.cache = self._make_cache()
+                self._reset_decode_state()
+            except Exception as e:
+                log.critical(f"engine restart failed: {e}", exc_info=True)
+                return False
             self._started = False
-            if self._st_compiler is not None:
-                self._st_compiler.shutdown()
-        self._kv_offload.shutdown()
+            self.start()
+            return self.check_connection()
+
+    def warmup(self, level: str = "fast") -> None:
+        """Run the serving shapes through the model before ``start()``, in
+        the caller's thread, so the first request pays neither the kernel
+        builds nor the first launches (JAX :1208-1450).
+
+        ``fast``: the decode calls of the first KV bucket (every step
+        count the engine dispatches, plain and, with speculative decoding,
+        the verify block) and the prefill of the common prompt bucket, the
+        largest bucket within the chunk and the chunk's own bucket, for one
+        row and for ``num_slots`` rows. ``full``: every KV bucket up to the
+        cache length and every prefill bucket. The decode calls run with
+        every slot inactive, so their cache and history writes are masked;
+        the prefills run over gathered copies of cache rows, so they write
+        nothing the engine reads. The decode state is reset afterwards. A
+        kernel that fails to build raises here."""
+        if level in ("off", "", "none"):
+            return
+        if level not in ("fast", "full"):
+            raise ValueError(f"warmup level must be off|fast|full, "
+                             f"got {level!r}")
+        if self._started:
+            raise RuntimeError("warmup() must be called before start()")
+        t0 = time.monotonic()
+        kv_buckets = [b for b in _KV_BUCKETS if b <= self.max_len] \
+            or [self.max_len]
+        chunk_bucket = next((b for b in _PREFILL_BUCKETS
+                             if b >= self.prefill_chunk), _PREFILL_BUCKETS[-1])
+        pbuckets = [b for b in _PREFILL_BUCKETS if b <= self.prefill_chunk] \
+            or [_PREFILL_BUCKETS[0]]
+        if level == "fast":
+            common = 64 if 64 in pbuckets else pbuckets[0]
+            pbuckets = sorted({common, pbuckets[-1], chunk_bucket})
+            kv_buckets = kv_buckets[:1]
+        kw = dict(sample_vocab=self.sample_vocab, method=self.sampling_method,
+                  block_size=self.kv_block_size if self.paged else 0)
+        toks = None
+        for kv_len in kv_buckets:
+            table = self._decode_table(kv_len)
+            for steps in sorted({self.steps_burst, self.steps_per_call}):
+                toks = plain_steps(self.params, self.cfg, self.cache,
+                                   self._dev, steps, kv_len, table=table,
+                                   **kw)
+                if self.spec_draft:
+                    spec_steps(self.params, self.cfg, self.cache, self._dev,
+                               steps, kv_len, self.spec_draft, table=table,
+                               **kw)
+        if toks is not None:
+            _HostCopy(toks).result()   # the pinned copy a retirement makes
+        for bucket in pbuckets:
+            ctx = _kv_bucket(bucket, self.max_len)
+            for group in sorted({1, self.num_slots}):
+                self._warm_prefill(group, bucket, ctx)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._reset_decode_state()
+        log.info(f"warmup ({level}) done in {time.monotonic() - t0:.1f}s: "
+                 f"decode KV buckets {kv_buckets}, prefill buckets "
+                 f"{pbuckets}")
+
+    def _warm_prefill(self, group: int, bucket: int, ctx: int) -> None:
+        """One ``[group, bucket]`` prefill and its first-token sample over a
+        gathered copy of slot 0's first ``ctx`` rows (the batched path's
+        shapes; one row is the chunked path's): the forward writes only
+        into the copy."""
+        dev = self.device
+        rows = torch.zeros((group, ctx), dtype=torch.long, device=dev)
+        if self.paged:
+            view = KVCache(*(None if x is None else x[:, rows]
+                             for x in self.cache))
+        else:
+            view = KVCache(*(None if x is None else x[:, rows[:, 0], :ctx]
+                             for x in self.cache))
+        positions = torch.arange(bucket, device=dev)[None].expand(group, -1)
+        logits, _ = forward(
+            self.params, self.cfg,
+            torch.zeros((group, bucket), dtype=torch.int64, device=dev),
+            positions, view, torch.zeros((group,), dtype=torch.int64,
+                                         device=dev),
+            blockwise=True,
+            logits_indices=torch.full((group,), bucket - 1, device=dev))
+        firsts = sample_tokens(
+            logits[:, 0, :self.sample_vocab], self._dev.gen,
+            torch.ones((group,), dtype=torch.float32, device=dev),
+            torch.full((group,), 40, dtype=torch.int64, device=dev),
+            torch.full((group,), 0.9, dtype=torch.float32, device=dev),
+            method=self.sampling_method)
+        _HostCopy(firsts).result()
 
     def check_connection(self) -> bool:
         return self._started and self._thread is not None \
@@ -1106,11 +1345,18 @@ class TorchEngine(EngineBase):
                  device=str(self.device))
         reason = "engine shut down"
         try:
+            if self._cuda_index is not None:
+                # A new thread (a restart's too) binds the engine's card.
+                torch.cuda.set_device(self._cuda_index)
             self._devclock.anchor()
             while True:
                 # Watchdog heartbeat: one float store per pass; an idle
                 # loop still passes every 50 ms (the command timeout).
                 self._hb_mono = time.monotonic()
+                if _fp.enabled:
+                    # Chaos seam: crash_thread or hang the engine thread
+                    # itself (the supervisor-restart and watchdog drills).
+                    _fp.fire("engine.loop.tick")
                 idle = not self._running and not self._inflight \
                     and not self._prefilling and not self._pending_firsts
                 if idle and self._dev_pending:
@@ -1155,7 +1401,10 @@ class TorchEngine(EngineBase):
                 self._m_active.set(len(self._running))
                 self._m_queue.set(len(self._sched) + len(self._prefilling))
                 self._kv_tick()
-        except Exception as e:
+        except (_fp.FaultCrash, Exception) as e:
+            # FaultCrash is a BaseException (it escapes every scoped
+            # handler as a real fault would); a crash here still ends every
+            # request with its reason and sets _stopped for the supervisor.
             log.critical(f"engine thread crashed: {e}", exc_info=True)
             reason = f"engine crashed: {e}"
         finally:
@@ -1472,6 +1721,11 @@ class TorchEngine(EngineBase):
         chunk's rows scattered back; each row writes from its own start.
         PyTorch needs no fixed group shape, so the group has no padding
         rows (JAX pads to 1 or num_slots to bound its executables)."""
+        if _fp.enabled:
+            # The chunked path's seam name: _prefill_batched's handler
+            # scopes an `error` to this group's requests.
+            _fp.fire("engine.prefill.dispatch",
+                     request_id=";".join(r.request_id for r, _, _, _ in sub))
         if self.paged:
             # Blocks for every row's padded write horizon before anything
             # is built: a row the pool cannot hold sheds here and the rest
@@ -1570,6 +1824,13 @@ class TorchEngine(EngineBase):
         st = self._prefilling[0]
         req, slot = st.req, st.slot
         try:
+            if _fp.enabled:
+                # Chaos seam: `error` is scoped to this request by the
+                # handler below; `crash_thread` escapes it and kills the
+                # thread.
+                _fp.fire("engine.prefill.dispatch",
+                         request_id=req.request_id,
+                         session_id=req.session_id)
             take = min(len(st.todo), self.prefill_chunk)
             bucket = next(b for b in _PREFILL_BUCKETS if b >= take)
             # A padded bucket must not run past the cache end.
@@ -1817,6 +2078,11 @@ class TorchEngine(EngineBase):
 
     def _dispatch_decode(self) -> None:
         """Launch one K-step decode call; does not wait for results."""
+        if _fp.enabled:
+            # Chaos seam: an `error` here is a dispatch failure; it reaches
+            # _run's crash handler (terminal events for every request, a
+            # supervisor restart), as a real launch fault would.
+            _fp.fire("engine.decode.dispatch")
         steps = (self.steps_burst if len(self._sched) or self._prefilling
                  or any(r.first_pending for r in self._running.values())
                  else self.steps_per_call)
@@ -1910,6 +2176,11 @@ class TorchEngine(EngineBase):
         speculative call's [K, S, T + 1] rows give their first ``n_out``
         tokens (the last column)."""
         call = self._inflight.popleft()
+        if _fp.enabled:
+            # Chaos seam: `hang` here is the wedged device call; the
+            # heartbeat goes stale and the watchdog must force_fail the
+            # stalled requests.
+            _fp.fire("engine.retire.fetch")
         snapshot = call.snapshot
         gen_before = ({id(req): req.generated for _, req in snapshot}
                       if call.marks is not None else {})

@@ -10,6 +10,11 @@ group-wise for the seven layer matmuls), load the tokenizer, and build the
 ``TorchEngine`` with the weight and KV tier settings, the sampling method,
 speculative decoding, shared-prefix reuse and the admission scheduler's
 settings (``fasttalk_tpu/engine/factory.py`` :395-402).
+
+``LLM_PROVIDER`` selects the backend as the JAX factory does (:224-250):
+``tpu`` is this in-tree engine, ``fake`` the in-memory ``FakeEngine``,
+``vllm``/``openai`` and ``ollama`` the HTTP passthrough engines of
+engine/remote.py, which need no device.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import os
 
 import torch
 
-from fasttalk_tpu_torch.engine.engine import TorchEngine
+from fasttalk_tpu_torch.engine.engine import EngineBase, TorchEngine
+from fasttalk_tpu_torch.engine.fake import FakeEngine
 from fasttalk_tpu_torch.engine.tokenizer import HFTokenizer, load_tokenizer
 from fasttalk_tpu_torch.models.configs import ModelConfig, get_model_config
 from fasttalk_tpu_torch.models.loader import (find_checkpoint_dir,
@@ -155,10 +161,31 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
 
 
 def build_engine(cfg: Config, device: str | torch.device | None = None,
-                 seed: int = 0, prepared_cache: bool = True) -> TorchEngine:
+                 seed: int = 0, prepared_cache: bool = True) -> EngineBase:
     """The engine ``cfg`` describes. ``prepared_cache=False`` loads and
     quantizes the checkpoint itself, neither reading nor writing the
     prepared-weight cache (checks of the load path)."""
+    if cfg.llm_provider == "fake":  # internal/testing
+        return FakeEngine()
+    if cfg.llm_provider in ("vllm", "openai"):
+        # "openai" = any OpenAI-compatible HTTP backend; the wire protocol
+        # is vLLM's.
+        from fasttalk_tpu_torch.engine.remote import VLLMRemoteEngine
+
+        return VLLMRemoteEngine(
+            cfg.vllm_base_url, cfg.vllm_model, api_key=cfg.vllm_api_key,
+            timeout_s=cfg.vllm_timeout, max_inflight=cfg.remote_max_inflight,
+            admission_timeout_s=cfg.sched_default_deadline_s,
+            connect_retries=cfg.remote_connect_retries)
+    if cfg.llm_provider == "ollama":
+        from fasttalk_tpu_torch.engine.remote import OllamaRemoteEngine
+
+        return OllamaRemoteEngine(
+            cfg.ollama_base_url, cfg.model_name,
+            keep_alive=cfg.ollama_keep_alive, timeout_s=cfg.ollama_timeout,
+            max_inflight=cfg.remote_max_inflight,
+            admission_timeout_s=cfg.sched_default_deadline_s,
+            connect_retries=cfg.remote_connect_retries)
     dev = resolve_device(device)
     model_cfg = get_model_config(cfg.model_name, cfg.model_path)
     dtype = cfg.torch_dtype

@@ -6,15 +6,17 @@ metrics registry and observability singletons, with every route of the
 JAX app (:503-521):
 
 - ``/health`` (host CPU and memory, the scheduler's overload state, the
-  watchdog and the SLO burn state), ``/health/ready``, ``/health/live``;
+  watchdog, the SLO burn state, the supervisor's restart budget, which
+  reads ``dead`` once exhausted, and a warning while fault injection is
+  armed), ``/health/ready``, ``/health/live``;
 - ``/slo``, ``/perf``, ``/events``, ``/metrics`` (Prometheus text; the
   heartbeat-age and ``perf_*`` gauges refreshed at scrape time),
   ``/metrics.json``, ``/info``;
 - ``POST /debug/bundle`` (a flight-recorder bundle), ``/debug/profile``
   (the host stack sampler), ``/debug/requests`` (in-flight and queued
-  requests), ``GET /debug/fault`` (the failpoint catalog) and ``POST
-  /debug/fault``, which answers 403 as the JAX app does with
-  ``FAULT_HTTP`` off (runtime fault control is not served here);
+  requests), ``GET /debug/fault`` (the failpoint catalog and the armed
+  rules, always served) and ``POST /debug/fault`` (arm a spec or clear
+  it), which answers 403 unless ``FAULT_HTTP`` is on;
 - ``/traces`` (the completed-trace ring; ``?format=chrome|jsonl``) and
   ``/traces/{request_id}``;
 - ``POST /profiler/start`` and ``POST /profiler/stop``: a
@@ -87,11 +89,15 @@ def _system() -> dict[str, Any]:
 
 
 def build_monitoring_app(ready_check=None, sched_info=None,
+                         supervisor_info=None, fault_http=False,
                          ) -> web.Application:
     """``ready_check``: zero-arg callable, False makes ``/health/ready``
     503. ``sched_info``: zero-arg callable returning the engine's
     scheduler view (``TorchEngine.scheduler_debug``) for ``/health`` and
-    ``/debug/requests``."""
+    ``/debug/requests``. ``supervisor_info``: zero-arg callable returning
+    the launcher's restart-budget state; "exhausted" marks ``/health``
+    dead. ``fault_http``: serve ``POST /debug/fault`` (off by default: the
+    monitoring port is unauthenticated)."""
     app = web.Application()
     # One worker thread owns the torch.profiler session: started and
     # stopped there, off the serving event loop.
@@ -159,6 +165,20 @@ def build_monitoring_app(ready_check=None, sched_info=None,
                     body["status"] = "degraded"
                 if state != "ok":
                     warnings.append(f"SLO burn {state} for {cls}")
+        # An exhausted restart budget: the engine is down and will not be
+        # restarted again.
+        if supervisor_info is not None:
+            try:
+                sup = supervisor_info()
+            except Exception:
+                sup = None
+            if sup is not None:
+                body["supervisor"] = sup
+                if sup.get("state") == "exhausted":
+                    body["status"] = "dead"
+                    warnings.append(
+                        "Supervisor restart budget exhausted; engine "
+                        "will not be restarted (restart the process)")
         if failpoints.enabled:
             body["fault_injection"] = {
                 "active_points": failpoints.active_points()}
@@ -380,11 +400,32 @@ def build_monitoring_app(ready_check=None, sched_info=None,
         return web.json_response(failpoints.describe())
 
     async def fault_post(request: web.Request) -> web.Response:
-        """Runtime fault control is not served: the JAX app's answer with
-        FAULT_HTTP off."""
-        return web.json_response(
-            {"error": "fault-injection HTTP control is disabled "
-             "(set FAULT_HTTP=true; never in production)"}, status=403)
+        """Arm a fault-injection spec (replacing the armed set) or clear
+        it: {"spec": "..."} | {"clear": true}. Gated by FAULT_HTTP."""
+        if not fault_http:
+            return web.json_response(
+                {"error": "fault-injection HTTP control is disabled "
+                 "(set FAULT_HTTP=true; never in production)"},
+                status=403)
+        try:
+            body = await request.json()
+        except Exception:
+            return web.json_response(
+                {"error": "body must be JSON: {\"spec\": \"...\"} or "
+                 "{\"clear\": true}"}, status=400)
+        if body.get("clear"):
+            failpoints.clear()
+            return web.json_response(failpoints.describe())
+        spec = body.get("spec")
+        if not isinstance(spec, str) or not spec.strip():
+            return web.json_response(
+                {"error": "missing \"spec\" (failpoint spec string) "
+                 "or \"clear\": true"}, status=400)
+        try:
+            failpoints.activate(spec)
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        return web.json_response(failpoints.describe())
 
     async def slo(request: web.Request) -> web.Response:
         """Per-class SLO report (observability/slo.py)."""

@@ -13,11 +13,7 @@ docker-compose.vllm.yml:50-51, so PydanticAI could drive the tool loop;
 here the hermes parsing is in-tree and the client drives the loop),
 GET /v1/models. Authentication mirrors vLLM's "not needed but accepted".
 
-The port's copy of ``fasttalk_tpu/serving/openai_api.py``. The port has
-no remote engines and no native agent yet: the backend is always the
-in-tree ``TorchEngine``, so ``_unwrap_agent`` returns it as it is and the
-``_RemoteEngine`` passthrough checks of the JAX module read "always in-tree"
-here (both return with the agents and remote providers).
+The port's copy of ``fasttalk_tpu/serving/openai_api.py`` (imports only).
 """
 
 from __future__ import annotations
@@ -36,6 +32,7 @@ from fasttalk_tpu_torch.agents.hermes import (
     HermesStreamParser, format_tool_result, inject_tools_section,
     tools_system_prompt)
 from fasttalk_tpu_torch.engine.engine import EngineBase, GenerationParams
+from fasttalk_tpu_torch.engine.remote import _RemoteEngine
 from fasttalk_tpu_torch.observability.trace import (
     bind_request, get_tracer, mint_trace_id, parse_traceparent,
     propagate_enabled)
@@ -239,9 +236,12 @@ def _inject_tools_prompt(messages: list[dict], specs: list[dict],
 
 def _unwrap_agent(engine):
     """Route around the native agent's tool loop for surfaces where the
-    CLIENT (or nobody) drives tools. The port has no native agent yet, so
-    the backend is the engine itself."""
-    return engine
+    CLIENT (or nobody) drives tools. Explicit isinstance: any other
+    wrapper that happens to hold an inner .engine must NOT be
+    bypassed."""
+    from fasttalk_tpu_torch.agents.voice_agent import VoiceAgent
+
+    return engine.engine if isinstance(engine, VoiceAgent) else engine
 
 
 @contextlib.contextmanager
@@ -542,27 +542,32 @@ def register_openai_routes(app: web.Application,
             # ever saw them. Explicit isinstance: any other wrapper that
             # happens to hold an inner .engine must NOT be bypassed.
             engine = _unwrap_agent(engine)
-        # Passthrough (remote OpenAI/Ollama) backends would get the
-        # messages VERBATIM; the port's backend is always the in-tree
-        # engine, which needs the hermes form its templates render.
-        try:
-            messages = _hermes_messages(messages)
-        except (_BadRequest, TypeError, ValueError) as e:
-            return web.json_response(
-                {"error": {"message": str(e),
-                           "type": "invalid_request_error"}},
-                status=400)
+        # Passthrough (remote OpenAI/Ollama) backends get the messages
+        # VERBATIM: rewriting role-"tool" turns into hermes markup would
+        # drop tool_call_id, and strict OpenAI-schema upstreams reject
+        # multi-turn tool conversations without it (ADVICE r2). Only the
+        # in-tree engine needs the hermes form its templates render.
+        # Detect on the UNWRAPPED backend: with no tools declared this
+        # turn, `engine` may still be the agent wrapping a remote.
+        if not isinstance(_unwrap_agent(engine), _RemoteEngine):
+            try:
+                messages = _hermes_messages(messages)
+            except (_BadRequest, TypeError, ValueError) as e:
+                return web.json_response(
+                    {"error": {"message": str(e),
+                               "type": "invalid_request_error"}},
+                    status=400)
         if specs:
             messages = _inject_tools_prompt(messages, specs, forced)
         if forced is not None and params.structured is None \
+                and not isinstance(_unwrap_agent(engine), _RemoteEngine) \
                 and not params.stop \
                 and _structured_denied(engine) is None:
             # tool_choice forced a call: constrain the whole completion
             # to hermes tool-call markup whose *arguments* validate
             # against the tool's parameter schema — the call cannot be
-            # malformed (docs/STRUCTURED.md). In-tree engine only (the
-            # port's backend always is); remote upstreams bring their own
-            # tool enforcement. The
+            # malformed (docs/STRUCTURED.md). In-tree engine only;
+            # remote upstreams bring their own tool enforcement. The
             # constraint is an internal upgrade the client never asked
             # for, so when this engine build cannot serve constraints
             # (mesh/Pallas/STRUCTURED_MODE=off) — or client stop

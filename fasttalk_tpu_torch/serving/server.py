@@ -1,14 +1,13 @@
 """WebSocket + HTTP serving on aiohttp: the reference JSON protocol.
 
 Counterpart of ``fasttalk_tpu/serving/server.py`` (:66-1056) without the
-router, agent and KV-migration surfaces, the same wire protocol on
-``/ws/llm``:
+router and KV-migration surfaces, the same wire protocol on ``/ws/llm``:
 
   client -> server: start_session, update_config, user_message, cancel,
                     end_session
   server -> client: session_started, session_configured, config_updated,
-                    token, response_complete, cancelled, session_ended,
-                    error
+                    token, tool_call, response_complete, cancelled,
+                    session_ended, error
 
 plus HTTP GET ``/`` (service banner), ``/health`` (degraded for a dead
 engine, an overload state of the scheduler, a stalled engine or request,
@@ -20,6 +19,15 @@ request) and ``/models``, and the OpenAI-compatible routes ``/v1/models``,
 ``/v1/chat/completions`` and ``/v1/completions`` (serving/openai_api.py).
 ``serve`` also runs the monitoring app (monitoring/monitor.py) on
 ``LLM_MONITORING_HOST:LLM_MONITORING_PORT``.
+
+An optional ``agent`` (agents/voice_agent.py ``VoiceAgent``, built only by
+serving/launcher.py ``build_agent``, as in the JAX package) is the
+generation backend when given: it takes the WebSocket and ``/v1``
+generations, ``cancel``, ``release_session`` and ``update_config``, and
+``/``, ``/health`` and ``session_started`` report ``agent_enabled``.
+Frames name the provider ``torch`` for the in-tree engine and the
+configured ``LLM_PROVIDER`` for any other backend. ``serving.ws.send`` is
+the failpoint seam of every frame sent (resilience/failpoints.py).
 
 Connections go through ``ConnectionManager`` (serving/connection.py): a
 refusal at ``LLM_MAX_CONNECTIONS`` carries its ``retry_after_hint``, and
@@ -56,7 +64,8 @@ from typing import Any
 from aiohttp import WSCloseCode, WSMsgType, web
 
 from fasttalk_tpu_torch import __version__
-from fasttalk_tpu_torch.engine.engine import EngineBase, GenerationParams
+from fasttalk_tpu_torch.engine.engine import (EngineBase, GenerationParams,
+                                              TorchEngine)
 from fasttalk_tpu_torch.observability.flight import get_flight
 from fasttalk_tpu_torch.observability.journey import JourneyRecorder
 from fasttalk_tpu_torch.observability.perf import get_perf
@@ -68,6 +77,7 @@ from fasttalk_tpu_torch.observability.trace import (bind_request,
                                                     get_tracer,
                                                     mint_trace_id)
 from fasttalk_tpu_torch.observability.watchdog import get_watchdog
+from fasttalk_tpu_torch.resilience import failpoints as _fp
 from fasttalk_tpu_torch.serving.connection import (ConnectionManager,
                                                    ConnectionState)
 from fasttalk_tpu_torch.serving.conversation import ConversationManager
@@ -96,9 +106,12 @@ class WebSocketLLMServer:
                  "structured", "journey")
 
     def __init__(self, config: Config, engine: EngineBase,
-                 housekeeping_s: float = 60.0):
+                 agent: Any | None = None, housekeeping_s: float = 60.0):
         self.config = config
         self.engine = engine
+        self.agent = agent  # optional VoiceAgent (the tool-calling path)
+        self.provider = (PROVIDER if isinstance(engine, TorchEngine)
+                         else config.llm_provider)
         self.housekeeping_s = housekeeping_s
         self.connections = ConnectionManager(
             max_connections=config.max_connections,
@@ -145,7 +158,7 @@ class WebSocketLLMServer:
         self.app.router.add_get("/models", self._http_models)
         self.app.router.add_get("/ws/llm", self.handle_websocket)
         register_openai_routes(
-            self.app, backend=lambda: self.engine,
+            self.app, backend=self._backend,
             model_name=self._model_name,
             defaults={"temperature": config.default_temperature,
                       "top_p": config.default_top_p,
@@ -209,6 +222,11 @@ class WebSocketLLMServer:
         except Exception as e:
             log.error(f"housekeeping error: {e}", exc_info=True)
 
+    def _backend(self) -> Any:
+        """The generation backend: the agent when there is one (the same
+        seam), else the engine."""
+        return self.agent if self.agent is not None else self.engine
+
     def _model_name(self) -> str:
         return self.engine.get_model_info().get("model",
                                                 self.config.model_name)
@@ -220,8 +238,11 @@ class WebSocketLLMServer:
             "service": "FastTalk-TPU LLM Service",
             "status": "ready",
             "version": __version__,
-            "provider": PROVIDER,
+            "provider": self.provider,
             "model": self._model_name(),
+            "agent_enabled": self.agent is not None,
+            "web_search_enabled": self.config.enable_web_search,
+            "tools_enabled": self.config.enable_tools,
         })
 
     async def _http_health(self, request: web.Request) -> web.Response:
@@ -229,10 +250,10 @@ class WebSocketLLMServer:
             ok = await asyncio.to_thread(self.engine.check_connection)
             body: dict[str, Any] = {
                 "status": "healthy" if ok else "degraded",
-                "provider": PROVIDER,
+                "provider": self.provider,
                 "model": self._model_name(),
                 "backend_connection": ok,
-                "agent_enabled": False,
+                "agent_enabled": self.agent is not None,
                 "active_connections": self.connections.get_active_count(),
                 "active_sessions": self.conversations.get_session_count(),
                 "circuit_breaker": self.breaker.to_dict(),
@@ -274,7 +295,7 @@ class WebSocketLLMServer:
                 "ttft_ms": m.histogram("engine_ttft_ms").summary(),
                 "uptime_seconds": m.uptime(),
             },
-            "provider": PROVIDER,
+            "provider": self.provider,
         })
 
     async def _http_metrics(self, request: web.Request) -> web.Response:
@@ -308,7 +329,7 @@ class WebSocketLLMServer:
             body, dumps=lambda o: json.dumps(o, default=str))
 
     async def _http_models(self, request: web.Request) -> web.Response:
-        return web.json_response(self.engine.get_model_info())
+        return web.json_response(self._backend().get_model_info())
 
     # ---------------- WebSocket ----------------
 
@@ -331,7 +352,8 @@ class WebSocketLLMServer:
         try:
             await self._send(session_id, ws, {
                 "type": "session_started", "session_id": session_id,
-                "provider": PROVIDER, "model": self._model_name()})
+                "provider": self.provider, "model": self._model_name(),
+                "agent_enabled": self.agent is not None})
             async for msg in ws:
                 if msg.type == WSMsgType.TEXT:
                     self.connections.record_message_received(session_id)
@@ -344,8 +366,8 @@ class WebSocketLLMServer:
                 task.cancel()
             rid = self._cur_request.pop(session_id, None)
             if rid is not None:
-                self.engine.cancel(rid)
-            self.engine.release_session(session_id)
+                self._backend().cancel(rid)
+            self._backend().release_session(session_id)
             self.connections.remove_connection(session_id)
             self.conversations.end_session(session_id)
         return ws
@@ -357,6 +379,17 @@ class WebSocketLLMServer:
         backpressure shows here)."""
         if ws.closed:
             return
+        if _fp.enabled:
+            # Chaos seam: `error` is a peer reset mid-send (the stream's
+            # teardown must cancel the generation and free the slot);
+            # `corrupt` delivers a non-JSON text frame. fire_async: a delay
+            # or hang stalls this stream, not the event loop.
+            if await _fp.fire_async(
+                    "serving.ws.send", exc=ConnectionResetError,
+                    session_id=session_id,
+                    request_id=request_id or "") == "corrupt":
+                await ws.send_str("\x00corrupt-frame\x00")
+                return
         if request_id is not None:
             t0 = time.monotonic()
             await ws.send_json(payload)
@@ -411,13 +444,16 @@ class WebSocketLLMServer:
                     info.config = dict(cfg)
                 await self._send(session_id, ws, {
                     "type": "session_configured", "config": cfg,
-                    "provider": PROVIDER})
+                    "provider": self.provider})
             else:
                 if "system_prompt" in cfg:
                     gen["system_prompt"] = cfg["system_prompt"]
                 self.conversations.update_config(session_id, gen)
                 if info is not None:
                     info.config.update(cfg)
+                if self.agent is not None \
+                        and hasattr(self.agent, "update_config"):
+                    self.agent.update_config(**gen)
                 await self._send(session_id, ws, {
                     "type": "config_updated", "success": True,
                     "config": cfg})
@@ -441,7 +477,7 @@ class WebSocketLLMServer:
                 self._generate(session_id, ws))
         elif msg_type == "cancel":
             rid = self._cur_request.get(session_id)
-            ok = self.engine.cancel(rid) if rid else False
+            ok = self._backend().cancel(rid) if rid else False
             await self._send(session_id, ws, {"type": "cancelled",
                                               "success": ok})
         elif msg_type == "end_session":
@@ -449,7 +485,7 @@ class WebSocketLLMServer:
             if task is not None and not task.done():
                 rid = self._cur_request.get(session_id)
                 if rid:
-                    self.engine.cancel(rid)
+                    self._backend().cancel(rid)
                 task.cancel()
                 await asyncio.gather(task, return_exceptions=True)
             # Transition before the snapshot: the frame is the record of
@@ -457,7 +493,7 @@ class WebSocketLLMServer:
             self.connections.update_connection_state(
                 session_id, ConnectionState.DISCONNECTING)
             info = self.connections.get_connection(session_id)
-            self.engine.release_session(session_id)
+            self._backend().release_session(session_id)
             self.conversations.end_session(session_id)
             await self._send(session_id, ws, {
                 "type": "session_ended",
@@ -551,8 +587,8 @@ class WebSocketLLMServer:
                 jr = JourneyRecorder(start)
             messages = self.conversations.get_messages_for_generation(
                 session_id)
-            async for event in self.engine.generate(request_id, session_id,
-                                                    messages, params):
+            async for event in self._backend().generate(
+                    request_id, session_id, messages, params):
                 etype = event["type"]
                 if etype == "token":
                     t_dq = time.monotonic()  # event-loop dequeue mark
@@ -579,6 +615,12 @@ class WebSocketLLMServer:
                     stats = event.get("stats", {})
                     finish_reason = ("cancelled" if etype == "cancelled"
                                      else event.get("finish_reason", "stop"))
+                elif etype == "tool_call":
+                    # The agent ran a tool: clients render the activity.
+                    await self._send(session_id, ws, {
+                        "type": "tool_call", "tool": event.get("tool"),
+                        "arguments": event.get("arguments")},
+                        request_id=request_id)
                 elif etype == "error":
                     if event.get("code") in ENGINE_SHED_CODES:
                         # Load shedding (deadline, KV block pool): a
@@ -628,12 +670,12 @@ class WebSocketLLMServer:
                     "prompt_tokens": stats.get("prompt_tokens"),
                     "prefill_tokens": stats.get("prefill_tokens"),
                     "finish_reason": finish_reason,
-                    "provider": PROVIDER,
+                    "provider": self.provider,
                     **({"journey": journey_summary}
                        if journey_summary is not None else {}),
                 }}, request_id=request_id)
         except asyncio.CancelledError:
-            self.engine.cancel(request_id)
+            self._backend().cancel(request_id)
             raise
         except CircuitBreakerOpen as e:
             self.connections.record_error(session_id)

@@ -37,8 +37,19 @@ and ``JOURNEY_*``) have the JAX names, defaults and messages
 (``fasttalk_tpu/utils/config.py`` :650-780, :1217-1276), but for
 ``FLIGHT_DIR``, whose default is the port's own directory; the
 observability singletons read the same names at construction.
-A device mesh, which the port does not carry yet, is rejected with a named
-error when its variable asks for it; it is never silently ignored.
+The lifecycle settings have the JAX names, defaults and messages
+(``fasttalk_tpu/utils/config.py`` :111-142, :184-211, :394-399, :808-817,
+:836-837, :889-904, :1277-1278): ``LLM_PROVIDER`` (``tpu`` names the
+in-tree engine), the ``VLLM_*``, ``OLLAMA_*`` and ``REMOTE_*`` settings of
+the remote providers, the agent's ``ENABLE_PYDANTIC_AI``, ``ENABLE_TOOLS``,
+``ENABLE_WEB_SEARCH``, ``DUCKDUCKGO_RATE_LIMIT`` and ``WEB_SEARCH_*``, the
+supervisor's ``ENGINE_AUTO_RESTART`` and ``SUPERVISOR_*``, ``FAULT_POINTS``
+(a spec that does not parse is a named startup error), ``FAULT_HTTP`` and
+``TPU_WARMUP``; an unset ``DEFAULT_REPEAT_PENALTY`` resolves by provider.
+A device mesh, the fleet router (``ROUTER_ENABLED``, ``KV_MIGRATE_HTTP``,
+``FLEET_SCALE_MAX``) and multi-host SPMD serving (``TPU_SPMD_ROLE``), which
+the port does not carry yet, are rejected with a named error when their
+variable asks for them; they are never silently ignored.
 
 The device is not configuration: it is an argument of the entry points
 (``resolve_device``), ``cuda`` unless the caller asks for the CPU.
@@ -51,6 +62,10 @@ from dataclasses import dataclass, field, fields
 from typing import Any
 
 import torch
+
+
+# "tpu" names the in-tree engine, as in the JAX package.
+VALID_PROVIDERS = ("tpu", "vllm", "ollama", "openai", "fake")
 
 
 def _env_str(name: str, default: str) -> str:
@@ -98,6 +113,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 class Config:
     """Serving settings, each overridable via its environment variable."""
 
+    # Provider: "tpu" (the in-tree engine: the port's TorchEngine, under
+    # the JAX package's name), "fake" (an in-memory engine for protocol
+    # tests), or the "vllm"/"openai"/"ollama" HTTP passthrough.
+    llm_provider: str = field(default_factory=lambda: _env_str("LLM_PROVIDER", "tpu"))
     model_name: str = field(default_factory=lambda: _env_str("LLM_MODEL", "llama3.2:1b"))
     model_path: str = field(default_factory=lambda: _env_str("MODEL_PATH", "/app/models"))
     decode_slots: int = field(default_factory=lambda: _env_int("TPU_DECODE_SLOTS", 16))
@@ -203,7 +222,7 @@ class Config:
     default_top_p: float = field(default_factory=lambda: _env_float("DEFAULT_TOP_P", 0.9))
     default_top_k: int = field(default_factory=lambda: _env_int("DEFAULT_TOP_K", 40))
     default_repeat_penalty: float = field(
-        default_factory=lambda: _env_float("DEFAULT_REPEAT_PENALTY", 1.1))
+        default_factory=lambda: _env_float("DEFAULT_REPEAT_PENALTY", -1.0))
     # Session defaults of the OpenAI-style additive penalties, in [-2, 2]
     # (fasttalk_tpu/utils/config.py :164-167, :848-851).
     default_presence_penalty: float = field(
@@ -211,6 +230,65 @@ class Config:
     default_frequency_penalty: float = field(
         default_factory=lambda: _env_float("DEFAULT_FREQUENCY_PENALTY", 0.0))
     session_timeout: int = field(default_factory=lambda: _env_int("SESSION_TIMEOUT", 3600))
+    # ---- Remote providers (engine/remote.py) ----
+    vllm_base_url: str = field(
+        default_factory=lambda: _env_str("VLLM_BASE_URL", "http://vllm:8000/v1"))
+    vllm_model: str = field(
+        default_factory=lambda: _env_str(
+            "VLLM_MODEL", "hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4"))
+    vllm_api_key: str = field(default_factory=lambda: _env_str("VLLM_API_KEY", "not-needed"))
+    vllm_timeout: float = field(default_factory=lambda: _env_float("VLLM_TIMEOUT", 600.0))
+    ollama_base_url: str = field(
+        default_factory=lambda: _env_str("OLLAMA_BASE_URL", "http://ollama:11434"))
+    ollama_keep_alive: str = field(default_factory=lambda: _env_str("OLLAMA_KEEP_ALIVE", "5m"))
+    ollama_timeout: float = field(default_factory=lambda: _env_float("OLLAMA_TIMEOUT", 600.0))
+    # Cap on concurrent upstream requests of a remote provider; waiters
+    # past the admission deadline shed with retry_after.
+    remote_max_inflight: int = field(
+        default_factory=lambda: _env_int("REMOTE_MAX_INFLIGHT", 32))
+    # Bounded jittered retries of idempotent (pre-first-token) upstream
+    # failures; 0 surfaces the first failure.
+    remote_connect_retries: int = field(
+        default_factory=lambda: _env_int("REMOTE_CONNECT_RETRIES", 2))
+    # ---- The tool-calling agent (agents/) ----
+    # Built by the launcher (serving/launcher.py build_agent) when both
+    # are true, which is the default.
+    enable_agent: bool = field(default_factory=lambda: _env_bool("ENABLE_PYDANTIC_AI", True))
+    enable_web_search: bool = field(default_factory=lambda: _env_bool("ENABLE_WEB_SEARCH", True))
+    enable_tools: bool = field(default_factory=lambda: _env_bool("ENABLE_TOOLS", True))
+    web_search_rate_limit: float = field(
+        default_factory=lambda: _env_float("DUCKDUCKGO_RATE_LIMIT", 1.0))
+    # auto = live DuckDuckGo with offline fallback; duckduckgo; offline
+    web_search_backend: str = field(
+        default_factory=lambda: _env_str("WEB_SEARCH_BACKEND", "auto"))
+    web_search_timeout: float = field(
+        default_factory=lambda: _env_float("WEB_SEARCH_TIMEOUT", 10.0))
+    # ---- Supervision (serving/launcher.py) ----
+    # Supervised in-process engine restart after a crash.
+    engine_auto_restart: bool = field(
+        default_factory=lambda: _env_bool("ENGINE_AUTO_RESTART", True))
+    # Restart-storm guard: at most max restarts per rolling window, with
+    # exponential backoff from backoff_s (capped at 60 s) between
+    # attempts; on exhaustion /health reports dead.
+    supervisor_max_restarts: int = field(
+        default_factory=lambda: _env_int("SUPERVISOR_MAX_RESTARTS", 5))
+    supervisor_window_s: float = field(
+        default_factory=lambda: _env_float("SUPERVISOR_WINDOW_S", 300.0))
+    supervisor_backoff_s: float = field(
+        default_factory=lambda: _env_float("SUPERVISOR_BACKOFF_S", 2.0))
+    # ---- Fault injection (resilience/failpoints.py) ----
+    # A validated spec of named failpoints to arm, e.g.
+    # "engine.decode.dispatch=error;count=1,kv.park.copy=delay_ms:250".
+    fault_points: str = field(
+        default_factory=lambda: _env_str("FAULT_POINTS", ""))
+    # Gates POST /debug/fault on the monitoring port (never in production).
+    fault_http_enabled: bool = field(
+        default_factory=lambda: _env_bool("FAULT_HTTP", False))
+    # Warm-up before serving: "off" | "fast" | "full"; empty means "fast"
+    # for the in-tree engine and "off" for the remote and fake providers.
+    # It builds the kernels and runs the serving shapes through them, so
+    # the first request pays neither.
+    warmup: str = field(default_factory=lambda: _env_str("TPU_WARMUP", ""))
     # Share of the card's memory the weights and the KV cache may take.
     hbm_util: float = field(
         default_factory=lambda: _env_float("TPU_HBM_UTILIZATION", 0.9))
@@ -410,6 +488,11 @@ class Config:
         default_factory=lambda: _env_float("JOURNEY_TOL", 0.10))
 
     def __post_init__(self) -> None:
+        if not self.warmup:
+            self.warmup = "fast" if self.llm_provider == "tpu" else "off"
+        if self.default_repeat_penalty < 0:  # unset: provider-resolved
+            self.default_repeat_penalty = \
+                1.0 if self.llm_provider == "vllm" else 1.1
         if self.watchdog_cancel_stall_s == -1.0:  # unset: 2x token stall
             self.watchdog_cancel_stall_s = 2.0 * self.watchdog_token_stall_s
         # WEIGHT_QUANT unset: take the legacy TPU_QUANTIZE tier; set: it is
@@ -427,6 +510,35 @@ class Config:
             if _env_int(name, 1) != 1:
                 errs.append(f"{name}>1 asks for a device mesh: not "
                             "implemented yet in fasttalk_tpu_torch")
+        for name in ("ROUTER_ENABLED", "KV_MIGRATE_HTTP"):
+            if _env_bool(name, False):
+                errs.append(f"{name}=true asks for the fleet router: not "
+                            "implemented yet in fasttalk_tpu_torch")
+        if _env_int("FLEET_SCALE_MAX", 0) > 0:
+            errs.append("FLEET_SCALE_MAX>0 asks for the fleet router: not "
+                        "implemented yet in fasttalk_tpu_torch")
+        if _env_str("TPU_SPMD_ROLE", "off") != "off":
+            errs.append("TPU_SPMD_ROLE asks for multi-host SPMD serving: "
+                        "not implemented yet in fasttalk_tpu_torch")
+        if self.llm_provider not in VALID_PROVIDERS:
+            errs.append(f"llm_provider must be one of {VALID_PROVIDERS}")
+        if self.supervisor_max_restarts < 1:
+            errs.append("supervisor_max_restarts must be >= 1")
+        if self.supervisor_window_s <= 0:
+            errs.append("supervisor_window_s must be > 0")
+        if self.supervisor_backoff_s <= 0:
+            errs.append("supervisor_backoff_s must be > 0")
+        if self.fault_points.strip():
+            # A drill with a mistyped point or action is a named startup
+            # error, never a silently disabled drill.
+            from fasttalk_tpu_torch.resilience.failpoints import parse_spec
+
+            try:
+                parse_spec(self.fault_points)
+            except ValueError as e:
+                errs.append(str(e))
+        if self.warmup not in ("off", "fast", "full"):
+            errs.append("warmup must be 'off', 'fast' or 'full'")
         if self.quantize not in ("none", "int8", "int4"):
             errs.append("quantize must be 'none', 'int8' or 'int4'")
         if self.weight_quant not in ("off", "int8", "int4"):

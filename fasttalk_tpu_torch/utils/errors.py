@@ -40,13 +40,15 @@ class LLMServiceError(Exception):
                  category: ErrorCategory = ErrorCategory.INTERNAL,
                  severity: ErrorSeverity = ErrorSeverity.MEDIUM,
                  recoverable: bool = True,
-                 retry_after: float | None = None):
+                 retry_after: float | None = None,
+                 details: dict[str, Any] | None = None):
         super().__init__(message)
         self.message = message
         self.category = category
         self.severity = severity
         self.recoverable = recoverable
         self.retry_after = retry_after
+        self.details = details or {}
 
     def to_dict(self) -> dict[str, Any]:
         d: dict[str, Any] = {
@@ -57,6 +59,8 @@ class LLMServiceError(Exception):
         }
         if self.retry_after is not None:
             d["retry_after"] = self.retry_after
+        if self.details:
+            d["details"] = self.details
         return d
 
 
@@ -70,11 +74,9 @@ class AdmissionRejected(LLMServiceError):
                  reason: str = "shed"):
         super().__init__(message, category=ErrorCategory.RATE_LIMIT,
                          severity=ErrorSeverity.MEDIUM, recoverable=True,
-                         retry_after=retry_after)
+                         retry_after=retry_after,
+                         details={"reason": reason})
         self.reason = reason
-
-    def to_dict(self) -> dict[str, Any]:
-        return {**super().to_dict(), "details": {"reason": self.reason}}
 
     @classmethod
     def from_shed_event(cls, event: dict) -> "AdmissionRejected":
