@@ -102,9 +102,21 @@ no result line):
    restart, no second KV cache on the card, requests of the crash race
    window served, the greedy control unchanged, a parked session
    restored), then a restart storm that exhausts
-   SUPERVISOR_MAX_RESTARTS=2 (``/health`` dead) and a clean shutdown.
+   SUPERVISOR_MAX_RESTARTS=2 (``/health`` dead) and a clean shutdown;
+14. the fleet router (``phase14``) through ``ServerLauncher`` with
+   ``ROUTER_ENABLED``, every replica at phase 5's full width: (a)
+   placement and affinity over two replicas (16 sessions x 2 turns); (b)
+   failover with resume (a replica's engine shut down under four greedy
+   streams: one ``resumed`` frame each, the control equal to its unbroken
+   run, ``/health`` degraded, one stitched trace); (c) drain with KV
+   migration in process (exact pool bytes, restores, the control equal)
+   and over the ``/kv/parked`` wire between two servers; (d) the
+   disaggregated prefill tier on the paged bf16 pool with the radix cache
+   (8 handoffs, a radix hit of the imported prefix, a failpoint fallback);
+   (e) the elastic scaler up to two replicas and back. The bytes allocated
+   on the card after each part must be within 64 MiB of the phase's start.
 
-In phases 5-13 the kernels' launch counts are zeroed just before the
+In phases 5-14 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
 launched. Each served phase logs decode tok/s, TTFT p50/p99 from the
 ``done`` frames, batched prefill calls, shared-prefix tokens and decode
@@ -124,6 +136,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import Counter
 
 import torch
 
@@ -1980,24 +1993,36 @@ def cuda_memory() -> tuple[int, int]:
     return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
 
 
-async def ws_turn(ws, text: str, config: dict | None = None,
-                  timeout: float = 300) -> tuple[list[str], dict]:
+async def ws_frames(ws, text: str, config: dict | None = None,
+                    on_frame=None, timeout: float = 300) -> list[dict]:
     """One turn on an open WS session (``config``: start_session first):
-    (the token frames' texts, the terminal frame)."""
+    every frame after the user message, up to and including
+    ``response_complete`` or ``error`` (``on_frame`` sees each one as it
+    arrives)."""
     if config is not None:
         await ws.send_json({"type": "start_session", "config": config})
         json.loads((await ws.receive(timeout=60)).data)
     await ws.send_json({"type": "user_message", "text": text})
-    tokens = []
+    frames = []
     while True:
         frame = json.loads((await ws.receive(timeout=timeout)).data)
-        if frame["type"] == "token":
-            tokens.append(frame["data"])
-        elif frame["type"] != "tool_call":
-            return tokens, frame
+        frames.append(frame)
+        if on_frame is not None:
+            on_frame(frame)
+        if frame["type"] in ("response_complete", "error"):
+            return frames
 
 
-async def until(pred, timeout: float, what: str, step: float = 0.005):
+async def ws_turn(ws, text: str, config: dict | None = None,
+                  timeout: float = 300) -> tuple[list[str], dict]:
+    """One turn on an open WS session: (the token frames' texts, the
+    terminal frame)."""
+    frames = await ws_frames(ws, text, config, timeout=timeout)
+    return [f["data"] for f in frames if f["type"] == "token"], frames[-1]
+
+
+async def until(pred, timeout: float, what: str, step: float = 0.005,
+                phase: str = "phase 13"):
     """Poll ``pred`` (sync or async) until true; fail after ``timeout``."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -2007,7 +2032,7 @@ async def until(pred, timeout: float, what: str, step: float = 0.005):
         if got:
             return time.monotonic()
         await asyncio.sleep(step)
-    fail(f"phase 13: {what} within {timeout} s")
+    fail(f"{phase}: {what} within {timeout} s")
 
 
 def phase13(counters: dict) -> dict:
@@ -2431,6 +2456,838 @@ async def _breaker_passes(http, serving: str) -> bool:
     return body.get("circuit_breaker", {}).get("state") != "open"
 
 
+# ----------------------------------------------------- phase 14: the fleet
+
+# The greedy control of 14b: its own system prompt (no other session
+# shares its rows) and a prompt in a prefill bucket of its own (256 rows;
+# the other streams' prompts take 64), so its resume prefills as its
+# unbroken run did.
+FAILOVER_SYSTEM = " ".join(
+    f"Rule {i}: you keep the lighthouse on rock {i} and tell its story "
+    "slowly, in full sentences." for i in range(9))
+FAILOVER_CONTROL = {"system_prompt": FAILOVER_SYSTEM, "max_tokens": 512,
+                    "temperature": 0.0, "ignore_eos": True}
+# 14c: a two-turn conversation, greedy, each session with its own system
+# prompt; session 0 is the one held to its unmigrated control.
+MIGRATE_TURNS = ("Tell me about the ocean.", "And what lives in it?")
+# 14d: about 1,500-token prompts sharing a ~700-token prefix; the probe
+# session (the prefix and a short question) stays under
+# DISAGG_PREFILL_MIN_TOKENS and so places on the decode tier.
+DISAGG_MIN_TOKENS = 1024
+DISAGG_PREFIX = " ".join(
+    f"Note {i}: the harbour log lists ship {i}, its cargo and its crew."
+    for i in range(40))
+DISAGG_QUESTIONS = 34
+
+
+def fleet_memory_check(start: int, label: str) -> int:
+    """Bytes allocated on the card after a fleet was dropped; fails when
+    they exceed ``start`` by more than 64 MiB (a replica still alive)."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    now, _ = cuda_memory()
+    if now - start > 64 * 2**20:
+        fail(f"phase 14 {label}: {now} bytes allocated on the card after "
+             f"the fleet was dropped, {start} at the phase's start")
+    return now
+
+
+async def ws_open(http, port: int):
+    """A new WS session: (the socket, its session id)."""
+    ws = await http.ws_connect(f"ws://127.0.0.1:{port}/ws/llm")
+    first = json.loads((await ws.receive(timeout=60)).data)
+    if first.get("type") != "session_started":
+        fail(f"phase 14: the session did not start: {first}")
+    return ws, first["session_id"]
+
+
+def frame_text(frames: list[dict]) -> str:
+    return "".join(f["data"] for f in frames if f["type"] == "token")
+
+
+def frame_errors(frames: list[dict]) -> list[dict]:
+    return [f for f in frames if f["type"] == "error"]
+
+
+def phase14(counters: dict, phase5: dict) -> dict:
+    """Phase 14: the fleet router (``fasttalk_tpu_torch/router/``) through
+    ``ServerLauncher`` with ``ROUTER_ENABLED`` (what ``python -m
+    fasttalk_tpu_torch websocket`` builds), each replica llama3.2:1b at full
+    width and depth with int8 random weights from the seed (the replicas'
+    weights are equal), 16 decode slots, 512-token prefill chunks, spec off
+    and the agent off (the JAX package's agent passes no ``resumed`` event
+    on). Shared prefixes are off in (a)-(c): a greedy control must prefill
+    as the run it is held to does.
+
+    (a) ``FLEET_REPLICAS=2``, dense bf16 KV, max_len 2048: 16 WS sessions x
+        64 tokens, then a second turn of each; ``/fleet`` must list both
+        replicas, both carry sessions, every second turn run on its first
+        turn's replica (the router's ``_routes`` while it streams, and 16
+        affinity hits), no error frame;
+    (b) the same fleet: a greedy control run alone (512 tokens), then the
+        control and three more greedy streams of 512 tokens (pinned: the
+        control and two others on inproc-0, one on inproc-1); once each has
+        2 tokens, the engine carrying the most live streams is shut down
+        (``engine.shutdown()`` in an executor). Every
+        affected stream must get exactly one ``resumed`` frame, then tokens,
+        then ``response_complete``; no error frame; the control's text must
+        equal its unbroken run's; ``/health`` must read degraded with one
+        dead replica and ``/traces/{id}`` of a resumed stream give one
+        stitched trace with one terminal event;
+    (c) a fleet with ``KV_HOST_BUDGET_MB=4096`` and idle parking after 1 s:
+        a control conversation on inproc-1; sessions pinned to inproc-0
+        (one the same conversation as the control), parked when idle; one
+        timed migration primes the router's bandwidth EMA (a migration it
+        prices from its defaults loses to a re-prefill on this card), then
+        ``POST /fleet/drain/inproc-0``: the parked entries must move to
+        inproc-1 (``migrated_kv``, the router's counters), the bytes must
+        leave inproc-0's pool and reach inproc-1's exactly, each next turn
+        must restore on inproc-1 and the control's session equal its
+        control token for token. Then two single-engine servers with
+        ``KV_MIGRATE_HTTP``: the same conversation parks on the first, its
+        entry moves by ``GET ?meta=1``, ``GET``, ``POST`` to the second and
+        ``DELETE`` on the first, and its next turn (``/v1``, ``user`` = the
+        session) must restore on the second and equal the control;
+    (d) ``FLEET_ROLES=prefill,decode`` on the paged bf16 pool with the radix
+        cache (max_len 8192, ``KV_POOL_BLOCKS=2048``: each replica's budget
+        sees the whole card), ``DISAGG_PREFILL_MIN_TOKENS`` 1024: 8 sessions
+        of about 1,500 tokens must each prefill on the prefill replica
+        (``prefill_parked``), hand off and restore on the decode replica;
+        the prefill replica runs no decode call; a session with the shared
+        prefix and a short question must hit the decode replica's radix
+        tree; then a ``router.handoff`` error (``count=1``) must fall back
+        to mixed placement without an error frame;
+    (e) ``FLEET_REPLICAS=1``, ``FLEET_SCALE_MAX=2``: 32 sessions, then 16
+        more once the scaler has built a second replica on the card (its
+        build off the event loop), which must take new sessions; after the
+        burst the scaler must drain back to one replica; no error frame.
+
+    The kernels' counts are zeroed before each part and read after it: the
+    layer matmul, the lm_head and ``decode_attend`` must launch in (a), (b),
+    (c) and (e), and ``decode_attend_paged`` in (d). The bytes allocated on
+    the card after each part must be within 64 MiB of the phase's start.
+    """
+    import aiohttp
+    from aiohttp import web
+
+    from fasttalk_tpu_torch.engine import factory
+    from fasttalk_tpu_torch.observability import reset_observability
+    from fasttalk_tpu_torch.observability.events import get_events
+    from fasttalk_tpu_torch.observability.trace import get_tracer
+    from fasttalk_tpu_torch.resilience import failpoints as fp
+    from fasttalk_tpu_torch.serving.launcher import ServerLauncher
+    from fasttalk_tpu_torch.serving.server import WebSocketLLMServer
+    from fasttalk_tpu_torch.utils.config import Config
+
+    def config(**kw) -> Config:
+        base = dict(model_name="llama3.2:1b", model_path="",
+                    weight_quant="int8", decode_slots=SLOTS,
+                    max_model_len=MAX_LEN, prefill_chunk=512,
+                    default_context_window=MAX_LEN, default_max_tokens=64,
+                    spec_decode="off", host="127.0.0.1", port=0,
+                    monitoring_host="127.0.0.1", monitoring_port=0,
+                    enable_agent=False, warmup="off", router_enabled=True,
+                    fleet_replicas=2, router_probe_interval_s=0.25)
+        base.update(kw)
+        return Config(**base)
+
+    def launches() -> dict:
+        return {k: c() for k, c in counters.items()}
+
+    def need_launches(label: str, got: dict, names: tuple) -> None:
+        for name in names:
+            if got[name] <= 0:
+                fail(f"phase 14 {label}: kernel {name} never launched")
+
+    async def get_json(http, url: str) -> tuple[int, dict]:
+        async with http.get(url) as r:
+            return r.status, await r.json()
+
+    async def serving(launcher, body) -> dict:
+        task = asyncio.create_task(launcher.run())
+        while "monitoring" not in launcher.addresses:
+            if task.done():
+                task.result()
+                fail("phase 14: the launcher stopped before serving")
+            await asyncio.sleep(0.02)
+        port = launcher.addresses["serving"][1]
+        try:
+            async with aiohttp.ClientSession() as http:
+                return await body(launcher, http, port,
+                                  f"http://127.0.0.1:{port}")
+        finally:
+            launcher.stop()
+            await asyncio.wait_for(task, 120)
+
+    def run_fleet(label: str, cfg: Config, body) -> dict:
+        reset_observability()
+        t = time.monotonic()
+        launcher = ServerLauncher(cfg, device="cuda",
+                                  watchdog_interval_s=0.25)
+        router = launcher.engine
+        log(f"phase 14 {label}: ServerLauncher built a FleetRouter of "
+            f"{[h.replica_id for h in router.replicas]} in "
+            f"{time.monotonic() - t:.6g} s")
+        if launcher.agent is not None or type(router).__name__ \
+                != "FleetRouter":
+            fail(f"phase 14 {label}: the launcher built {router!r}, agent "
+                 f"{launcher.agent!r}")
+        try:
+            return asyncio.run(asyncio.wait_for(
+                serving(launcher, body), timeout=900))
+        finally:
+            for h in list(router.replicas):
+                h.engine.shutdown()
+            del launcher, router
+            reset_observability()
+
+    # The watchdog of an earlier phase's server still holds its engine:
+    # released before the reading the phase is held to.
+    reset_observability()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    mem_start, _ = cuda_memory()
+    t14 = time.monotonic()
+    out: dict = {"memory_allocated_start": mem_start}
+
+    # ---------------- (a) placement and affinity, (b) failover ----------
+    async def part_ab(launcher, http, port, serving_url) -> dict:
+        router = launcher.engine
+        res: dict = {}
+        zero_launches()
+        hits0 = router._m_affinity_hits.value
+        sessions = [await ws_open(http, port) for _ in range(SLOTS)]
+        prompts = ["Tell me about the ocean.", "What is a good breakfast?",
+                   "Explain how trains work.",
+                   "Write a short poem about rain.", "Why is the sky blue?",
+                   "Give me three tips for sleep.",
+                   "What is your favourite book?", "How do plants grow?"]
+        cfg = {"max_tokens": 64, "temperature": 0.7, "ignore_eos": True}
+        t0 = time.monotonic()
+        first = await asyncio.gather(*(
+            ws_frames(ws, prompts[i % len(prompts)], cfg)
+            for i, (ws, _) in enumerate(sessions)))
+        wall = time.monotonic() - t0
+        homes = {sid: router.affinity.get(sid) for _, sid in sessions}
+        seen: dict[str, set] = {}
+        sampling = True
+
+        async def sample_routes():
+            while sampling:
+                for sid, h in list(router._routes.values()):
+                    seen.setdefault(sid, set()).add(h.replica_id)
+                await asyncio.sleep(0.002)
+
+        sampler = asyncio.create_task(sample_routes())
+        second = await asyncio.gather(*(
+            ws_frames(ws, "Tell me more about that.")
+            for ws, _ in sessions))
+        sampling = False
+        await sampler
+        hits = router._m_affinity_hits.value - hits0
+        status, fleet = await get_json(http, serving_url + "/fleet")
+        for ws, _ in sessions:
+            await ws.close()
+        res["a_launches"] = launches()
+        errors = [e for fr in first + second for e in frame_errors(fr)]
+        done = [fr[-1] for fr in first]
+        tokens = sum(f["stats"]["tokens_generated"] for f in done
+                     if f["type"] == "response_complete")
+        ttft = sorted(f["stats"]["ttft_ms"] for f in done
+                      if f["type"] == "response_complete"
+                      and f["stats"].get("ttft_ms") is not None)
+        placements = {r["replica_id"]: r["placements"]
+                      for r in fleet.get("replicas", [])}
+        res["a"] = {"tokens": tokens, "wall_s": wall,
+                    "tok_s": tokens / wall, "ttft_p50_ms": pct(ttft, 50),
+                    "ttft_p99_ms": pct(ttft, 99),
+                    "homes": sorted(Counter(homes.values()).items()),
+                    "placements": placements, "affinity_hits": hits}
+        if errors:
+            fail(f"phase 14 (a): error frames: {errors[:3]}")
+        if status != 200 or sorted(placements) != ["inproc-0",
+                                                    "inproc-1"]:
+            fail(f"phase 14 (a): /fleet answered {status}: {fleet}")
+        if len(set(homes.values())) != 2 or None in homes.values():
+            fail(f"phase 14 (a): sessions did not spread over both "
+                 f"replicas: {homes}")
+        moved = {sid: (homes[sid], sorted(seen.get(sid, ())))
+                 for sid in homes if seen.get(sid, set()) - {homes[sid]}}
+        if moved or hits != SLOTS:
+            fail(f"phase 14 (a): second turns left their replica: {moved}, "
+                 f"affinity hits {hits}")
+        need_launches("(a)", res["a_launches"],
+                      ("int8_matmul", "int8_matmul_t", "decode_attend"))
+
+        # (b) failover with resume.
+        zero_launches()
+        ws, _ = await ws_open(http, port)
+        ref = await ws_frames(ws, "Tell me the story of the lighthouse.",
+                              FAILOVER_CONTROL)
+        await ws.close()
+        if ref[-1]["type"] != "response_complete":
+            fail(f"phase 14 (b): the unbroken control run failed: "
+                 f"{ref[-1]}")
+        n = 2 * len(router.replicas)
+        state: dict = {"kill_t": None}
+        streams = [dict(tokens=0, frames=[], resumed_ms=None,
+                        next_token_ms=None) for _ in range(n)]
+
+        def watcher(i):
+            got = streams[i]
+
+            def on_frame(frame):
+                got["frames"].append(frame["type"])
+                if frame["type"] == "token":
+                    got["tokens"] += 1
+                    if got["resumed_ms"] is not None \
+                            and got["next_token_ms"] is None:
+                        got["next_token_ms"] = (
+                            time.monotonic() - state["kill_t"]) * 1e3
+                elif frame["type"] == "resumed" \
+                        and state["kill_t"] is not None:
+                    got["resumed_ms"] = (
+                        time.monotonic() - state["kill_t"]) * 1e3
+            return on_frame
+
+        async def stream(i: int, ws, text: str, cfg: dict) -> list[dict]:
+            frames = await ws_frames(ws, text, cfg, watcher(i), 600)
+            await ws.close()
+            return frames
+
+        opened = [await ws_open(http, port) for _ in range(n)]
+        sids = [sid for _, sid in opened]
+        # The control and all but one other stream on inproc-0: it carries
+        # the most live streams, the control among them.
+        for i, sid in enumerate(sids):
+            router.affinity.set(sid, "inproc-1" if i == n - 1
+                                else "inproc-0")
+        tasks = [asyncio.create_task(stream(
+            0, opened[0][0], "Tell me the story of the lighthouse.",
+            FAILOVER_CONTROL))]
+        await until(lambda: streams[0]["tokens"] >= 1, 120,
+                    "the control never streamed", phase="phase 14")
+        for i in range(1, n):
+            tasks.append(asyncio.create_task(stream(
+                i, opened[i][0], prompts[i], {
+                    "max_tokens": 512, "temperature": 0.0,
+                    "ignore_eos": True})))
+        await until(lambda: all(s["tokens"] >= 2 for s in streams), 120,
+                    "the failover streams never reached 2 tokens",
+                    phase="phase 14")
+        owner = {sid: h for sid, h in list(router._routes.values())}
+        if set(owner) != set(sids):
+            fail(f"phase 14 (b): streams without a route: "
+                 f"{set(sids) - set(owner)}")
+        target = max(router.replicas,
+                     key=lambda h: sum(o is h for o in owner.values()))
+        affected = [i for i, sid in enumerate(sids) if owner[sid] is target]
+        state["kill_t"] = time.monotonic()
+        await asyncio.get_running_loop().run_in_executor(
+            None, target.engine.shutdown)
+        results = await asyncio.gather(*tasks)
+        status, health = await get_json(http, serving_url + "/health")
+        resumed_rid = next((t.request_id for t in
+                            reversed(get_tracer().completed())
+                            if any(s.name == "resume" for s in t.spans)),
+                           None)
+        trace_status, trace = (await get_json(
+            http, f"{serving_url}/traces/{resumed_rid}")) \
+            if resumed_rid else (None, {})
+        res["b_launches"] = launches()
+        stitched = trace.get("stitched") or {}
+        res["b"] = {
+            "killed": target.replica_id, "streams": n,
+            "affected": affected,
+            "kill_to_resumed_ms": [streams[i]["resumed_ms"]
+                                   for i in affected],
+            "kill_to_next_token_ms": [streams[i]["next_token_ms"]
+                                      for i in affected],
+            "tokens": [streams[i]["tokens"] for i in range(n)],
+            "health": {"status": health.get("status"),
+                       "fleet": health.get("fleet")},
+            "stitched": {k: stitched.get(k) for k in (
+                "resumed", "terminal_events", "components", "n_spans")},
+            "control_equal": frame_text(results[0]) == frame_text(ref)}
+        for i, frames in enumerate(results):
+            types = [f["type"] for f in frames]
+            if frame_errors(frames) or types[-1] != "response_complete":
+                fail(f"phase 14 (b): stream {i} ended {frames[-1]}")
+            want = 1 if i in affected else 0
+            if types.count("resumed") != want:
+                fail(f"phase 14 (b): stream {i} had "
+                     f"{types.count('resumed')} resumed frames, not {want}")
+            if want and "token" not in types[types.index("resumed"):]:
+                fail(f"phase 14 (b): stream {i} had no token after its "
+                     "resumed frame")
+        if 0 not in affected:
+            fail(f"phase 14 (b): the control was not on the killed replica "
+                 f"{target.replica_id}: {affected}")
+        if not res["b"]["control_equal"]:
+            a, b = frame_text(results[0]), frame_text(ref)
+            k = next((j for j in range(min(len(a), len(b)))
+                      if a[j] != b[j]), min(len(a), len(b)))
+            fail(f"phase 14 (b): the resumed control differs from its "
+                 f"unbroken run at character {k}: {a[k:k + 40]!r} vs "
+                 f"{b[k:k + 40]!r}")
+        fleet_h = health.get("fleet") or {}
+        if status != 200 or health.get("status") != "degraded" \
+                or fleet_h.get("dead") != 1:
+            fail(f"phase 14 (b): /health with a dead replica: {status} "
+                 f"{health.get('status')} {fleet_h}")
+        if trace_status != 200 or stitched.get("resumed", 0) < 1 \
+                or stitched.get("terminal_events") != 1:
+            fail(f"phase 14 (b): /traces/{resumed_rid}: {trace_status} "
+                 f"{res['b']['stitched']}")
+        need_launches("(b)", res["b_launches"],
+                      ("int8_matmul", "int8_matmul_t", "decode_attend"))
+        return res
+
+    ab = run_fleet("(a)-(b)", config(shared_prefix=False), part_ab)
+    out.update(ab)
+    out["memory_allocated_after_ab"] = fleet_memory_check(mem_start,
+                                                         "(a)-(b)")
+    a, b = ab["a"], ab["b"]
+    log(f"phase 14 (a): 2 replicas, 16 sessions x 64 tokens: {a['tokens']} "
+        f"tokens in {a['wall_s']:.6g} s ({a['tok_s']:.6g} decode tok/s; "
+        f"phase 5 on one engine: {phase5['tok_s']:.6g}), TTFT p50 "
+        f"{a['ttft_p50_ms']} ms, p99 {a['ttft_p99_ms']} ms (phase 5: "
+        f"{phase5['ttft_p50_ms']}, {phase5['ttft_p99_ms']}); placements "
+        f"{a['placements']}, affinity hits {a['affinity_hits']}")
+    log(f"phase 14 (b): killed {b['killed']} carrying streams "
+        f"{b['affected']} of {b['streams']}; kill->resumed ms "
+        f"{b['kill_to_resumed_ms']}, kill->next token ms "
+        f"{b['kill_to_next_token_ms']}; the control equal to its unbroken "
+        f"run; /health {b['health']}; stitched trace {b['stitched']}")
+    log(f"  launches: (a) {ab['a_launches']}; (b) {ab['b_launches']}")
+
+    # ---------------- (c) drain with KV migration ----------------
+    def migrate_cfg(i: int) -> dict:
+        return {"system_prompt": f"You keep lighthouse {i}; answer in one "
+                                 "short sentence.",
+                "max_tokens": 32, "temperature": 0.0, "ignore_eos": True}
+
+    async def part_c(launcher, http, port, serving_url) -> dict:
+        router = launcher.engine
+        h0, h1 = router.replicas
+        e0, e1 = h0.engine, h1.engine
+        res: dict = {}
+        zero_launches()
+
+        async def pinned(replica: str):
+            ws, sid = await ws_open(http, port)
+            router.affinity.set(sid, replica)
+            return ws, sid
+
+        # The control conversation, on inproc-1.
+        cws, csid = await pinned("inproc-1")
+        control = [await ws_frames(cws, MIGRATE_TURNS[0], migrate_cfg(0)),
+                   await ws_frames(cws, MIGRATE_TURNS[1])]
+        # The sessions of inproc-0: the control's conversation alone, three
+        # others together, and one to time the priming migration.
+        m = [await pinned("inproc-0") for _ in range(5)]
+        turn1 = [await ws_frames(m[0][0], MIGRATE_TURNS[0],
+                                 migrate_cfg(0))]
+        turn1 += await asyncio.gather(*(
+            ws_frames(ws, MIGRATE_TURNS[0], migrate_cfg(i))
+            for i, (ws, _) in enumerate(m[1:], start=1)))
+        for frames in control + turn1:
+            if frames[-1]["type"] != "response_complete":
+                fail(f"phase 14 (c): a first turn failed: {frames[-1]}")
+        sids = [sid for _, sid in m]
+        await until(lambda: all(e0.parked_kv_info(s) for s in sids)
+                    and e1.parked_kv_info(csid), 60,
+                    "the idle sessions never parked", phase="phase 14")
+        # One timed migration feeds the router's bandwidth EMA.
+        prime = sids.pop()
+        status = await asyncio.to_thread(router._migrate_session, prime,
+                                         h0, h1)
+        if status != "ok":
+            fail(f"phase 14 (c): the priming migration: {status}")
+        router.affinity.set(prime, "inproc-1")   # as a drain re-pins
+        entries = {s: e0.parked_kv_info(s) for s in sids}
+        pool0, pool1 = e0._kv_pool.stats(), e1._kv_pool.stats()
+        mig0 = router._m_migrations.value
+        async with http.post(serving_url + "/fleet/drain/inproc-0") as r:
+            drain_status, summary = r.status, await r.json()
+        pool0b, pool1b = e0._kv_pool.stats(), e1._kv_pool.stats()
+        # The drained replica's slots stay pinned, so its idle tick may
+        # park a migrated session again (as the JAX engine's does): those
+        # entries are counted back on inproc-0's side.
+        reparked = sum(e0.parked_kv_info(s)[1] for s in entries
+                       if e0.parked_kv_info(s) is not None)
+        landed = {s: e1.parked_kv_info(s) for s in entries}
+        homes = {s: router.affinity.get(s) for s in entries}
+        moved = sum(nb for _, nb in entries.values())
+        restored0 = e1._kv_pool.stats()["restored_total"]
+        turn2 = [await ws_frames(m[0][0], MIGRATE_TURNS[1])]
+        turn2 += await asyncio.gather(*(
+            ws_frames(ws, MIGRATE_TURNS[1]) for ws, _ in m[1:4]))
+        restored = e1._kv_pool.stats()["restored_total"] - restored0
+        for ws, _ in m + [(cws, csid)]:
+            await ws.close()
+        events = [e["attrs"] for e in get_events().recent(
+            limit=64, kind="router_migration")]
+        res["c_launches"] = launches()
+        mb = sum(e["bytes"] for e in events) / 2**20
+        ms = sum(e["ms"] for e in events)
+        res["c"] = {
+            "drain_status": drain_status, "summary": summary,
+            "entries": entries, "moved_bytes": moved,
+            "pool0_bytes": [pool0["bytes"], pool0b["bytes"]],
+            "reparked_bytes": reparked,
+            "pool1_bytes": [pool1["bytes"], pool1b["bytes"]],
+            "migrations": router._m_migrations.value - mig0,
+            "restored": restored,
+            "inproc_migrations": [(e["bytes"], e["ms"]) for e in events],
+            "inproc_mb": mb,
+            "inproc_gb_s": (mb / 1024) / (ms / 1e3) if ms else None,
+            "control_equal": [frame_text(turn1[0]) == frame_text(
+                control[0]), frame_text(turn2[0]) == frame_text(
+                control[1])],
+            "prompt_tokens": [control[1][-1]["stats"]["prompt_tokens"],
+                              turn2[0][-1]["stats"]["prompt_tokens"]]}
+        res["c_control_text"] = [frame_text(f) for f in control]
+        res["c_control_prompt_tokens"] = \
+            control[1][-1]["stats"]["prompt_tokens"]
+        errors = [e for fr in control + turn1 + turn2
+                  for e in frame_errors(fr)]
+        if errors:
+            fail(f"phase 14 (c): error frames: {errors[:3]}")
+        if drain_status != 200 or summary.get("migrated_kv") != len(sids) \
+                or res["c"]["migrations"] != len(sids):
+            fail(f"phase 14 (c): the drain migrated {summary} "
+                 f"({res['c']['migrations']} migrations), not {len(sids)}")
+        if landed != entries or set(homes.values()) != {"inproc-1"}:
+            fail(f"phase 14 (c): after the drain the entries on inproc-1 "
+                 f"are {landed} (moved {entries}), the sessions pinned to "
+                 f"{homes}")
+        if pool0b["bytes"] != pool0["bytes"] - moved + reparked \
+                or pool1b["bytes"] != pool1["bytes"] + moved:
+            fail(f"phase 14 (c): pool bytes not exact: inproc-0 "
+                 f"{pool0['bytes']} -> {pool0b['bytes']} (parked again "
+                 f"{reparked}), inproc-1 {pool1['bytes']} -> "
+                 f"{pool1b['bytes']}, moved {moved}")
+        if restored != len(sids):
+            fail(f"phase 14 (c): {restored} migrated turns restored on "
+                 f"inproc-1, not {len(sids)}")
+        if not all(res["c"]["control_equal"]):
+            fail(f"phase 14 (c): the migrated conversation differs from "
+                 f"its control: {res['c']['control_equal']}: "
+                 f"{frame_text(turn2[0])[:80]!r} vs "
+                 f"{frame_text(control[1])[:80]!r}")
+        need_launches("(c)", res["c_launches"],
+                      ("int8_matmul", "int8_matmul_t", "decode_attend"))
+        return res
+
+    pool_kw = dict(kv_host_budget_mb=4096.0, kv_park_idle_s=1.0,
+                   shared_prefix=False)
+    c = run_fleet("(c)", config(**pool_kw), part_c)
+    out.update(c)
+    out["memory_allocated_after_c"] = fleet_memory_check(mem_start, "(c)")
+
+    # (c) over the wire: two single-engine servers with KV_MIGRATE_HTTP.
+    reset_observability()
+    wire_cfg = config(router_enabled=False, kv_migrate_http=True, **pool_kw)
+    t = time.monotonic()
+    src = factory.build_engine(wire_cfg, device="cuda")
+    dst = factory.build_engine(wire_cfg, device="cuda")
+    log(f"phase 14 (c, wire): two servers' engines built in "
+        f"{time.monotonic() - t:.6g} s")
+
+    async def wire() -> dict:
+        runners = []
+        try:
+            urls = []
+            for eng in (src, dst):
+                eng.start()
+                runner = web.AppRunner(WebSocketLLMServer(wire_cfg, eng).app)
+                await runner.setup()
+                site = web.TCPSite(runner, "127.0.0.1", 0)
+                await site.start()
+                runners.append(runner)
+                urls.append(site._server.sockets[0].getsockname()[1])
+            zero_launches()
+            async with aiohttp.ClientSession() as http:
+                ws, sid = await ws_open(http, urls[0])
+                first = await ws_frames(ws, MIGRATE_TURNS[0], migrate_cfg(0))
+                await until(lambda: src.parked_kv_info(sid), 60,
+                            "the wire session never parked",
+                            phase="phase 14")
+                base = [f"http://127.0.0.1:{p}/kv/parked/{sid}" for p in urls]
+                meta_status, meta = await get_json(http, base[0] + "?meta=1")
+                t0 = time.monotonic()
+                async with http.get(base[0]) as r:
+                    get_status, body = r.status, await r.read()
+                t1 = time.monotonic()
+                async with http.post(base[1], data=body, headers={
+                        "Content-Type": "application/octet-stream"}) as r:
+                    post_status, posted = r.status, await r.json()
+                t2 = time.monotonic()
+                async with http.delete(base[0]) as r:
+                    delete_status = r.status
+                dst_meta_status, dst_meta = await get_json(
+                    http, base[1] + "?meta=1")
+                restored0 = dst._kv_pool.stats()["restored_total"]
+                history = [{"role": "system",
+                            "content": migrate_cfg(0)["system_prompt"]},
+                           {"role": "user", "content": MIGRATE_TURNS[0]},
+                           {"role": "assistant",
+                            "content": frame_text(first)},
+                           {"role": "user", "content": MIGRATE_TURNS[1]}]
+                async with http.post(
+                        f"http://127.0.0.1:{urls[1]}/v1/chat/completions",
+                        json={"model": "llama3.2:1b", "messages": history,
+                              "user": sid, "max_tokens": 32,
+                              "temperature": 0.0, "ignore_eos": True,
+                              "repeat_penalty":
+                                  wire_cfg.default_repeat_penalty}) as r:
+                    v1_status, v1 = r.status, await r.json()
+                restored = dst._kv_pool.stats()["restored_total"] - restored0
+                await ws.close()
+            return {"first": frame_text(first), "meta": [meta_status, meta],
+                    "get_status": get_status, "post_status": post_status,
+                    "posted": posted, "delete_status": delete_status,
+                    "dst_meta": [dst_meta_status, dst_meta],
+                    "bytes": len(body), "get_ms": (t1 - t0) * 1e3,
+                    "post_ms": (t2 - t1) * 1e3, "v1_status": v1_status,
+                    "v1": v1, "restored": restored,
+                    "launches": launches()}
+        finally:
+            for runner in runners:
+                await runner.cleanup()
+
+    try:
+        w = asyncio.run(asyncio.wait_for(wire(), timeout=600))
+    finally:
+        src.shutdown()
+        dst.shutdown()
+        del src, dst
+        reset_observability()   # the watchdog holds the last server's engine
+    text2 = ((w["v1"].get("choices") or [{}])[0].get("message") or {}).get(
+        "content")
+    w["second"] = text2
+    w["prompt_tokens"] = (w["v1"].get("usage") or {}).get("prompt_tokens")
+    w["mb"] = w["bytes"] / 2**20
+    w["gb_s"] = (w["mb"] / 1024) / ((w["get_ms"] + w["post_ms"]) / 1e3)
+    out["c_wire"] = {k: v for k, v in w.items()
+                     if k not in ("v1", "first", "second")}
+    out["memory_allocated_after_c_wire"] = fleet_memory_check(
+        mem_start, "(c, wire)")
+    entry = w["meta"][1]
+    if w["meta"][0] != 200 or w["get_status"] != 200 \
+            or w["post_status"] != 200 or w["delete_status"] != 200 \
+            or w["dst_meta"][0] != 200 \
+            or w["dst_meta"][1].get("nbytes") != entry.get("nbytes") \
+            or w["posted"].get("nbytes") != entry.get("nbytes"):
+        moves = {k: w[k] for k in ("meta", "get_status", "post_status",
+                                   "delete_status", "dst_meta")}
+        fail(f"phase 14 (c, wire): the /kv/parked moves: {moves}")
+    if w["v1_status"] != 200 or w["restored"] != 1:
+        fail(f"phase 14 (c, wire): the next turn on the second server: "
+             f"{w['v1_status']}, restored {w['restored']}: {w['v1']}")
+    if w["first"] != c["c_control_text"][0] \
+            or text2 != c["c_control_text"][1] \
+            or w["prompt_tokens"] != c["c_control_prompt_tokens"]:
+        fail(f"phase 14 (c, wire): the moved conversation differs from the "
+             f"control: {w['first'][:60]!r} / {text2!r:.80} vs "
+             f"{c['c_control_text'][1][:80]!r}; prompt tokens "
+             f"{w['prompt_tokens']} vs {c['c_control_prompt_tokens']}")
+    need_launches("(c, wire)", w["launches"],
+                  ("int8_matmul", "int8_matmul_t", "decode_attend"))
+    cc = c["c"]
+    log(f"phase 14 (c): drain of inproc-0 migrated {cc['summary']} "
+        f"({cc['migrations']} migrations, {cc['moved_bytes']} bytes); pool "
+        f"bytes inproc-0 {cc['pool0_bytes']}, inproc-1 {cc['pool1_bytes']}; "
+        f"{cc['restored']} restored on inproc-1; the control equal; in "
+        f"process {cc['inproc_mb']:.6g} MB at {cc['inproc_gb_s']} GB/s "
+        f"over {cc['inproc_migrations']} (bytes, ms)")
+    log(f"phase 14 (c, wire): {w['mb']:.6g} MB by GET {w['get_ms']:.6g} ms "
+        f"+ POST {w['post_ms']:.6g} ms ({w['gb_s']:.6g} GB/s); restored on "
+        f"the second server, the control equal")
+    log(f"  launches: (c) {c['c_launches']}; (c, wire) {w['launches']}")
+
+    # ---------------- (d) the disaggregated prefill tier ----------------
+    async def part_d(launcher, http, port, serving_url) -> dict:
+        router = launcher.engine
+        pre, dec = (h.engine for h in router.replicas)
+        res: dict = {}
+        zero_launches()
+        pre0, dec0 = pre.get_stats(), dec.get_stats()
+        ins0 = dec.get_stats()["kv_radix"]["inserted_blocks"]
+        sessions = [await ws_open(http, port) for _ in range(8)]
+        cfg = {"max_tokens": 32, "temperature": 0.7, "ignore_eos": True}
+        texts = [DISAGG_PREFIX + " " + " ".join(
+            f"Question {i}.{j}: which ship carried the most cargo on day "
+            f"{j}?" for j in range(DISAGG_QUESTIONS)) for i in range(8)]
+        frames = await asyncio.gather(*(
+            ws_frames(ws, texts[i], cfg) for i, (ws, _) in
+            enumerate(sessions)))
+        handoffs = [e["attrs"] for e in get_events().recent(
+            limit=64, kind="router_disagg_handoff")]
+        mid = dec.get_stats()
+        # The probe: the shared prefix and a short question, decode-local.
+        hits0 = mid["kv_radix"]["hit_tokens"]
+        pws, _ = await ws_open(http, port)
+        probe = await ws_frames(pws, DISAGG_PREFIX + " Which ship was first?",
+                                cfg)
+        await pws.close()
+        dec1 = dec.get_stats()
+        # A handoff fault: falls back to mixed placement, no error frame.
+        fb0 = router._m_handoff_fallbacks.value
+        fp.activate("router.handoff=error;count=1")
+        try:
+            fws, _ = await ws_open(http, port)
+            fallback = await ws_frames(fws, texts[0] + " Once more.", cfg)
+            await fws.close()
+        finally:
+            fp.clear()
+        for ws, _ in sessions:
+            await ws.close()
+        pre1 = pre.get_stats()
+        res["d_launches"] = launches()
+        res["d"] = {
+            "handoffs": router.disagg.handoffs,
+            "prompt_tokens": [f[-1].get("stats", {}).get("prompt_tokens")
+                              for f in frames],
+            "handoff_ms": [h["settle_ms"] for h in handoffs],
+            "handoff_mb": [h["bytes"] / 2**20 for h in handoffs],
+            "prefill_parks": pre1["kv_host"]["parked_total"]
+            - pre0["kv_host"]["parked_total"],
+            "prefill_decode_calls": pre1["decode_calls"]
+            - pre0["decode_calls"],
+            "decode_restored": mid["kv_host"]["restored_total"]
+            - dec0["kv_host"]["restored_total"],
+            "radix_inserted": mid["kv_radix"]["inserted_blocks"] - ins0,
+            "probe_hit_tokens": dec1["kv_radix"]["hit_tokens"] - hits0,
+            "fallbacks": router._m_handoff_fallbacks.value - fb0,
+            "kv_blocks": {k: v for k, v in dec1.get("kv_blocks", {}).items()
+                          if k != "tables"}}
+        d = res["d"]
+        errors = [e for fr in frames + [probe, fallback]
+                  for e in frame_errors(fr)]
+        if errors or any(fr[-1]["type"] != "response_complete"
+                         for fr in frames + [probe, fallback]):
+            fail(f"phase 14 (d): error frames: {errors[:3]}")
+        if d["handoffs"] != 8 or len(handoffs) != 8 \
+                or d["prefill_parks"] < 8 or d["decode_restored"] != 8:
+            fail(f"phase 14 (d): not every session handed off: {d}")
+        if d["prefill_decode_calls"] != 0:
+            fail(f"phase 14 (d): the prefill replica ran "
+                 f"{d['prefill_decode_calls']} decode calls")
+        if d["radix_inserted"] <= 0 or d["probe_hit_tokens"] <= 0:
+            fail(f"phase 14 (d): the imported prefixes did not reach the "
+                 f"decode replica's radix tree: {d}")
+        if d["fallbacks"] != 1:
+            fail(f"phase 14 (d): the router.handoff fault did not fall "
+                 f"back: {d['fallbacks']}")
+        need_launches("(d)", res["d_launches"],
+                      ("int8_matmul", "int8_matmul_t",
+                       "decode_attend_paged"))
+        return res
+
+    d = run_fleet("(d)", config(
+        fleet_roles="prefill,decode", kv_layout="paged", kv_block_size=BLOCK,
+        kv_pool_blocks=2048, kv_radix_enabled=True, max_model_len=8192,
+        default_context_window=8192, kv_host_budget_mb=4096.0,
+        disagg_prefill_min_tokens=DISAGG_MIN_TOKENS), part_d)
+    out.update(d)
+    out["memory_allocated_after_d"] = fleet_memory_check(mem_start, "(d)")
+    dd = d["d"]
+    log(f"phase 14 (d): {dd['handoffs']} handoffs of prompts of "
+        f"{dd['prompt_tokens']} tokens; settle ms {dd['handoff_ms']}, MB "
+        f"{dd['handoff_mb']}; prefill replica parks {dd['prefill_parks']}, "
+        f"decode calls {dd['prefill_decode_calls']}; decode replica "
+        f"restores {dd['decode_restored']}, radix blocks inserted "
+        f"{dd['radix_inserted']}, probe hit tokens "
+        f"{dd['probe_hit_tokens']}; fallbacks {dd['fallbacks']}")
+    log(f"  launches: {d['d_launches']}")
+
+    # ---------------- (e) the elastic scaler ----------------
+    async def part_e(launcher, http, port, serving_url) -> dict:
+        router, scaler = launcher.engine, launcher.scaler
+        res: dict = {}
+        zero_launches()
+        timing: dict = {}
+        inner = scaler.build_replica
+
+        def build_replica(replica_id: str, role: str = "mixed"):
+            timing["build_start"] = time.monotonic()
+            try:
+                return inner(replica_id, role)
+            finally:
+                timing["build_end"] = time.monotonic()
+        scaler.build_replica = build_replica
+        cfg = {"max_tokens": 64, "temperature": 0.7, "ignore_eos": True}
+
+        async def one(text: str) -> list[dict]:
+            ws, _ = await ws_open(http, port)
+            frames = await ws_frames(ws, text, cfg)
+            await ws.close()
+            return frames
+
+        t0 = time.monotonic()
+        burst = [asyncio.create_task(one(f"Tell me fact number {i}."))
+                 for i in range(32)]
+        t_joined = await until(lambda: len(router.replicas) == 2, 120,
+                               "the scaler never added a replica",
+                               phase="phase 14")
+        new = router.replicas[1]
+        placed0 = new.placements
+        burst += [asyncio.create_task(one(f"Tell me fact number {i}."))
+                  for i in range(32, 48)]
+        frames = await asyncio.gather(*burst)
+        placed = new.placements - placed0
+        wall = time.monotonic() - t0
+        t_done = time.monotonic()
+        await until(lambda: len(router.replicas) == 1, 120,
+                    "the scaler never drained back to one replica",
+                    phase="phase 14")
+        res["e_launches"] = launches()
+        errors = [e for fr in frames for e in frame_errors(fr)]
+        tokens = sum(fr[-1]["stats"]["tokens_generated"] for fr in frames
+                     if fr[-1]["type"] == "response_complete")
+        res["e"] = {"sessions": len(frames), "tokens": tokens,
+                    "wall_s": wall, "new_replica": new.replica_id,
+                    "placed_on_new": placed,
+                    "build_ms": (timing["build_end"] - timing["build_start"])
+                    * 1e3,
+                    "scale_up_ms": (t_joined - timing["build_start"]) * 1e3,
+                    "burst_to_joined_ms": (t_joined - t0) * 1e3,
+                    "idle_to_one_replica_s": time.monotonic() - t_done,
+                    "scaler": scaler.stats()}
+        if errors or any(fr[-1]["type"] != "response_complete"
+                         for fr in frames):
+            fail(f"phase 14 (e): error frames: {errors[:3]}")
+        if placed <= 0:
+            fail("phase 14 (e): no session placed on the new replica")
+        need_launches("(e)", res["e_launches"],
+                      ("int8_matmul", "int8_matmul_t", "decode_attend"))
+        return res
+
+    e = run_fleet("(e)", config(
+        fleet_replicas=1, fleet_scale_min=1, fleet_scale_max=2,
+        fleet_scale_check_s=0.25, fleet_scale_down_idle_s=2.0), part_e)
+    out.update(e)
+    out["memory_allocated_end"] = fleet_memory_check(mem_start, "(e)")
+    ee = e["e"]
+    log(f"phase 14 (e): {ee['sessions']} sessions, {ee['tokens']} tokens in "
+        f"{ee['wall_s']:.6g} s; scale-up {ee['scale_up_ms']:.6g} ms (engine "
+        f"build {ee['build_ms']:.6g} ms; burst to joined "
+        f"{ee['burst_to_joined_ms']:.6g} ms), {ee['placed_on_new']} sessions "
+        f"on {ee['new_replica']}; back to one replica "
+        f"{ee['idle_to_one_replica_s']:.6g} s after the burst; "
+        f"{ee['scaler']}")
+    log(f"  launches: {e['e_launches']}")
+    log(f"phase 14: memory allocated {mem_start} bytes at the start, "
+        f"{out['memory_allocated_end']} at the end; "
+        f"{time.monotonic() - t14:.6g} s")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2445,6 +3302,8 @@ def main() -> int:
     os.environ.setdefault("FLIGHT_DIR", os.path.join(REPO, "build", "flight"))
     os.environ.setdefault("PROFILER_TRACE_DIR",
                           os.path.join(REPO, "build", "profiler_trace"))
+    os.environ.setdefault("FLEET_FLIGHT_DIR",
+                          os.path.join(REPO, "build", "fleet_flight"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2725,6 +3584,7 @@ def main() -> int:
     launches_11 = p11["launches"]
     p12 = phase12(counters)
     p13 = phase13(counters)
+    p14 = phase14(counters, served)
 
     launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
                    "int8_matmul_t": st10["launches"]["int8_matmul_t"],
@@ -2784,8 +3644,11 @@ def main() -> int:
                 for part in ("warmup", "first_wave", "after_restart")}}
                if name in ("int8_matmul", "int8_matmul_t", "decode_attend")
                else {}),
+            "launches_phase14": {
+                part: p14[f"{part}_launches"][name]
+                for part in ("a", "b", "c", "d", "e")},
             "work": r["work"], "card": card})
-    print(json.dumps({"kernels": kernels, "served": {
+    result = json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
                 "wall_s": x["wall_s"], "decode_tok_s": x["tok_s"],
                 "ttft_p50_ms": x["ttft_p50_ms"],
@@ -2825,8 +3688,16 @@ def main() -> int:
             for label, x in p11.items() if label != "launches"},
         "observability": {**p12, "card": card},
         "lifecycle": {**{k: v for k, v in p13.items()
-                         if not k.startswith("launches_")}, "card": card}}),
-        flush=True)
+                         if not k.startswith("launches_")}, "card": card},
+        "fleet": {**{k: v for k, v in p14.items()
+                     if not k.endswith("_launches")
+                     and not k.startswith("c_control")}, "card": card}})
+    # The line runs past the tail a remote runner keeps: a copy to a file.
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "chip_smoke.json"), "w",
+              encoding="utf-8") as fp:
+        fp.write(result + "\n")
+    print(result, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -110,8 +110,17 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   ``engine.decode.dispatch`` and ``engine.retire.fetch`` are the JAX
   engine's (resilience/failpoints.py).
 
-A device mesh, ``prefill_only`` (the disaggregated tier) and the migration
-of parked entries are not part of this engine.
+- **Fleet seams** (JAX :286-370, :1463-1479, :2531-2545, :2728-2823): the
+  replica ``role`` (a ``prefill`` replica admits only ``prefill_only``
+  requests), ``prefill_only`` (the prompt's rows are parked in the host
+  pool and the request ends ``prefill_parked`` without a sample),
+  ``set_trace_component``, and the migration of parked entries:
+  ``export_parked_kv``, ``import_parked_kv`` (validated against this
+  engine's geometry and tier, the rows copied into pinned tensors of its
+  own pool) and ``parked_kv_info`` / ``drop_parked_kv``. An imported
+  prefix is donated to the radix tree when it is restored.
+
+A device mesh is not part of this engine.
 """
 
 from __future__ import annotations
@@ -134,7 +143,8 @@ from fasttalk_tpu_torch.engine.decode_steps import (DecodeState, FSMTables,
 from fasttalk_tpu_torch.engine.slots import Slot, SlotManager, _lcp
 from fasttalk_tpu_torch.engine.tokenizer import StreamDetokenizer, Tokenizer
 from fasttalk_tpu_torch.kvcache.blocks import BlockAllocator, blocks_for
-from fasttalk_tpu_torch.kvcache.hostpool import HostKVPool
+from fasttalk_tpu_torch.kvcache.hostpool import (HostKVPool, entry_problem,
+                                                 strip_device)
 from fasttalk_tpu_torch.kvcache.offload import (KVOffloader, kv_bucket,
                                                 kv_restore, kv_slice,
                                                 paged_kv_restore,
@@ -182,6 +192,18 @@ def _tree_bytes(tree: Any) -> int:
     return tree.numel() * tree.element_size()
 
 
+def _host_tensor(arr: Any) -> torch.Tensor:
+    """A CPU torch tensor of a host row array: a torch tensor as it is, a
+    numpy array through ``torch.from_numpy`` (bf16 rows of the JAX wire
+    form arrive as ml_dtypes arrays; their bits are read through int16)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to("cpu")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
 def _kv_bucket(need: int, max_len: int) -> int:
     """The smallest KV bucket holding ``need`` rows (``max_len`` past the
     last bucket that fits the cache)."""
@@ -207,8 +229,9 @@ class GenerationParams:
     # Text-completion mode (/v1/completions): the prompt is the joined
     # message content, BOS + its tokens, no chat template.
     raw_prompt: bool = False
-    # The JAX engine's disaggregated prefill tier: validated as there, and
-    # refused by this engine (it has no decode-tier handoff).
+    # Disaggregated prefill tier (router/disagg.py): prefill the prompt,
+    # park its rows in the host pool and finish with reason
+    # "prefill_parked": no first-token sample, no decode slot held.
     prefill_only: bool = False
     # Constrained decoding: {"kind": "json_object" | "json_schema" |
     # "regex" | "tool_call", ...}, compiled to a token FSM whose mask
@@ -323,6 +346,12 @@ _Item = tuple[_Request, Slot, int, list[int]]
 class EngineBase:
     """The engine seam the serving layer depends on."""
 
+    # Disaggregated-serving replica role (router/disagg.py): "mixed"
+    # serves prefill and decode; "prefill" admits only prefill_only
+    # handoff requests; "decode" is a placement hint. Set by the replica
+    # handle (router/replica.py), read by the role gate in generate.
+    role: str = "mixed"
+
     async def generate(self, request_id: str, session_id: str,
                        messages: list[dict], params: GenerationParams,
                        ) -> AsyncGenerator[dict, None]:
@@ -361,6 +390,35 @@ class EngineBase:
     def pending_requests(self) -> int:
         """Requests still queued or running (drain progress)."""
         return 0
+
+    def set_trace_component(self, component: str) -> None:
+        """Tag this engine's spans with a fleet component name (e.g.
+        ``inproc-0``), so in-proc replicas sharing the process tracer stay
+        apart in stitched traces. No-op by default."""
+
+    # ---- fleet KV migration (router/migrate.py). Engines without a host
+    # pool answer None/False: the router then re-prefills.
+
+    def export_parked_kv(self, session_id: str):
+        """A session's parked entry (``ParkedKV``) without its
+        device-staged buffers, or None. A peek: the source keeps the entry
+        until the migration confirms and calls ``drop_parked_kv``."""
+        return None
+
+    def import_parked_kv(self, entry) -> bool:
+        """Adopt a migrated entry into this engine's host pool. False
+        when refused (geometry or tier mismatch, pool disabled, over
+        budget); a refusal leaves the pool untouched."""
+        return False
+
+    def drop_parked_kv(self, session_id: str) -> bool:
+        """Purge one session's parked entry (touches only the host pool,
+        so it works on a replica whose engine thread is down)."""
+        return False
+
+    def parked_kv_info(self, session_id: str) -> tuple[int, int] | None:
+        """(kept tokens, bytes) of a session's parked entry, or None."""
+        return None
 
 
 class _HostCopy:
@@ -1016,10 +1074,19 @@ class TorchEngine(EngineBase):
         if not self.check_connection():
             raise LLMServiceError("Engine is not running (call start())",
                                   category=ErrorCategory.CONNECTION)
-        if params.prefill_only:
+        if self.role == "prefill" and not params.prefill_only:
+            # Disaggregated prefill tier: a decode stream admitted here
+            # would bring back the interference the role split removes
+            # (JAX :1463-1473).
             raise LLMServiceError(
-                "prefill_only asks for the disaggregated prefill tier: "
-                "not implemented yet in fasttalk_tpu_torch",
+                "replica role is 'prefill': decode streams are "
+                "rejected (only prefill_only handoff requests admit)",
+                category=ErrorCategory.VALIDATION, recoverable=False)
+        if params.prefill_only and not self._kv_pool.enabled:
+            raise LLMServiceError(
+                "prefill_only requires the host KV pool "
+                "(KV_HOST_BUDGET_MB > 0): the finished prefill is "
+                "parked there for the decode-tier handoff",
                 category=ErrorCategory.VALIDATION, recoverable=False)
         if params.raw_prompt:
             prompt = self.tokenizer.encode_prompt(raw_prompt_text(messages))
@@ -1129,6 +1196,12 @@ class TorchEngine(EngineBase):
     def pending_requests(self) -> int:
         """Requests not yet terminal (queued, prefilling or running)."""
         return len(self._by_id)
+
+    def set_trace_component(self, component: str) -> None:
+        """In-proc replicas of a fleet share one process tracer: the
+        component attr keeps each replica's spans apart in a stitched
+        trace (JAX :1615-1620)."""
+        self._tracer = get_tracer().scoped(component)
 
     # ---------------- watchdog surfaces (observability/watchdog.py) ----
 
@@ -1253,6 +1326,14 @@ class TorchEngine(EngineBase):
                 "kv_host": self._kv_pool.stats(),
                 "parked_sessions": self._kv_pool.snapshot()}
 
+    # ---- fleet KV migration (router/migrate.py; JAX :2722-2823). These run
+    # off the engine thread and touch only the thread-safe host pool, so
+    # they work on a replica whose engine thread has died.
+
+    def export_parked_kv(self, session_id: str):
+        entry = self._kv_pool.get(session_id)
+        return None if entry is None else strip_device(entry)
+
     def parked_kv_info(self, session_id: str) -> tuple[int, int] | None:
         """(kept tokens, bytes) of a session's parked entry, or None."""
         entry = self._kv_pool.get(session_id)
@@ -1261,6 +1342,88 @@ class TorchEngine(EngineBase):
     def drop_parked_kv(self, session_id: str) -> bool:
         """Purge one session's parked entry."""
         return self._kv_pool.purge(session_id)
+
+    def import_parked_kv(self, entry) -> bool:
+        """Adopt a migrated entry: validate it against this engine's
+        cache geometry and tier (a mixed-tier fleet must refuse, never
+        restore garbage), fit the stored rows to this engine's layout
+        (paged: whole block rows; dense: the power-of-two bucket), copy
+        them into fresh pinned tensors owned by this pool (the source's
+        rows, numpy arrays off the wire or another replica's tensors, are
+        never aliased), then insert. The put is atomic: a refusal at any
+        step leaves the pool untouched."""
+        if not self._kv_pool.enabled:
+            return False
+        sid = entry.session_id
+        problem = entry_problem(entry)
+        if problem is not None:
+            log.warning(f"refused migrated KV for {sid}: {problem}")
+            return False
+        k_dtype = _host_tensor(entry.k).dtype
+        L, _, Kv, H = entry.k.shape
+        if (L, Kv, H) != (self.cfg.num_layers, self.cfg.num_kv_heads,
+                          self.cfg.head_dim):
+            log.warning(
+                f"refused migrated KV for {sid}: geometry [{L},{Kv},{H}] "
+                f"!= engine [{self.cfg.num_layers},{self.cfg.num_kv_heads},"
+                f"{self.cfg.head_dim}]")
+            return False
+        if entry.kept > self.max_len:
+            log.warning(f"refused migrated KV for {sid}: kept {entry.kept} "
+                        f"exceeds max_len {self.max_len}")
+            return False
+        if self.kv_quant:
+            if entry.k_scale is None or k_dtype != torch.int8 \
+                    or entry.k_scale.shape[2] != self.kv_scale_granule:
+                log.warning(f"refused migrated KV for {sid}: not int8 rows "
+                            f"with granule {self.kv_scale_granule} scales")
+                return False
+        elif entry.k_scale is not None or k_dtype == torch.int8:
+            log.warning(f"refused migrated KV for {sid}: quantized entry "
+                        "into a bf16-tier cache")
+            return False
+        elif k_dtype != self.dtype:
+            # dtype is part of the tier: a float32 entry in a bf16 cache
+            # passes every shape check but cannot be written into it.
+            log.warning(f"refused migrated KV for {sid}: row dtype "
+                        f"{k_dtype} != engine cache dtype {self.dtype}")
+            return False
+        bucket = kv_bucket(entry.kept, self.max_len)
+        rows = bucket
+        if self.paged:
+            bucket = max(bucket, self.kv_block_size)
+            rows = blocks_for(entry.kept, self.kv_block_size) \
+                * self.kv_block_size
+        pin = self.device.type == "cuda"
+
+        def fit(arr):
+            if arr is None:
+                return None
+            t = _host_tensor(arr)
+            out = torch.zeros((t.shape[0], rows) + tuple(t.shape[2:]),
+                              dtype=t.dtype, pin_memory=pin)
+            n = min(rows, t.shape[1])
+            out[:, :n] = t[:, :n]
+            return out
+
+        k, v = fit(entry.k), fit(entry.v)
+        ks, vs = fit(entry.k_scale), fit(entry.v_scale)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (k, v, ks, vs) if t is not None)
+        now = time.monotonic()
+        entry = replace(strip_device(entry), k=k, v=v, k_scale=ks,
+                        v_scale=vs, bucket=bucket, nbytes=nbytes,
+                        tokens=list(entry.tokens), parked_at=now,
+                        last_used=now, imported=True)
+        # A session released here before (tombstoned) comes back through
+        # the migration: the tombstone falls only with a successful insert.
+        ok = self._kv_pool.put(entry, revive=True)
+        if ok:
+            # The session's next request is usually already on its way
+            # (the handoff's decode stream admits right behind the
+            # transfer): stage the rows on the device now.
+            self._kv_offload.prestage(entry.session_id)
+        return ok
 
     def get_model_info(self) -> dict:
         return {
@@ -1573,7 +1736,8 @@ class TorchEngine(EngineBase):
             bucket = next((b for b in _PREFILL_BUCKETS if b >= len(todo)),
                           None)
             if bucket is not None and len(todo) <= allowed \
-                    and reused + bucket <= self.max_len:
+                    and reused + bucket <= self.max_len \
+                    and not req.params.prefill_only:
                 batch.append((req, slot, reused, todo))
             else:
                 self._prefilling.append(_PrefillState(
@@ -1872,6 +2036,11 @@ class TorchEngine(EngineBase):
                 return  # next chunk on a later iteration
             self._prefilling.pop(0)
             self._m_prefill.observe((time.monotonic() - st.t0) * 1000)
+            if req.params.prefill_only:
+                # Disaggregated prefill tier: park the written rows and
+                # finish without sampling or activating (JAX :4375-4382).
+                self._prefill_park_finish(req, slot)
+                return
             if req.fsm is not None:
                 self._activate(req, slot)
                 self._st_sample_place(req, slot, st.last_logits)
@@ -2844,6 +3013,19 @@ class TorchEngine(EngineBase):
         self._kv_offload.park(slot.session_id, list(slot.tokens[:kept]),
                               kept, bucket, rows, t0)
 
+    def _prefill_park_finish(self, req: _Request, slot: Slot) -> None:
+        """Terminal step of a ``prefill_only`` request: snapshot the freshly
+        written prompt rows into the host pool and finish with reason
+        ``prefill_parked``: no first-token sample, no activation, the slot
+        frees at once. The host copy runs on the offload thread; the router
+        polls ``parked_kv_info`` until the entry lands (JAX :2531-2545)."""
+        kept = min(slot.kv_written, len(slot.tokens))
+        if kept >= 1 and self._kv_pool.enabled \
+                and self._kv_pool.parked_len(req.session_id) < kept \
+                and not self._kv_offload.parking(req.session_id):
+            self._park_slot(slot, kept)
+        self._finish(req, "prefill_parked")
+
     def _try_restore(self, req: _Request, slot: Slot,
                      prompt: list[int]) -> int:
         """Restore a returning session's kept prefix from the host pool
@@ -2895,6 +3077,12 @@ class TorchEngine(EngineBase):
             return 0
         slot.tokens = list(entry.tokens[:match])
         slot.kv_written = match
+        if entry.imported:
+            # A migrated-in prefix (handoff or fleet migration) goes to
+            # the radix tree now, while this slot's table pins its blocks:
+            # the decode tier's prefix cache learns handed-off prefills at
+            # first use (JAX :2652-2660).
+            self._radix_insert_slot(slot)
         # Consumed: the rows are on the device again; a later eviction
         # parks the longer history.
         self._kv_pool.take(req.session_id)

@@ -90,14 +90,17 @@ def _system() -> dict[str, Any]:
 
 def build_monitoring_app(ready_check=None, sched_info=None,
                          supervisor_info=None, fault_http=False,
-                         ) -> web.Application:
+                         trace_lookup=None) -> web.Application:
     """``ready_check``: zero-arg callable, False makes ``/health/ready``
     503. ``sched_info``: zero-arg callable returning the engine's
     scheduler view (``TorchEngine.scheduler_debug``) for ``/health`` and
     ``/debug/requests``. ``supervisor_info``: zero-arg callable returning
     the launcher's restart-budget state; "exhausted" marks ``/health``
     dead. ``fault_http``: serve ``POST /debug/fault`` (off by default: the
-    monitoring port is unauthenticated)."""
+    monitoring port is unauthenticated). ``trace_lookup``: one-arg callable
+    (request id -> stitched cross-replica trace or None; the FleetRouter's
+    ``stitched_trace``): ``/traces/{request_id}`` falls back to it when the
+    local ring misses, since a router-fronted request ran on a replica."""
     app = web.Application()
     # One worker thread owns the torch.profiler session: started and
     # stopped there, off the serving event loop.
@@ -349,6 +352,18 @@ def build_monitoring_app(ready_check=None, sched_info=None,
         tracer = get_tracer()
         trace = tracer.get(rid)
         if trace is None:
+            if trace_lookup is not None:
+                # Off the loop: the lookup fetches from remote replicas.
+                try:
+                    stitched = await asyncio.get_running_loop() \
+                        .run_in_executor(None, trace_lookup, rid)
+                except Exception as e:
+                    return web.json_response(
+                        {"error": f"fleet trace lookup failed: {e}"},
+                        status=502)
+                if stitched is not None and stitched.get("fragments"):
+                    return web.json_response(
+                        stitched, dumps=lambda o: json.dumps(o, default=str))
             return web.json_response(
                 {"error": f"unknown request_id {rid!r}"}, status=404)
         if request.query.get("format") == "jsonl":

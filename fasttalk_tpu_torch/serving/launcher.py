@@ -1,15 +1,20 @@
 """Service lifecycle: build the engine, verify it, serve, shut down cleanly.
 
 The port's counterpart of ``fasttalk_tpu/serving/launcher.py`` without the
-multi-host SPMD, fleet-router and elastic-scaler branches (Config refuses
-their settings by name). ``python -m fasttalk_tpu_torch websocket`` runs
+multi-host SPMD branch (Config refuses ``TPU_SPMD_ROLE`` by name).
+``python -m fasttalk_tpu_torch websocket`` runs
 ``ServerLauncher(Config()).start()``:
 
 - the engine from ``build_engine`` (``LLM_PROVIDER`` picks the in-tree
-  engine, the fake one or a remote provider), and the tool-calling agent
-  around it from ``build_agent`` when ``ENABLE_PYDANTIC_AI`` and
-  ``ENABLE_TOOLS`` are both true (the default). The agent is built here
-  and in serving/local.py only, never by the server or the factory;
+  engine, the fake one or a remote provider), or with ``ROUTER_ENABLED``
+  a ``FleetRouter`` over ``FLEET_REPLICAS`` in-process engines and the
+  ``ROUTER_BACKENDS`` remote ones (``build_fleet``, router/router.py);
+  with ``FLEET_SCALE_MAX`` > 0 an ``ElasticScaler`` (router/elastic.py)
+  grows and shrinks that fleet while the server runs. The tool-calling
+  agent goes around the engine or the router from ``build_agent`` when
+  ``ENABLE_PYDANTIC_AI`` and ``ENABLE_TOOLS`` are both true (the
+  default). The agent is built here and in serving/local.py only, never
+  by the server or the factory;
 - ``verify_backend``: ``warmup(TPU_WARMUP)``, ``start()`` and the
   pre-flight connection check;
 - the WebSocket server and the monitoring app (its ``/health`` reads the
@@ -108,17 +113,25 @@ class RestartBudget:
 
 
 class ServerLauncher:
-    """``device``: where ``build_engine`` puts the in-tree engine (``cuda``
-    unless the caller asks for the CPU). ``watchdog_interval_s``: the
-    supervisor's check period."""
+    """``device``: where ``build_engine`` puts the in-tree engine, or each
+    in-process replica of a fleet (``cuda`` unless the caller asks for the
+    CPU). ``watchdog_interval_s``: the supervisor's check period."""
 
     def __init__(self, config: Config, engine: EngineBase | None = None, *,
                  device: str | torch.device | None = None,
                  watchdog_interval_s: float = 5.0):
         self.config = config
+        self.device = device
+        if engine is None and config.router_enabled:
+            # Router-backed mode: the "engine" is a FleetRouter fronting N
+            # replicas; the serving stack above speaks the same seam.
+            from fasttalk_tpu_torch.router.router import build_fleet
+
+            engine = build_fleet(config, device=device)
         self.engine = engine if engine is not None \
             else build_engine(config, device=device)
         self.agent = build_agent(config, self.engine)
+        self.scaler = self._build_scaler()
         self.server = WebSocketLLMServer(config, self.engine, self.agent)
         self.watchdog_interval_s = watchdog_interval_s
         self._stop = asyncio.Event()
@@ -133,6 +146,41 @@ class ServerLauncher:
         # The bound (host, port) of each app once ``run`` serves (an
         # ephemeral port 0 resolves here).
         self.addresses: dict[str, Any] = {}
+
+    def _build_scaler(self):
+        """The elastic scaler over a FleetRouter when ``FLEET_SCALE_MAX`` >
+        0 (Config requires ``ROUTER_ENABLED`` for it), else None. A new
+        replica is a ``build_engine`` on the launcher's device; a prefill
+        one gets the deepened queue ``build_fleet`` gives the base tier."""
+        cfg = self.config
+        if cfg.fleet_scale_max <= 0 \
+                or not hasattr(self.engine, "add_replica"):
+            return None
+        from dataclasses import replace as dc_replace
+
+        from fasttalk_tpu_torch.observability.slo import get_slo
+        from fasttalk_tpu_torch.router.elastic import ElasticScaler
+        from fasttalk_tpu_torch.router.replica import ReplicaHandle
+
+        def build_replica(replica_id: str,
+                          role: str = "mixed") -> ReplicaHandle:
+            ecfg = cfg
+            if role == "prefill":
+                ecfg = dc_replace(cfg, sched_queue_bound=4
+                                  * cfg.sched_queue_bound)
+            return ReplicaHandle(replica_id,
+                                 build_engine(ecfg, device=self.device),
+                                 role=role,
+                                 dead_probes=cfg.router_dead_probes)
+
+        return ElasticScaler(
+            self.engine, build_replica,
+            min_replicas=cfg.fleet_scale_min,
+            max_replicas=cfg.fleet_scale_max,
+            up_queue_depth=cfg.fleet_scale_up_queue,
+            down_idle_s=cfg.fleet_scale_down_idle_s,
+            check_interval_s=cfg.fleet_scale_check_s,
+            slo_alerts=lambda: get_slo().alert_summary())
 
     def supervisor_info(self) -> dict:
         """Supervisor state for the monitoring port's ``/health``: while
@@ -218,7 +266,10 @@ class ServerLauncher:
             ready_check=self._ready,
             sched_info=getattr(self.engine, "scheduler_debug", None),
             supervisor_info=self.supervisor_info,
-            fault_http=self.config.fault_http_enabled))
+            fault_http=self.config.fault_http_enabled,
+            # Router-fronted: a request ran on a replica, so the monitoring
+            # port's /traces/{rid} falls back to the stitched fleet trace.
+            trace_lookup=getattr(self.engine, "stitched_trace", None)))
         watchdog = None
         try:
             await main_runner.setup()
@@ -235,9 +286,16 @@ class ServerLauncher:
                      f"{self.addresses['monitoring'][1]}/health")
             watchdog = asyncio.create_task(
                 self._watchdog(self.watchdog_interval_s))
+            if self.scaler is not None:
+                self.scaler.start()
+                log.info("elastic scaler on: fleet "
+                         f"[{self.config.fleet_scale_min}, "
+                         f"{self.config.fleet_scale_max}] replicas")
             await self._stop.wait()
         finally:
             log.info("shutting down: draining")
+            if self.scaler is not None:
+                self.scaler.stop()
             if watchdog is not None:
                 watchdog.cancel()
                 await asyncio.gather(watchdog, return_exceptions=True)

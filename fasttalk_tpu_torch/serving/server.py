@@ -1,13 +1,13 @@
 """WebSocket + HTTP serving on aiohttp: the reference JSON protocol.
 
-Counterpart of ``fasttalk_tpu/serving/server.py`` (:66-1056) without the
-router and KV-migration surfaces, the same wire protocol on ``/ws/llm``:
+Counterpart of ``fasttalk_tpu/serving/server.py`` (:66-1056), the same
+wire protocol on ``/ws/llm``:
 
   client -> server: start_session, update_config, user_message, cancel,
                     end_session
   server -> client: session_started, session_configured, config_updated,
-                    token, tool_call, response_complete, cancelled,
-                    session_ended, error
+                    token, tool_call, resumed, response_complete,
+                    cancelled, session_ended, error
 
 plus HTTP GET ``/`` (service banner), ``/health`` (degraded for a dead
 engine, an overload state of the scheduler, a stalled engine or request,
@@ -17,6 +17,19 @@ error history, the engine's stats and process-lifetime totals),
 report), ``/traces/{request_id}`` (this process's trace fragments of a
 request) and ``/models``, and the OpenAI-compatible routes ``/v1/models``,
 ``/v1/chat/completions`` and ``/v1/completions`` (serving/openai_api.py).
+
+Router-backed mode (the engine is a ``FleetRouter``, router/router.py):
+``GET /fleet`` (the registry with live load scores), ``POST
+/fleet/drain/{replica_id}`` (coordinated drain with KV migration),
+``GET /fleet/metrics`` and ``GET /fleet/slo`` (fleet rollups), the fleet
+flight recorder (observability/fleetflight.py), a ``fleet`` block in
+``/health`` (``degraded`` while a replica is dead), a ``resumed`` frame
+when a stream fails over to a survivor mid-generation, and
+``/traces/{request_id}`` through the router's stitched trace. With
+``KV_MIGRATE_HTTP`` (off by default: the serving port is unauthenticated
+and the channel reads parked transcripts and writes the pool),
+``GET/POST/DELETE /kv/parked/{session_id}`` carry the migration wire form
+of router/migrate.py (``?meta=1`` answers kept tokens and bytes only).
 ``serve`` also runs the monitoring app (monitoring/monitor.py) on
 ``LLM_MONITORING_HOST:LLM_MONITORING_PORT``.
 
@@ -75,7 +88,8 @@ from fasttalk_tpu_torch.observability.stitch import collect_fragments, stitch
 from fasttalk_tpu_torch.observability.trace import (bind_request,
                                                     current_trace_id,
                                                     get_tracer,
-                                                    mint_trace_id)
+                                                    mint_trace_id,
+                                                    parse_traceparent)
 from fasttalk_tpu_torch.observability.watchdog import get_watchdog
 from fasttalk_tpu_torch.resilience import failpoints as _fp
 from fasttalk_tpu_torch.serving.connection import (ConnectionManager,
@@ -148,7 +162,12 @@ class WebSocketLLMServer:
             buckets=(0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250,
                      1000))
         self._tracer = get_tracer().scoped("serving")
-        self.app = web.Application()
+        # The migration import (POST /kv/parked) carries a whole parked
+        # session's rows, far past aiohttp's 1 MB default: raised only
+        # when the channel is served (JAX :125-133).
+        kv_http = bool(config.kv_migrate_http)
+        self.app = web.Application(
+            client_max_size=(256 * 1024 * 1024) if kv_http else 1024 ** 2)
         self.app.router.add_get("/", self._http_root)
         self.app.router.add_get("/health", self._http_health)
         self.app.router.add_get("/stats", self._http_stats)
@@ -157,6 +176,38 @@ class WebSocketLLMServer:
         self.app.router.add_get("/traces/{request_id}", self._http_trace)
         self.app.router.add_get("/models", self._http_models)
         self.app.router.add_get("/ws/llm", self.handle_websocket)
+        # Router-backed mode: the fleet registry, the coordinated drain of
+        # one replica, the fleet rollups and the fleet flight recorder.
+        self.fleet_flight = None
+        if hasattr(engine, "fleet_stats"):
+            self.app.router.add_get("/fleet", self._http_fleet)
+            self.app.router.add_post("/fleet/drain/{replica_id}",
+                                     self._http_fleet_drain)
+        if hasattr(engine, "fleet_metrics"):
+            self.app.router.add_get("/fleet/metrics",
+                                    self._http_fleet_metrics)
+            self.app.router.add_get("/fleet/slo", self._http_fleet_slo)
+            from fasttalk_tpu_torch.observability.fleetflight import \
+                FleetFlightRecorder
+
+            self.fleet_flight = FleetFlightRecorder(
+                engine, enabled=config.fleet_flight_enabled,
+                base_dir=config.fleet_flight_dir,
+                max_bundles=config.fleet_flight_max_bundles,
+                min_interval_s=config.fleet_flight_min_interval_s,
+                failover_burst=config.fleet_flight_failover_burst,
+                window_s=config.fleet_flight_window_s)
+            self.fleet_flight.install()
+        # The KV migration channel of a remote router (router/migrate.py),
+        # gated by KV_MIGRATE_HTTP. Engines without a host pool answer
+        # 404/409 through the EngineBase defaults.
+        if kv_http:
+            self.app.router.add_get("/kv/parked/{session_id}",
+                                    self._http_kv_export)
+            self.app.router.add_post("/kv/parked/{session_id}",
+                                     self._http_kv_import)
+            self.app.router.add_delete("/kv/parked/{session_id}",
+                                       self._http_kv_release)
         register_openai_routes(
             self.app, backend=self._backend,
             model_name=self._model_name,
@@ -198,6 +249,8 @@ class WebSocketLLMServer:
         await asyncio.gather(*tasks, return_exceptions=True)
         self._tasks = []
         get_flight().uninstall()
+        if self.fleet_flight is not None:
+            self.fleet_flight.uninstall()
         # The sampler exits within one period (about 15 ms) of the stop.
         self.profiler.stop()
 
@@ -260,11 +313,20 @@ class WebSocketLLMServer:
             }
             # The overload state (pressured, shedding, draining) shows
             # before the cliff; it does not change the status code.
-            sched = self.engine.get_stats().get("scheduler")
+            engine_stats = self.engine.get_stats()
+            sched = engine_stats.get("scheduler")
             if sched is not None:
                 body["scheduler"] = sched
                 if sched.get("state") != "healthy":
                     body["status"] = sched["state"]
+            # Router-backed: the fleet's placement capacity. A dead replica
+            # degrades (the fleet still serves); a draining one is planned
+            # and does not.
+            fleet = engine_stats.get("router")
+            if fleet is not None:
+                body["fleet"] = fleet
+                if fleet.get("dead", 0) > 0:
+                    body["status"] = "degraded"
             # A hung engine step, token-stalled requests or a page-level
             # SLO burn degrade the serving-port health too (still 200).
             wd = self.watchdog.status()
@@ -309,7 +371,9 @@ class WebSocketLLMServer:
 
     async def _http_trace(self, request: web.Request) -> web.Response:
         """This process's trace fragments of a request, stitched into one
-        timeline (JAX :395-425; the port has no fleet router)."""
+        timeline; when the engine is a FleetRouter, the router's stitched
+        cross-replica trace (JAX :395-425). Remote replicas answer the
+        router's fan-out through this route."""
         request_id = request.match_info["request_id"]
         trace_id = request.query.get("trace_id", "")
 
@@ -317,12 +381,16 @@ class WebSocketLLMServer:
             frags = collect_fragments(get_tracer(), request_id, trace_id)
             body: dict[str, Any] = {"request_id": request_id,
                                     "fragments": frags}
-            if frags:
+            if hasattr(self.engine, "stitched_trace"):
+                stitched = self.engine.stitched_trace(request_id)
+                if stitched is not None:
+                    body["stitched"] = stitched
+            elif frags:
                 body["stitched"] = stitch(frags)
             return body
 
         body = await asyncio.to_thread(build)
-        if not body["fragments"]:
+        if not body.get("fragments") and not body.get("stitched"):
             return web.json_response(
                 {"error": f"no trace for {request_id}"}, status=404)
         return web.json_response(
@@ -330,6 +398,103 @@ class WebSocketLLMServer:
 
     async def _http_models(self, request: web.Request) -> web.Response:
         return web.json_response(self._backend().get_model_info())
+
+    # ---------------- fleet (router-backed mode) ----------------
+
+    async def _http_fleet(self, request: web.Request) -> web.Response:
+        return web.json_response(
+            await asyncio.to_thread(self.engine.fleet_stats))
+
+    async def _http_fleet_drain(self, request: web.Request) -> web.Response:
+        replica_id = request.match_info["replica_id"]
+        try:
+            summary = await asyncio.to_thread(self.engine.drain_replica,
+                                              replica_id)
+        except KeyError:
+            return web.json_response(
+                {"error": f"unknown replica {replica_id!r}"}, status=404)
+        return web.json_response(summary)
+
+    async def _http_fleet_metrics(self, request: web.Request,
+                                  ) -> web.Response:
+        text = await asyncio.to_thread(self.engine.fleet_metrics)
+        return web.Response(text=text,
+                            content_type="text/plain; version=0.0.4",
+                            charset="utf-8")
+
+    async def _http_fleet_slo(self, request: web.Request) -> web.Response:
+        return web.json_response(
+            await asyncio.to_thread(self.engine.fleet_slo),
+            dumps=lambda o: json.dumps(o, default=str))
+
+    # ---------------- KV migration channel ----------------
+
+    def _kv_wire_step(self, name: str, session_id: str,
+                      request: web.Request) -> None:
+        """A migration wire hop as a step record carrying the trace id of
+        the router's ``traceparent`` header (no local request trace holds
+        the session here)."""
+        parsed = parse_traceparent(request.headers.get("traceparent", ""))
+        if parsed is None:
+            return
+        t = time.monotonic()
+        self._tracer.step(name, t, t, session_id=session_id,
+                          trace_id=parsed)
+
+    async def _http_kv_export(self, request: web.Request) -> web.Response:
+        session_id = request.match_info["session_id"]
+        self._kv_wire_step("kv_export", session_id, request)
+        if request.query.get("meta"):
+            info = await asyncio.to_thread(self.engine.parked_kv_info,
+                                           session_id)
+            if info is None:
+                return web.json_response({"error": "no parked entry"},
+                                         status=404)
+            return web.json_response({"session_id": session_id,
+                                      "kept": info[0], "nbytes": info[1]})
+        entry = await asyncio.to_thread(self.engine.export_parked_kv,
+                                        session_id)
+        if entry is None:
+            return web.json_response({"error": "no parked entry"},
+                                     status=404)
+        from fasttalk_tpu_torch.router.migrate import serialize_parked
+
+        data = await asyncio.to_thread(serialize_parked, entry)
+        return web.Response(body=data,
+                            content_type="application/octet-stream")
+
+    async def _http_kv_import(self, request: web.Request) -> web.Response:
+        from fasttalk_tpu_torch.router.migrate import deserialize_parked
+
+        session_id = request.match_info["session_id"]
+        self._kv_wire_step("kv_import", session_id, request)
+        data = await request.read()
+        try:
+            entry = await asyncio.to_thread(deserialize_parked, data)
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        if entry.session_id != session_id:
+            return web.json_response(
+                {"error": f"entry is for session {entry.session_id!r}, "
+                 f"not {session_id!r}"}, status=400)
+        ok = await asyncio.to_thread(self.engine.import_parked_kv, entry)
+        if not ok:
+            return web.json_response(
+                {"error": "entry refused (pool disabled, over budget, "
+                 "or cache-geometry mismatch)"}, status=409)
+        return web.json_response({"imported": True,
+                                  "session_id": session_id,
+                                  "kept": entry.kept,
+                                  "nbytes": entry.nbytes})
+
+    async def _http_kv_release(self, request: web.Request) -> web.Response:
+        session_id = request.match_info["session_id"]
+        ok = await asyncio.to_thread(self.engine.drop_parked_kv, session_id)
+        if not ok:
+            return web.json_response({"error": "no parked entry"},
+                                     status=404)
+        return web.json_response({"released": True,
+                                  "session_id": session_id})
 
     # ---------------- WebSocket ----------------
 
@@ -620,6 +785,15 @@ class WebSocketLLMServer:
                     await self._send(session_id, ws, {
                         "type": "tool_call", "tool": event.get("tool"),
                         "arguments": event.get("arguments")},
+                        request_id=request_id)
+                elif etype == "resumed":
+                    # Fleet failover: the stream moved to a surviving
+                    # replica mid-generation. Informative, not an error;
+                    # tokens keep flowing after it.
+                    await self._send(session_id, ws, {
+                        "type": "resumed",
+                        "replica": event.get("replica"),
+                        "attempt": event.get("attempt")},
                         request_id=request_id)
                 elif etype == "error":
                     if event.get("code") in ENGINE_SHED_CODES:

@@ -46,9 +46,13 @@ the remote providers, the agent's ``ENABLE_PYDANTIC_AI``, ``ENABLE_TOOLS``,
 supervisor's ``ENGINE_AUTO_RESTART`` and ``SUPERVISOR_*``, ``FAULT_POINTS``
 (a spec that does not parse is a named startup error), ``FAULT_HTTP`` and
 ``TPU_WARMUP``; an unset ``DEFAULT_REPEAT_PENALTY`` resolves by provider.
-A device mesh, the fleet router (``ROUTER_ENABLED``, ``KV_MIGRATE_HTTP``,
-``FLEET_SCALE_MAX``) and multi-host SPMD serving (``TPU_SPMD_ROLE``), which
-the port does not carry yet, are rejected with a named error when their
+The fleet settings (``ROUTER_*``, ``FLEET_*``, ``KV_MIGRATE_HTTP``,
+``DISAGG_PREFILL_MIN_TOKENS`` and ``FLEET_FLIGHT_*``) have the JAX names,
+defaults and messages (``fasttalk_tpu/utils/config.py`` :400-505,
+:780-799, :982-1072, :1261-1271), but for ``FLEET_FLIGHT_DIR``, whose
+default is the port's own directory.
+A device mesh and multi-host SPMD serving (``TPU_SPMD_ROLE``), which the
+port does not carry yet, are rejected with a named error when their
 variable asks for them; they are never silently ignored.
 
 The device is not configuration: it is an argument of the entry points
@@ -250,6 +254,119 @@ class Config:
     # failures; 0 surfaces the first failure.
     remote_connect_retries: int = field(
         default_factory=lambda: _env_int("REMOTE_CONNECT_RETRIES", 2))
+    # ---- Fleet router (fasttalk_tpu_torch/router/, docs/ROUTER.md) ----
+    # Front a fleet of engine replicas behind this server instead of a
+    # single engine: session-affinity routing, health probes, failover
+    # with mid-stream resume, coordinated drain.
+    router_enabled: bool = field(
+        default_factory=lambda: _env_bool("ROUTER_ENABLED", False))
+    # In-process engine replicas the router builds (each a full engine
+    # instance: CPU fleets for test/bench, dp-style multi-engine on
+    # real hardware). May be 0 when ROUTER_BACKENDS supplies the fleet.
+    fleet_replicas: int = field(
+        default_factory=lambda: _env_int("FLEET_REPLICAS", 2))
+    # Comma-separated serving roots of remote FastTalk replicas
+    # (e.g. "http://replica-1:8000,http://replica-2:8000"): generations
+    # go through their /v1 surface via the existing remote.py client;
+    # probes read their /health body.
+    router_backends: str = field(
+        default_factory=lambda: _env_str("ROUTER_BACKENDS", ""))
+    # Health/load probe cadence (seconds); 0 disables the probe thread
+    # (probes then only run on demand — tests).
+    router_probe_interval_s: float = field(
+        default_factory=lambda: _env_float("ROUTER_PROBE_INTERVAL_S",
+                                           2.0))
+    # How long an idle session stays pinned to its replica. Default
+    # matches KV_PARK_TTL_S: once the parked KV has expired server-side
+    # there is nothing left to be sticky to.
+    router_affinity_ttl_s: float = field(
+        default_factory=lambda: _env_float("ROUTER_AFFINITY_TTL_S",
+                                           600.0))
+    # Replica failures one request will route around before giving up.
+    router_failover_retries: int = field(
+        default_factory=lambda: _env_int("ROUTER_FAILOVER_RETRIES", 2))
+    # Resume mid-stream failovers on a survivor (re-prefill from the
+    # transcript; client sees a `resumed` event). Off = mid-stream
+    # replica death surfaces as a terminal error instead.
+    router_resume: bool = field(
+        default_factory=lambda: _env_bool("ROUTER_RESUME", True))
+    # Consecutive failed probes before a replica is marked dead (a
+    # stream failing while the backend is unreachable marks it dead
+    # immediately, independent of this).
+    router_dead_probes: int = field(
+        default_factory=lambda: _env_int("ROUTER_DEAD_PROBES", 2))
+    # ---- Fleet session fabric (docs/ROUTER.md "Cross-replica KV
+    # migration" / "Elastic replicas") ----
+    # Move parked session KV between replicas on drain/failover so the
+    # next turn RESTORES on the target instead of re-prefilling the
+    # transcript. Off = the pre-fabric behaviour (drain releases the
+    # entry, failover re-prefills).
+    router_migrate: bool = field(
+        default_factory=lambda: _env_bool("ROUTER_MIGRATE", True))
+    # Hard bound on one migration transfer (export + wire + import).
+    # A hung channel falls back to re-prefill — it must never wedge a
+    # drain or a failover.
+    router_migrate_timeout_s: float = field(
+        default_factory=lambda: _env_float("ROUTER_MIGRATE_TIMEOUT_S",
+                                           10.0))
+    # Serve the /kv/parked/{session_id} migration endpoints on THIS
+    # replica's serving port. Off by default: the port is
+    # unauthenticated, and the channel exposes parked transcripts
+    # (read), pool writes, and purges. Enable ONLY on replicas whose
+    # serving port is reachable solely from the router network —
+    # a remote router needs it to migrate KV in and out; in-process
+    # fleets hand entries over directly and never need it.
+    kv_migrate_http: bool = field(
+        default_factory=lambda: _env_bool("KV_MIGRATE_HTTP", False))
+    # Co-locate sessions sharing a system prompt on the replica that
+    # already serves that prefix (hits the shared-prefix stamp /
+    # paged block aliasing) while its load is within one queued
+    # request of the best candidate.
+    router_prefix_affinity: bool = field(
+        default_factory=lambda: _env_bool("ROUTER_PREFIX_AFFINITY",
+                                          True))
+    # Elastic replica scaling (router/elastic.py). FLEET_SCALE_MAX=0
+    # disables the scaler (fixed fleet); > 0 lets the launcher grow
+    # the in-process fleet up to this size on queue depth / SLO burn
+    # and shrink it back to FLEET_SCALE_MIN via client-invisible
+    # drain-then-migrate after sustained idleness.
+    fleet_scale_min: int = field(
+        default_factory=lambda: _env_int("FLEET_SCALE_MIN", 1))
+    fleet_scale_max: int = field(
+        default_factory=lambda: _env_int("FLEET_SCALE_MAX", 0))
+    # Aggregate queued requests across the fleet that trigger a
+    # scale-up (an SLO page-burn triggers one regardless of depth).
+    fleet_scale_up_queue: int = field(
+        default_factory=lambda: _env_int("FLEET_SCALE_UP_QUEUE", 8))
+    # Whole-fleet idle time (no queued, no running work) before one
+    # replica is retired.
+    fleet_scale_down_idle_s: float = field(
+        default_factory=lambda: _env_float("FLEET_SCALE_DOWN_IDLE_S",
+                                           120.0))
+    # Scaler control-loop cadence.
+    fleet_scale_check_s: float = field(
+        default_factory=lambda: _env_float("FLEET_SCALE_CHECK_S", 5.0))
+    # ---- Disaggregated prefill/decode serving (router/disagg.py,
+    # docs/ROUTER.md "Disaggregated prefill/decode") ----
+    # Per-replica roles for the in-process fleet, comma-separated,
+    # one of prefill|decode|mixed per FLEET_REPLICAS slot (e.g.
+    # "prefill,decode,decode"). Empty = every replica is "mixed"
+    # (today's behaviour). A prefill-role replica runs long-context
+    # chunked prefill with a deep queue and ZERO decode slots — it
+    # parks the finished KV and the router hands it to the decode
+    # tier over the /kv/parked migration wire.
+    fleet_roles: str = field(
+        default_factory=lambda: _env_str("FLEET_ROLES", ""))
+    # Same, for ROUTER_BACKENDS remote replicas (one role per URL).
+    router_backend_roles: str = field(
+        default_factory=lambda: _env_str("ROUTER_BACKEND_ROLES", ""))
+    # Prompt-length threshold (estimated tokens) above which a new
+    # stream takes the prefill-tier handoff path; shorter prompts
+    # place decode-local. Only meaningful when the fleet has a
+    # prefill-role replica.
+    disagg_prefill_min_tokens: int = field(
+        default_factory=lambda: _env_int("DISAGG_PREFILL_MIN_TOKENS",
+                                         512))
     # ---- The tool-calling agent (agents/) ----
     # Built by the launcher (serving/launcher.py build_agent) when both
     # are true, which is the default.
@@ -486,6 +603,27 @@ class Config:
     # Reconciliation tolerance for derived checks of the hop sums.
     journey_tol: float = field(
         default_factory=lambda: _env_float("JOURNEY_TOL", 0.10))
+    # ---- Fleet flight recorder (observability/fleetflight.py):
+    # router-side incident triggers fan bundle collection out to every
+    # live replica (router-fronted processes only) ----
+    fleet_flight_enabled: bool = field(
+        default_factory=lambda: _env_bool("FLEET_FLIGHT_ENABLED", True))
+    fleet_flight_dir: str = field(
+        default_factory=lambda: _env_str(
+            "FLEET_FLIGHT_DIR", "/tmp/fasttalk-tpu-torch-fleet-flight"))
+    fleet_flight_max_bundles: int = field(
+        default_factory=lambda: _env_int("FLEET_FLIGHT_MAX_BUNDLES", 4))
+    fleet_flight_min_interval_s: float = field(
+        default_factory=lambda: _env_float("FLEET_FLIGHT_MIN_INTERVAL_S",
+                                           120.0))
+    # This many failovers within fleet_flight_window_s counts as a
+    # failover burst and triggers a fleet bundle.
+    fleet_flight_failover_burst: int = field(
+        default_factory=lambda: _env_int("FLEET_FLIGHT_FAILOVER_BURST",
+                                         3))
+    fleet_flight_window_s: float = field(
+        default_factory=lambda: _env_float("FLEET_FLIGHT_WINDOW_S",
+                                           60.0))
 
     def __post_init__(self) -> None:
         if not self.warmup:
@@ -510,18 +648,103 @@ class Config:
             if _env_int(name, 1) != 1:
                 errs.append(f"{name}>1 asks for a device mesh: not "
                             "implemented yet in fasttalk_tpu_torch")
-        for name in ("ROUTER_ENABLED", "KV_MIGRATE_HTTP"):
-            if _env_bool(name, False):
-                errs.append(f"{name}=true asks for the fleet router: not "
-                            "implemented yet in fasttalk_tpu_torch")
-        if _env_int("FLEET_SCALE_MAX", 0) > 0:
-            errs.append("FLEET_SCALE_MAX>0 asks for the fleet router: not "
-                        "implemented yet in fasttalk_tpu_torch")
-        if _env_str("TPU_SPMD_ROLE", "off") != "off":
+        spmd_role = _env_str("TPU_SPMD_ROLE", "off")
+        if spmd_role != "off":
             errs.append("TPU_SPMD_ROLE asks for multi-host SPMD serving: "
                         "not implemented yet in fasttalk_tpu_torch")
         if self.llm_provider not in VALID_PROVIDERS:
             errs.append(f"llm_provider must be one of {VALID_PROVIDERS}")
+        if self.fleet_replicas < 0:
+            errs.append("fleet_replicas must be >= 0")
+        if self.router_probe_interval_s < 0:
+            errs.append("router_probe_interval_s must be >= 0 "
+                        "(0 disables the probe thread)")
+        if self.router_affinity_ttl_s <= 0:
+            errs.append("router_affinity_ttl_s must be > 0")
+        if self.router_failover_retries < 0:
+            errs.append("router_failover_retries must be >= 0")
+        if self.router_dead_probes < 1:
+            errs.append("router_dead_probes must be >= 1")
+        if self.router_migrate_timeout_s <= 0:
+            errs.append("router_migrate_timeout_s must be > 0 (a hung "
+                        "migration must never wedge a drain; disable "
+                        "migration with ROUTER_MIGRATE=false instead)")
+        if self.fleet_scale_min < 1:
+            errs.append("fleet_scale_min must be >= 1 (the fleet "
+                        "never scales to zero replicas)")
+        if self.fleet_scale_max < 0:
+            errs.append("fleet_scale_max must be >= 0 (0 disables "
+                        "elastic scaling)")
+        if self.fleet_scale_max > 0 \
+                and self.fleet_scale_max < self.fleet_scale_min:
+            errs.append(f"fleet_scale_max ({self.fleet_scale_max}) "
+                        f"must be >= fleet_scale_min "
+                        f"({self.fleet_scale_min})")
+        if self.fleet_scale_max > 0 and not self.router_enabled:
+            errs.append("FLEET_SCALE_MAX > 0 requires "
+                        "ROUTER_ENABLED=true (the elastic scaler "
+                        "drives a FleetRouter)")
+        if self.fleet_scale_up_queue < 1:
+            errs.append("fleet_scale_up_queue must be >= 1")
+        if self.fleet_scale_down_idle_s <= 0:
+            errs.append("fleet_scale_down_idle_s must be > 0")
+        if self.fleet_scale_check_s <= 0:
+            errs.append("fleet_scale_check_s must be > 0")
+        _role_values = ("prefill", "decode", "mixed")
+        _all_roles: list[str] = []
+        for spec, env, count, what in (
+                (self.fleet_roles, "FLEET_ROLES",
+                 self.fleet_replicas, "FLEET_REPLICAS"),
+                (self.router_backend_roles, "ROUTER_BACKEND_ROLES",
+                 len([u for u in self.router_backends.split(",")
+                      if u.strip()]), "ROUTER_BACKENDS"),
+        ):
+            if not spec.strip():
+                continue
+            roles = [r.strip().lower() for r in spec.split(",")]
+            bad = [r for r in roles if r not in _role_values]
+            if bad:
+                errs.append(f"{env} contains invalid role(s) "
+                            f"{bad!r} (each must be one of "
+                            f"prefill|decode|mixed)")
+                continue
+            if len(roles) != count:
+                errs.append(f"{env} lists {len(roles)} role(s) but "
+                            f"{what} defines {count} replica(s) — "
+                            "one role per replica, in order")
+                continue
+            _all_roles.extend(roles)
+        if _all_roles:
+            if not self.router_enabled:
+                errs.append("FLEET_ROLES/ROUTER_BACKEND_ROLES require "
+                            "ROUTER_ENABLED=true (replica roles are a "
+                            "router placement concept)")
+            if "prefill" in _all_roles and not self.router_migrate:
+                errs.append("a 'prefill' replica role requires "
+                            "ROUTER_MIGRATE=true (prefill replicas "
+                            "hand finished KV to the decode tier over "
+                            "the /kv/parked migration wire; without "
+                            "migration their output is unreachable)")
+            if "prefill" in _all_roles \
+                    and not any(r in ("decode", "mixed")
+                                for r in _all_roles):
+                errs.append("a fleet with 'prefill' roles needs at "
+                            "least one 'decode' or 'mixed' replica to "
+                            "run the decode side of the handoff")
+        if self.disagg_prefill_min_tokens < 1:
+            errs.append("disagg_prefill_min_tokens must be >= 1")
+        if self.router_enabled:
+            n_remote = len([u for u in self.router_backends.split(",")
+                            if u.strip()])
+            if self.fleet_replicas + n_remote < 1:
+                errs.append("router_enabled needs at least one replica "
+                            "(FLEET_REPLICAS >= 1 or ROUTER_BACKENDS)")
+            if spmd_role != "off":
+                errs.append("router_enabled is incompatible with "
+                            "multi-host SPMD serving (spmd_role must "
+                            "be 'off'; an SPMD cluster is ONE logical "
+                            "replica — front it via ROUTER_BACKENDS "
+                            "from a separate router process)")
         if self.supervisor_max_restarts < 1:
             errs.append("supervisor_max_restarts must be >= 1")
         if self.supervisor_window_s <= 0:
@@ -741,6 +964,17 @@ class Config:
         if not (0 < self.journey_tol < 1):
             errs.append("journey_tol must be in (0, 1) — a fraction "
                         "of wall clock the hop sum may miss by")
+        if not self.fleet_flight_dir.strip():
+            errs.append("fleet_flight_dir must be a non-empty path")
+        if self.fleet_flight_max_bundles < 1:
+            errs.append("fleet_flight_max_bundles must be >= 1")
+        if self.fleet_flight_min_interval_s < 0:
+            errs.append("fleet_flight_min_interval_s must be >= 0")
+        if self.fleet_flight_failover_burst < 2:
+            errs.append("fleet_flight_failover_burst must be >= 2 "
+                        "(one failover is an event, not an incident)")
+        if self.fleet_flight_window_s <= 0:
+            errs.append("fleet_flight_window_s must be > 0")
         if self.watchdog_cancel_stall_s < self.watchdog_token_stall_s:
             # Cancellation cannot precede detection; a smaller value
             # would silently mean max(token, cancel) (watchdog.py).

@@ -402,11 +402,15 @@ def test_port_sources_import_no_jax_and_no_jax_package():
             "structured/regex_dfa.py", "structured/runtime.py",
             "structured/schema.py", "agents/hermes.py",
             "resilience/failpoints.py", "observability/trace.py",
-            "serving/openai_api.py"} <= scanned
+            "serving/openai_api.py", "router/__init__.py",
+            "router/replica.py", "router/policy.py", "router/migrate.py",
+            "router/disagg.py", "router/router.py", "router/elastic.py",
+            "observability/fleetflight.py"} <= scanned
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "fasttalk_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "fasttalk_tpu",
+                               "ml_dtypes"), (path, name)
 
 
 def test_importing_the_port_loads_no_jax_module():
@@ -427,10 +431,12 @@ def test_importing_the_port_loads_no_jax_module():
         "import fasttalk_tpu_torch.serving.openai_api\n"
         "import fasttalk_tpu_torch.monitoring.monitor\n"
         "import fasttalk_tpu_torch.observability.flight\n"
+        "import fasttalk_tpu_torch.router\n"
+        "import fasttalk_tpu_torch.observability.fleetflight\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'fasttalk_tpu')]\n"
+        "('jax', 'jaxlib', 'fasttalk_tpu', 'ml_dtypes')]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

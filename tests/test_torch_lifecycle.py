@@ -20,8 +20,9 @@ package on the CPU: ``restart()`` after an engine-thread crash, warm-up,
   ``POST /debug/fault``, the supervisor's restart (``engine_restarts_total``
   1, ``/health`` ok), the next request served, a clean shutdown.
 - The new modules import no JAX; the slice's settings have the JAX
-  Config's defaults and messages, and the router and SPMD settings are
-  refused by name.
+  Config's defaults and messages; the fleet settings are accepted or
+  refused as the JAX Config does them, and the SPMD setting is refused by
+  name.
 """
 
 import asyncio
@@ -515,15 +516,55 @@ def test_bad_slice_settings_fail_as_in_jax(monkeypatch, env, message):
 
 @pytest.mark.parametrize("env", [
     {"ROUTER_ENABLED": "true"}, {"KV_MIGRATE_HTTP": "true"},
-    {"FLEET_SCALE_MAX": "2"}, {"TPU_SPMD_ROLE": "leader"}])
+    {"FLEET_SCALE_MAX": "2"}, {"TPU_SPMD_ROLE": "leader"},
+    {"ROUTER_ENABLED": "true", "FLEET_SCALE_MAX": "2"},
+    {"ROUTER_ENABLED": "true", "FLEET_SCALE_MIN": "3",
+     "FLEET_SCALE_MAX": "2"},
+    {"ROUTER_ENABLED": "true", "FLEET_ROLES": "prefill"},
+    {"ROUTER_ENABLED": "true", "FLEET_ROLES": "prefill,decode"},
+    {"FLEET_ROLES": "prefill,decode"},
+    {"ROUTER_ENABLED": "true", "FLEET_ROLES": "prefill,prefill"},
+    {"ROUTER_ENABLED": "true", "FLEET_REPLICAS": "0"},
+    {"ROUTER_ENABLED": "true", "ROUTER_MIGRATE_TIMEOUT_S": "0"},
+    {"FLEET_FLIGHT_FAILOVER_BURST": "1"},
+    {"ROUTER_ENABLED": "true", "TPU_SPMD_ROLE": "leader"}])
 def test_router_and_spmd_settings_are_refused_by_name(monkeypatch, env):
+    """The fleet settings are accepted or refused as the JAX Config does,
+    with its messages; multi-host SPMD (``TPU_SPMD_ROLE``) stays refused by
+    name, and beside ``ROUTER_ENABLED`` the port also gives JAX's router x
+    SPMD message."""
+    from fasttalk_tpu.utils.config import Config as JaxConfig
     from fasttalk_tpu_torch.utils.config import Config
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match="not implemented yet") as err:
+    if "TPU_SPMD_ROLE" in env:
+        with pytest.raises(ValueError, match="not implemented yet") as err:
+            Config()
+        assert "TPU_SPMD_ROLE" in str(err.value)
+        if "ROUTER_ENABLED" in env:
+            assert "router_enabled is incompatible with multi-host SPMD " \
+                "serving" in str(err.value)
+        return
+    try:
+        JaxConfig()
+        want = None
+    except ValueError as e:
+        want = str(e)
+    if want is None:
+        cfg = Config()
+        for k in env:
+            field = {"ROUTER_ENABLED": "router_enabled",
+                     "KV_MIGRATE_HTTP": "kv_migrate_http",
+                     "FLEET_SCALE_MAX": "fleet_scale_max",
+                     "FLEET_ROLES": "fleet_roles"}[k]
+            assert getattr(cfg, field) == getattr(JaxConfig(), field)
+        return
+    with pytest.raises(ValueError) as err:
         Config()
-    assert next(iter(env)) in str(err.value)
+    # The same messages: JAX joins them with "; ", the port one a line.
+    got = [line.strip() for line in str(err.value).splitlines()[1:]]
+    assert got and want == "Invalid configuration: " + "; ".join(got)
 
 
 @pytest.mark.parametrize("provider,cls_name", [
