@@ -114,7 +114,21 @@ no result line):
    disaggregated prefill tier on the paged bf16 pool with the radix cache
    (8 handoffs, a radix hit of the imported prefix, a failpoint fallback);
    (e) the elastic scaler up to two replicas and back. The bytes allocated
-   on the card after each part must be within 64 MiB of the phase's start.
+   on the card after each part must be within 64 MiB of the phase's start;
+   what holds the card's memory at the phase's start is attributed
+   (``memory_owners``);
+15. multi-rank serving (``phase15``): each kernel held to its plain
+   version at a tp = 2 rank's shard shapes (``check_shard_kernels``);
+   NCCL's answer to two ranks on one device written down; then two ranks
+   per cluster, each a process of its own on the one card over gloo: (a)
+   llama3.2:1b int8 at tp = 2 through the launcher (leader) and a
+   follower, 8 WS sessions x 64 tokens, the kernels' launches counted on
+   both ranks, and tinychat int8 at tp = 2 against the single-rank
+   engine's greedy texts; (b) tinychat int8 at sp = 2, a fresh prompt
+   through ring prefill, against the single-rank engine's greedy texts;
+   (c) (a)'s follower killed mid-decode: one error frame per in-flight
+   session, the cluster dead within two heartbeat intervals, the gateway
+   down.
 
 In phases 5-14 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
@@ -1649,9 +1663,14 @@ def phase11(counters: dict) -> dict:
     rad = turns_phase("phase 11a (radix, paged bf16 KV)",
                       "decode_attend_paged", [SLOTS], 3, 64, True, counters,
                       kv_radix_enabled=True, **paged_kw)
+    # A part's engine is dropped as soon as the part is done: results kept
+    # past it would keep its weights and KV cache on the card (they held
+    # 12.9 GB into phases 14 and 15 before).
+    rad.pop("engine_obj")
     rad_off = turns_phase("phase 11a control (radix off, paged bf16 KV)",
                           "decode_attend_paged", [SLOTS], 3, 64, True,
                           counters, **paged_kw)
+    rad_off.pop("engine_obj")
     for t in (2, 3):
         worst = max(p - d for p, d in deltas(rad, t))
         log(f"  11a turn {t}: prefill - delta, worst session: {worst} tokens")
@@ -1671,15 +1690,17 @@ def phase11(counters: dict) -> dict:
             or rad8["peak"]["aliased"] <= 0 or blocks8["cow_copies"] < 1:
         fail(f"phase 11b: no radix hit, aliased block or copy on write: "
              f"{blocks8}")
-    check_block_copy(rad8["engine_obj"])
+    check_block_copy(rad8.pop("engine_obj"))
     # 11c: host offload on dense bf16: wave B evicts wave A, wave A's second
     # turns restore; against the same traffic with the pool off.
     off = turns_phase("phase 11c (KV_HOST_BUDGET_MB=4096, dense bf16 KV)",
                       "decode_attend", [SLOTS, SLOTS], 2, 64, False, counters,
                       kv_host_budget_mb=4096.0)
+    off.pop("engine_obj")
     off_ctl = turns_phase("phase 11c control (KV_HOST_BUDGET_MB=0)",
                           "decode_attend", [SLOTS, SLOTS], 2, 64, False,
                           counters)
+    off_ctl.pop("engine_obj")
     host = off["stats"]["kv_host"]
     delta_only = [p <= d for p, d in deltas(off, 2, wave=0)]
     log(f"  11c wave A turn 2: {sum(delta_only)} of {len(delta_only)} "
@@ -1695,6 +1716,7 @@ def phase11(counters: dict) -> dict:
                        kv_quant="int8", spec_decode="off", max_len=MAX_LEN,
                        kv_layout="paged", kv_block_size=BLOCK,
                        kv_pool_blocks=2048)
+    off8.pop("engine_obj")
     host8 = off8["stats"]["kv_host"]
     if host8["parked_total"] < SLOTS or host8["restored_total"] < 1:
         fail(f"phase 11d: parks {host8['parked_total']}, restores "
@@ -2650,7 +2672,8 @@ def phase14(counters: dict, phase5: dict) -> dict:
         torch.cuda.empty_cache()
     mem_start, _ = cuda_memory()
     t14 = time.monotonic()
-    out: dict = {"memory_allocated_start": mem_start}
+    out: dict = {"memory_allocated_start": mem_start,
+                 "memory_owners_start": memory_owners("phase 14 start")}
 
     # ---------------- (a) placement and affinity, (b) failover ----------
     async def part_ab(launcher, http, port, serving_url) -> dict:
@@ -3288,6 +3311,841 @@ def phase14(counters: dict, phase5: dict) -> dict:
 
 
 
+# ------------------------------------------- phase 15: multi-rank serving
+
+# A tp = 2 rank's shards of the Llama-3.2-1B layer matmuls, (K, N) and how
+# many a layer runs: column-parallel wq, wk/wv, w_gate/w_up at N/2,
+# row-parallel wo and w_down at K/2; the tied head's D/2 columns; 4 of the
+# 8 KV heads. Phase 15a serves 8 slots, so the decode rows are 8.
+TP2_MATMULS = {(2048, 1024): 1, (2048, 256): 2, (1024, 2048): 1,
+               (2048, 4096): 2, (4096, 2048): 1}
+# The row-parallel shards (wo, w_down): their partial products stay
+# float32 until the sum over "tp" (ops/quant.py ``row_parallel``).
+TP2_ROW_PARALLEL = {(1024, 2048), (4096, 2048)}
+TP2_SLOTS = 8
+# Phase 15a's model: llama3.2:1b at full width and depth, int8 random
+# weights from the seed (the tokens a session asks for follow it).
+PHASE15_A_MODEL = {"LLM_MODEL": "llama3.2:1b", "MODEL_PATH": "",
+                   "WEIGHT_QUANT": "int8"}
+PHASE15_A_TOKENS = 64
+PHASE15_TINY_PROMPTS = ["what color is the sky?", "tell me about cats.",
+                        "my name is Ada.", "what do dogs eat?"]
+# 858 tinychat tokens with the chat template: a fresh prompt past one
+# rank's KV shard at sp = 2 (TPU_MAX_MODEL_LEN=1536: 768 rows a rank), so it
+# prefills through ring attention.
+PHASE15_LONG = ("the cat sat in the garden and watched the birds fly over "
+                "the old stone wall while the dog slept. ") * 20 \
+    + "what did the cat watch?"
+
+
+def memory_owners(label: str) -> dict:
+    """Attribute the bytes allocated on the card to their holders: the
+    live ``TorchEngine`` objects the garbage collector finds (shut down or
+    not) with the bytes of their cache, params and decode state; every live
+    CUDA tensor it sees, by storage, the largest listed by shape; and the
+    active bytes of ``torch.cuda.memory_snapshot()``."""
+    from fasttalk_tpu_torch.engine.engine import TorchEngine
+
+    import warnings
+
+    gc.collect()
+    allocated = active = 0
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        active = sum(b["size"] for seg in torch.cuda.memory_snapshot()
+                     for b in seg["blocks"]
+                     if b["state"] == "active_allocated")
+    storages: dict[int, tuple] = {}
+    engines = []
+    with warnings.catch_warnings():
+        # isinstance on every object touches deprecated module attributes.
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                    st = obj.untyped_storage()
+                    storages[st.data_ptr()] = (
+                        st.nbytes(), tuple(obj.shape),
+                        str(obj.dtype).replace("torch.", ""))
+                elif isinstance(obj, TorchEngine):
+                    engines.append(obj)
+            except Exception:
+                continue
+
+    def owned(*trees) -> int:
+        ptrs: dict[int, int] = {}
+
+        def walk(x):
+            if isinstance(x, torch.Tensor):
+                if x.is_cuda:
+                    st = x.untyped_storage()
+                    ptrs[st.data_ptr()] = st.nbytes()
+            elif isinstance(x, dict):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    walk(v)
+            elif hasattr(x, "__dict__") and not isinstance(x, type):
+                for v in vars(x).values():
+                    if isinstance(v, (torch.Tensor, dict, list, tuple)):
+                        walk(v)
+        for t in trees:
+            walk(t)
+        return sum(ptrs.values())
+
+    eng = [{"closed": e._closed, "started": e._started,
+            "model": e.cfg.name,
+            "bytes": owned(e.cache, e.params, e._dev)} for e in engines]
+    top = sorted(storages.values(), reverse=True)[:10]
+    out = {"allocated": allocated, "snapshot_active": active,
+           "gc_tensor_bytes": sum(v[0] for v in storages.values()),
+           "gc_tensors": len(storages), "engines": eng,
+           "largest": [{"bytes": b, "shape": s, "dtype": d}
+                       for b, s, d in top]}
+    log(f"{label}: memory on the card: allocated {allocated}, "
+        f"memory_snapshot active {active}, live CUDA tensors the collector "
+        f"sees {out['gc_tensor_bytes']} in {len(storages)} storages; live "
+        f"TorchEngine objects {eng}; largest {out['largest']}")
+    return out
+
+
+def launch_counts() -> dict:
+    """This process's launch counts of the phase 15 kernels."""
+    from fasttalk_tpu_torch.ops.cuda_attention import decode_attend
+    from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul
+    from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
+
+    return {"int8_matmul": int8_matmul.launches,
+            "int8_matmul_t": int8_matmul_t.launches,
+            "decode_attend": decode_attend.launches,
+            "int4_matmul": int4_matmul.launches}
+
+
+def check_shard_kernels(results: dict) -> None:
+    """Phase 15, before serving: ``int8_matmul`` at a tp = 2 rank's shard
+    shapes (N/2 column-parallel, K/2 row-parallel with float32 partial
+    output), ``int8_matmul_t`` over the table's D/2 columns (float32
+    partial logits) and ``decode_attend`` on 4 of the 8 KV heads, at phase
+    15a's 8 decode rows, each held to its plain version with phase 2's
+    tolerances and timed beside it, the library call and its bound (one
+    rank's decode step: 112 matmul calls, one head, 16 attention calls).
+    A float32 output must also round to the kernel's bf16 output bit for
+    bit. Recorded under ``tp2`` of each kernel's entry."""
+    from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
+                                                       decode_attend_plain)
+    from fasttalk_tpu_torch.ops.cuda_int8 import (int8_matmul,
+                                                  int8_matmul_plain,
+                                                  int8_matmul_t,
+                                                  int8_matmul_t_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    m = TP2_SLOTS
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+            "ops": 0.0, "max_abs_err": 0.0}
+    for (k, n), per_layer in TP2_MATMULS.items():
+        n_cp = copies_for(k * n)
+        qs = [torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(n_cp)]
+        s = torch.rand((n,), generator=g, device=dev) * 0.02 + 1e-3
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        out = torch.float32 if (k, n) in TP2_ROW_PARALLEL else None
+        got = int8_matmul(x, qs[0], s, out).float()
+        ref = int8_matmul_plain(x, qs[0], s, out).float()
+        err = (got - ref).abs().max().item()
+        tol = 1e-2 * ref.abs().max().item()
+        log(f"phase 15 int8_matmul (tp=2 shard) M={m} K={k} N={n} "
+            f"out {out or 'bf16'}: max_abs_err={err:.6g} (tol {tol:.6g})")
+        if not err <= tol:
+            fail(f"int8_matmul disagrees with its plain version at the tp=2 "
+                 f"shard M={m} K={k} N={n}: {err} > {tol}")
+        if out is not None and not torch.equal(
+                got.to(torch.bfloat16), int8_matmul(x, qs[0], s)):
+            fail(f"int8_matmul's float32 output at K={k} N={n} does not "
+                 "round to its bf16 output")
+        ms = time_ms(lambda i: int8_matmul(x, qs[i % n_cp], s, out), 50)
+        plain = time_ms(
+            lambda i: int8_matmul_plain(x, qs[i % n_cp], s, out), 10)
+        ws = [(q.float() * s).to(torch.bfloat16)
+              for q in qs[:max(1, n_cp // 2)]]
+        lib = time_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 50)
+        del ws
+        calls = per_layer * LAYERS
+        step["max_abs_err"] = max(step["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bytes", k * n + 4 * n + 2 * m * k
+                          + (4 if out else 2) * m * n),
+                         ("ops", 2 * m * k * n)):
+            step[key] += calls * val
+    b_ms, by = bound(step.pop("bytes"), step.pop("ops"))
+    results["int8_matmul"]["tp2"] = {
+        **step, "bound_ms": b_ms, "bound_by": by,
+        "work": "one tp=2 rank's decode step at M=8: 112 calls over the 5 "
+                "shard (K, N) shapes, wo and w_down with float32 output"}
+    log(f"phase 15 int8_matmul tp=2 rank step: {results['int8_matmul']['tp2']}")
+
+    vocab, d = VOCAB, HIDDEN // 2
+    q = torch.randint(-127, 128, (vocab, d), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((vocab,), generator=g, device=dev) * 0.02 + 1e-3
+    x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+    f32 = torch.float32
+    got = int8_matmul_t(x, q, s, f32)
+    ref = int8_matmul_t_plain(x, q, s, f32)
+    err = (got - ref).abs().max().item()
+    tol = 1e-2 * ref.abs().max().item()
+    log(f"phase 15 int8_matmul_t (tp=2 shard) M={m} V={vocab} D={d} out "
+        f"float32: max_abs_err={err:.6g} (tol {tol:.6g})")
+    if not err <= tol:
+        fail(f"int8_matmul_t disagrees with its plain version at the tp=2 "
+             f"shard D={d}: {err} > {tol}")
+    if not torch.equal(got.to(torch.bfloat16), int8_matmul_t(x, q, s)):
+        fail("int8_matmul_t's float32 output does not round to its bf16 "
+             "output")
+    del got, ref
+    ms = time_ms(lambda i: int8_matmul_t(x, q, s, f32), 20)
+    plain = time_ms(lambda i: int8_matmul_t_plain(x, q, s, f32), 3,
+                    warmup=1)
+    w = (q.float() * s[:, None]).to(torch.bfloat16)
+    lib = time_ms(lambda i: torch.nn.functional.linear(x, w), 20)
+    del w, q
+    b_ms, by = bound(vocab * d + 4 * vocab + 2 * m * d + 4 * m * vocab,
+                     2 * m * vocab * d)
+    results["int8_matmul_t"]["tp2"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+        "bound_ms": b_ms, "bound_by": by,
+        "work": "one call at M=8 over the table's D/2 columns (a tp=2 "
+                "rank's float32 partial logits)"}
+    log(f"phase 15 int8_matmul_t tp=2: {results['int8_matmul_t']['tp2']}")
+
+    nq, nkv = NQ // 2, NKV // 2
+    lengths = torch.tensor(ATTEND_LENGTHS[:m], dtype=torch.int32, device=dev)
+    n_cp = copies_for(2 * m * MAX_LEN * nkv * HEAD_DIM * 2)
+    ks = [torch.randn((m, MAX_LEN, nkv, HEAD_DIM), generator=g,
+                      device=dev).to(torch.bfloat16) for _ in range(n_cp)]
+    vs = [torch.randn((m, MAX_LEN, nkv, HEAD_DIM), generator=g,
+                      device=dev).to(torch.bfloat16) for _ in range(n_cp)]
+    qa = torch.randn((m, nq, HEAD_DIM), generator=g,
+                     device=dev).to(torch.bfloat16)
+    got = decode_attend(qa, ks[0], vs[0], lengths)
+    ref = decode_attend_plain(qa, ks[0], vs[0], lengths)
+    gaps = attend_slot_gaps(got, ref)
+    err = (got.float() - ref.float()).abs().max().item()
+    log(f"phase 15 decode_attend (tp=2: {nkv} of {NKV} KV heads, {m} slots): "
+        f"max_abs_err={err:.6g}, worst slot gap {gaps.max().item():.6g} "
+        f"(tol {ATTEND_SLOT_TOL})")
+    if not bool((gaps <= ATTEND_SLOT_TOL).all()):
+        fail(f"decode_attend disagrees with its plain version on a tp=2 "
+             f"rank's KV heads: {gaps.tolist()}")
+    ms = time_ms(lambda i: decode_attend(qa, ks[i % n_cp], vs[i % n_cp],
+                                         lengths), 50)
+    plain = time_ms(lambda i: decode_attend_plain(qa, ks[i % n_cp],
+                                                  vs[i % n_cp], lengths), 5)
+    live = int(lengths.sum().item())
+    nbytes = 2 * live * nkv * HEAD_DIM * 2 + 2 * m * nq * HEAD_DIM * 2
+    b_ms, by = bound(nbytes, 4 * live * nq * HEAD_DIM)
+    results["decode_attend"]["tp2"] = {
+        "max_abs_err": err, "ms": ms * LAYERS, "plain_ms": plain * LAYERS,
+        "library_ms": None, "bound_ms": b_ms * LAYERS, "bound_by": by,
+        "work": f"one tp=2 rank's decode step: {LAYERS} calls, {m} slots "
+                f"(lengths ATTEND_LENGTHS[:{m}]), {nkv} KV heads, {nq} query "
+                "heads"}
+    log(f"phase 15 decode_attend tp=2: {results['decode_attend']['tp2']}")
+    del ks, vs
+    torch.cuda.empty_cache()
+
+
+class Cluster:
+    """Two ranks of one gloo process group on the card (phase 15): rank 0
+    runs ``chip_smoke.py --rank <leader role>``, rank 1 ``chip_smoke.py
+    --rank follower`` (``run_spmd_follower``, the follower of ``python -m
+    fasttalk_tpu_torch websocket``). SIGUSR2 sets a rank's launch counts to
+    0, SIGUSR1 writes them to its file. ``close`` (and a failure) kills
+    what is left."""
+
+    def __init__(self, label: str, env: dict, leader_role: str):
+        import signal as _signal
+
+        self.label, self._signal = label, _signal
+        self.dir = os.path.join(REPO, "build", "phase15",
+                                label.replace(" ", "_"))
+        os.makedirs(self.dir, exist_ok=True)
+        for name in os.listdir(self.dir):
+            if name.startswith("rank"):
+                os.remove(os.path.join(self.dir, name))
+        coord, spmd = free_port(), free_port()
+        self.env = {**os.environ, "PYTHONPATH": REPO,
+                    "TPU_COORDINATOR_ADDR": f"127.0.0.1:{coord}",
+                    "TPU_NUM_PROCESSES": "2",
+                    "TPU_SPMD_ADDR": f"127.0.0.1:{spmd}",
+                    "TPU_SPMD_FOLLOWERS": "1", "TPU_WARMUP": "off",
+                    "ENABLE_PYDANTIC_AI": "false", "PROF_ENABLED": "false",
+                    "FLIGHT_DIR": os.path.join(self.dir, "flight"), **env}
+        self.procs = []
+        for rank, role in ((0, leader_role), (1, "follower")):
+            e = dict(self.env, TPU_PROCESS_ID=str(rank),
+                     TPU_SPMD_ROLE="leader" if rank == 0 else "follower")
+            logf = open(os.path.join(self.dir, f"rank{rank}.log"), "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--rank", role, os.path.join(self.dir, f"rank{rank}.json")],
+                cwd=REPO, env=e, stdout=logf, stderr=subprocess.STDOUT,
+                start_new_session=True), logf))
+        # The engine leader zeroes and reads its follower's counts itself.
+        with open(os.path.join(self.dir, "rank1.pid"), "w",
+                  encoding="utf-8") as f:
+            f.write(str(self.procs[1][0].pid))
+
+    def tail(self, rank: int, n: int = 3000) -> str:
+        with open(os.path.join(self.dir, f"rank{rank}.log"),
+                  encoding="utf-8", errors="replace") as f:
+            return f.read()[-n:]
+
+    def check_alive(self) -> None:
+        for rank, (p, _) in enumerate(self.procs):
+            if p.poll() is not None:
+                fail(f"phase 15 {self.label}: rank {rank} exited "
+                     f"{p.returncode}:\n{self.tail(rank)}")
+
+    def signal(self, rank: int, sig) -> None:
+        self.procs[rank][0].send_signal(sig)
+
+    def counts(self) -> list[dict]:
+        """Both ranks' launch counts (SIGUSR1, then their files)."""
+        for rank in range(2):
+            path = os.path.join(self.dir, f"rank{rank}.counts.json")
+            if os.path.exists(path):
+                os.remove(path)
+            self.signal(rank, self._signal.SIGUSR1)
+        out = []
+        for rank in range(2):
+            path = os.path.join(self.dir, f"rank{rank}.counts.json")
+            deadline = time.monotonic() + 30
+            while not os.path.exists(path):
+                if time.monotonic() > deadline:
+                    fail(f"phase 15 {self.label}: rank {rank} wrote no "
+                         f"launch counts:\n{self.tail(rank)}")
+                time.sleep(0.05)
+            time.sleep(0.05)
+            with open(path, encoding="utf-8") as f:
+                out.append(json.load(f))
+        return out
+
+    def zero(self) -> None:
+        for rank in range(2):
+            self.signal(rank, self._signal.SIGUSR2)
+        time.sleep(0.2)
+
+    def wait(self, rank: int, timeout: float) -> dict:
+        p, _ = self.procs[rank]
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 15 {self.label}: rank {rank} still running after "
+                 f"{timeout} s:\n{self.tail(rank)}")
+        if p.returncode != 0:
+            fail(f"phase 15 {self.label}: rank {rank} exited "
+                 f"{p.returncode}:\n{self.tail(rank)}")
+        with open(os.path.join(self.dir, f"rank{rank}.json"),
+                  encoding="utf-8") as f:
+            return json.load(f)
+
+    def close(self) -> None:
+        for p, logf in self.procs:
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, self._signal.SIGKILL)
+                except OSError:
+                    pass
+                p.wait()
+            logf.close()
+
+
+def rank_main(role: str, out: str) -> int:
+    """One rank of a phase 15 cluster (``chip_smoke.py --rank ROLE OUT``,
+    started by ``Cluster``): ``follower`` replays the leader's calls
+    (``run_spmd_follower``); ``launcher`` serves the WebSocket gateway
+    through ``ServerLauncher`` until SIGTERM or a dead cluster; ``engine``
+    builds the leader engine with a ``CallBroadcaster`` and answers the
+    greedy prompts of ``PHASE15_PROMPTS`` (JSON) one at a time; it zeroes
+    both ranks' launch counts just before the prompts and reads them just
+    after (the follower through SIGUSR2 and SIGUSR1, its pid from
+    ``rank1.pid``). Writes ``out`` (the launch counts and what it saw) at
+    its end."""
+    import signal as _signal
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fasttalk_tpu_torch.ops.cuda_attention import decode_attend
+    from fasttalk_tpu_torch.ops.cuda_int4 import int4_matmul
+    from fasttalk_tpu_torch.ops.cuda_int8 import int8_matmul, int8_matmul_t
+    from fasttalk_tpu_torch.utils.config import Config
+
+    def dump(*_):
+        path = out.replace(".json", ".counts.json")
+        with open(path + ".tmp", "w", encoding="utf-8") as f:
+            json.dump(launch_counts(), f)
+        os.replace(path + ".tmp", path)
+
+    def zero(*_):
+        for fn in (int8_matmul, int8_matmul_t, decode_attend, int4_matmul):
+            fn.launches = 0
+        with open(out.replace(".json", ".zeroed"), "w",
+                  encoding="utf-8") as f:
+            f.write("0")
+
+    _signal.signal(_signal.SIGUSR1, dump)
+    _signal.signal(_signal.SIGUSR2, zero)
+    config = Config()
+    result: dict = {"role": role}
+    if role == "follower":
+        from fasttalk_tpu_torch.serving.launcher import run_spmd_follower
+
+        run_spmd_follower(config)
+    elif role == "launcher":
+        from fasttalk_tpu_torch.observability.events import get_events
+        from fasttalk_tpu_torch.serving.launcher import ServerLauncher
+
+        launcher = ServerLauncher(config)
+        result["mesh"] = launcher.engine.get_model_info()["mesh"]
+        launcher.start()
+        sink = launcher._spmd_sink
+        dead = [e["ts"] for e in get_events().recent(200)
+                if e["kind"] == "spmd_cluster_dead"]
+        result.update({
+            "dead_reason": sink.dead_reason,
+            "cluster_dead_at": min(dead) if dead else None,
+            "exited_at": time.time(),
+            "stats": {k: launcher.engine.get_stats()[k] for k in (
+                "decode_calls", "decode_steps", "decode_host_s",
+                "batched_prefill_calls", "ring_prefill_calls")}})
+    else:
+        from fasttalk_tpu_torch.engine.engine import GenerationParams
+        from fasttalk_tpu_torch.engine.factory import build_engine
+        from fasttalk_tpu_torch.parallel.spmd_serving import CallBroadcaster
+
+        engine = build_engine(config)
+        host, port = config.spmd_addr.rsplit(":", 1)
+        sink = CallBroadcaster(host, int(port), config.spmd_followers,
+                               hb_interval_s=config.spmd_hb_interval_s)
+        engine.call_sink = sink
+        engine.start()
+
+        async def answer(i: int, text: str) -> str:
+            got = ""
+            async for ev in engine.generate(
+                    f"p{i}", f"p{i}", [{"role": "user", "content": text}],
+                    GenerationParams(max_tokens=48, temperature=0.0,
+                                     top_k=0, top_p=1.0)):
+                if ev["type"] == "token":
+                    got += ev["text"]
+                elif ev["type"] == "error":
+                    raise RuntimeError(f"phase 15 engine leader: {ev}")
+            return got
+
+        async def run():
+            return [await answer(i, t) for i, t in enumerate(json.loads(
+                os.environ["PHASE15_PROMPTS"]))]
+
+        here = os.path.dirname(out)
+
+        def wait_file(name: str) -> str:
+            path = os.path.join(here, name)
+            deadline = time.monotonic() + 30
+            while not os.path.exists(path):
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"phase 15 engine leader: no {name}")
+                time.sleep(0.05)
+            time.sleep(0.05)
+            with open(path, encoding="utf-8") as f:
+                return f.read()
+
+        def settle() -> None:
+            # Until the engine thread has run no call for 0.5 s, then 1 s
+            # more for the follower's replay of the last one.
+            keys = ("decode_calls", "batched_prefill_calls",
+                    "ring_prefill_calls")
+            seen = None
+            while True:
+                now = [engine.get_stats()[k] for k in keys]
+                if now == seen:
+                    break
+                seen = now
+                time.sleep(0.5)
+            time.sleep(1.0)
+
+        try:
+            follower = int(wait_file("rank1.pid"))
+            zero()
+            os.kill(follower, _signal.SIGUSR2)
+            wait_file("rank1.zeroed")
+            result["texts"] = asyncio.run(asyncio.wait_for(run(), 300))
+            settle()
+            result["launches"] = launch_counts()
+            os.kill(follower, _signal.SIGUSR1)
+            result["follower_launches"] = json.loads(
+                wait_file("rank1.counts.json"))
+            result["stats"] = {k: engine.get_stats()[k] for k in (
+                "decode_calls", "batched_prefill_calls",
+                "ring_prefill_calls")}
+            result["mesh"] = engine.get_model_info()["mesh"]
+        finally:
+            engine.shutdown()
+            sink.close()
+    from fasttalk_tpu_torch.parallel import collectives
+    from fasttalk_tpu_torch.parallel.distributed import (process_info,
+                                                         shutdown)
+
+    result.setdefault("launches", launch_counts())
+    result["collectives"] = collectives.stats()
+    result["process"] = process_info()
+    shutdown()
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(result, f)
+    return 0
+
+
+def nccl_probe_main(out: str) -> int:
+    """``chip_smoke.py --nccl-probe OUT``: one rank of two that both take
+    ``cuda:0`` and try one NCCL all-reduce. Writes the error NCCL gives
+    (it refuses two ranks on one device), or that it ran."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rank = int(os.environ["TPU_PROCESS_ID"])
+    torch.cuda.set_device(0)
+    res = {"rank": rank}
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://{os.environ['TPU_COORDINATOR_ADDR']}",
+            world_size=2, rank=rank,
+            timeout=datetime.timedelta(seconds=60))
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        res["ran"] = True
+        res["sum"] = t.tolist()
+    except Exception as e:
+        res["ran"] = False
+        res["error"] = f"{type(e).__name__}: {e}"[:2000]
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(res, f)
+    os._exit(0)
+
+
+async def until_http(url: str, timeout: float, cluster: Cluster) -> None:
+    import aiohttp
+
+    deadline = time.monotonic() + timeout
+    async with aiohttp.ClientSession() as http:
+        while time.monotonic() < deadline:
+            cluster.check_alive()
+            try:
+                async with http.get(url) as r:
+                    if r.status == 200:
+                        return
+            except aiohttp.ClientError:
+                pass
+            await asyncio.sleep(0.25)
+    fail(f"phase 15 {cluster.label}: {url} not up within {timeout} s:\n"
+         f"{cluster.tail(0)}")
+
+
+def nccl_probe() -> dict:
+    """NCCL with two ranks on the one card: its answer, written down."""
+    d = os.path.join(REPO, "build", "phase15", "nccl_probe")
+    os.makedirs(d, exist_ok=True)
+    coord = free_port()
+    procs = []
+    for rank in range(2):
+        e = dict(os.environ, PYTHONPATH=REPO, TPU_PROCESS_ID=str(rank),
+                 TPU_COORDINATOR_ADDR=f"127.0.0.1:{coord}")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--nccl-probe", os.path.join(d, f"rank{rank}.json")],
+            cwd=REPO, env=e, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL, start_new_session=True))
+    res = []
+    for rank, p in enumerate(procs):
+        try:
+            p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            p.wait()
+        path = os.path.join(d, f"rank{rank}.json")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                res.append(json.load(f))
+        else:
+            res.append({"rank": rank, "ran": None,
+                        "error": f"no answer within 120 s (exit "
+                                 f"{p.returncode})"})
+    log(f"phase 15: NCCL with two ranks on cuda:0: {res}")
+    return {"ranks": res}
+
+
+def phase15(counters: dict, phase5: dict, tiny_single: dict) -> dict:
+    """Phase 15: multi-rank serving (``fasttalk_tpu_torch/parallel/``) with
+    two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device: the probe writes its message down), each rank a process of its
+    own, as ``python -m fasttalk_tpu_torch websocket`` runs a mesh.
+
+    (a) ``TPU_TP_SIZE=2``: llama3.2:1b at full width and depth, int8 random
+        weights from the seed, dense bf16 KV, max_len 2048, 8 slots, spec
+        off: a leader (``ServerLauncher``) and a follower. 8 WS sessions x
+        64 tokens; decode tok/s and TTFT p50/p99 beside phase 5's (two
+        ranks sharing one card say nothing of two cards); the counts of
+        both ranks are zeroed just before the sessions and read just
+        after: ``int8_matmul``, ``int8_matmul_t`` and ``decode_attend``
+        must launch on both, ``int4_matmul`` on neither. Then tinychat
+        int8 at tp = 2 must give the single-rank engine's greedy texts
+        exactly (the row-parallel partials are float32 and rounded once
+        after the sum, where one rank rounds); the launch counts of both
+        ranks are zeroed just before the prompts and read just after.
+    (b) ``TPU_SP_SIZE=2``: tinychat int8, max_len 1536; a fresh prompt of
+        858 tokens prefills through ring attention, and the greedy texts
+        equal the single-rank engine's, counted as in (a).
+    (c) (a)'s cluster, 8 sessions of up to 512 tokens: the follower is
+        killed once every session has a token. Every session must get one
+        error frame (none complete), the leader must see the cluster dead
+        (its ``spmd_cluster_dead`` event) within 2 heartbeat intervals
+        (SPMD_HB_INTERVAL_S=2) and 2 s, and its gateway must shut down (the
+        process ends) within 30 s."""
+    import signal as _signal
+
+    memory = memory_owners("phase 15 start")
+    out: dict = {"memory_start": memory, "nccl": nccl_probe()}
+    t15 = time.monotonic()
+
+    # ---------------- (a) + (c): llama3.2:1b, tp = 2 -------------------
+    port, mon = free_port(), free_port()
+    cluster = Cluster("a_llama_tp2", {
+        **PHASE15_A_MODEL, "TPU_TP_SIZE": "2", "TPU_DECODE_SLOTS": str(TP2_SLOTS),
+        "TPU_MAX_MODEL_LEN": "2048", "DEFAULT_CONTEXT_WINDOW": "2048",
+        "TPU_PREFILL_CHUNK": "512", "TPU_SPEC_DECODE": "off",
+        "LLM_HOST": "127.0.0.1", "LLM_PORT": str(port),
+        "LLM_MONITORING_HOST": "127.0.0.1", "LLM_MONITORING_PORT": str(mon),
+        "SPMD_HB_INTERVAL_S": "2", "SPMD_HB_TIMEOUT_S": "8"}, "launcher")
+    try:
+        t0 = time.monotonic()
+        asyncio.run(until_http(f"http://127.0.0.1:{mon}/health/ready", 300,
+                               cluster))
+        out["a_ready_s"] = time.monotonic() - t0
+        log(f"phase 15a: two ranks of llama3.2:1b tp=2 ready in "
+            f"{out['a_ready_s']:.6g} s")
+        # One short warm-up session (the first launches), as phase 5's.
+        warm = asyncio.run(asyncio.wait_for(drive_sessions(port, 1, 8), 300))
+        if warm["errors"]:
+            fail(f"phase 15a: warm-up session failed: {warm['errors']}")
+        cluster.zero()
+        served = asyncio.run(asyncio.wait_for(
+            drive_sessions(port, TP2_SLOTS, PHASE15_A_TOKENS), 600))
+        time.sleep(0.5)
+        lead, fol = cluster.counts()
+        served["tok_s"] = served["tokens"] / served["wall_s"]
+        served["ttft_p50_ms"] = pct(served["ttft_ms"], 50)
+        served["ttft_p99_ms"] = pct(served["ttft_ms"], 99)
+        ref = (f"{phase5['tok_s']:.6g} decode tok/s, TTFT p50 "
+               f"{phase5['ttft_p50_ms']} / p99 {phase5['ttft_p99_ms']} ms"
+               if phase5 else "not run")
+        log(f"phase 15a (tp=2, two ranks on one card, gloo): "
+            f"{served['sessions']} WS sessions, {served['tokens']} tokens in "
+            f"{served['wall_s']:.6g} s ({served['tok_s']:.6g} decode tok/s), "
+            f"TTFT p50 {served['ttft_p50_ms']} / p99 "
+            f"{served['ttft_p99_ms']} ms, error frames "
+            f"{len(served['errors'])}; phase 5 (one rank, 16 sessions) in "
+            f"this run: {ref}")
+        log(f"  launches: leader {lead}, follower {fol}")
+        if served["errors"] \
+                or served["tokens"] != TP2_SLOTS * PHASE15_A_TOKENS:
+            fail(f"phase 15a: {served['errors'][:3]}, {served['tokens']} "
+                 "tokens")
+        for name, ranks in (("int8_matmul", (lead, fol)),
+                            ("int8_matmul_t", (lead, fol)),
+                            ("decode_attend", (lead, fol))):
+            if not all(r[name] > 0 for r in ranks):
+                fail(f"phase 15a: {name} did not launch on both ranks: "
+                     f"{[r[name] for r in ranks]}")
+        if lead["int4_matmul"] or fol["int4_matmul"]:
+            fail("phase 15a: int4_matmul launched on the int8 path")
+        if lead != fol:
+            fail(f"phase 15a: the ranks launched different kernels: "
+                 f"{lead} against {fol}")
+        out["a"] = {k: served[k] for k in ("sessions", "tokens", "wall_s",
+                                           "tok_s", "ttft_p50_ms",
+                                           "ttft_p99_ms")}
+        out["a_launches"] = {"leader": lead, "follower": fol}
+
+        # (c) the follower dies mid-decode.
+        async def part_c() -> dict:
+            import aiohttp
+
+            frames: list[list[dict]] = [[] for _ in range(TP2_SLOTS)]
+            started = [asyncio.Event() for _ in range(TP2_SLOTS)]
+
+            async def one(i, http):
+                async with http.ws_connect(
+                        f"ws://127.0.0.1:{port}/ws/llm") as ws:
+                    json.loads((await ws.receive()).data)
+                    await ws.send_json({"type": "start_session", "config": {
+                        "max_tokens": 512, "ignore_eos": True}})
+                    json.loads((await ws.receive()).data)
+                    await ws.send_json({"type": "user_message",
+                                        "text": f"tell me story {i}."})
+                    while True:
+                        msg = await ws.receive(timeout=120)
+                        if msg.type != aiohttp.WSMsgType.TEXT:
+                            frames[i].append({"type": "closed"})
+                            return
+                        f = json.loads(msg.data)
+                        frames[i].append({**f, "at": time.time()})
+                        if f["type"] == "token":
+                            started[i].set()
+                        if f["type"] in ("response_complete", "error"):
+                            return
+
+            async with aiohttp.ClientSession() as http:
+                tasks = [asyncio.ensure_future(one(i, http))
+                         for i in range(TP2_SLOTS)]
+                await asyncio.wait_for(asyncio.gather(
+                    *(e.wait() for e in started)), 120)
+                killed = time.time()
+                os.killpg(cluster.procs[1][0].pid, _signal.SIGKILL)
+                await asyncio.wait_for(asyncio.gather(*tasks), 120)
+            return {"frames": frames, "killed": killed}
+
+        c = asyncio.run(part_c())
+        leader = cluster.wait(0, 60)
+        killed = c["killed"]
+        errors = [[f for f in fr if f["type"] == "error"]
+                  for fr in c["frames"]]
+        done = [f for fr in c["frames"] for f in fr
+                if f["type"] == "response_complete"]
+        first_error = [e[0]["at"] - killed for e in errors if e]
+        out["c"] = {
+            "error_frames": [len(e) for e in errors],
+            "kill_to_error_ms": [1e3 * x for x in first_error],
+            "kill_to_cluster_dead_ms": (
+                1e3 * (leader["cluster_dead_at"] - killed)
+                if leader["cluster_dead_at"] else None),
+            "kill_to_exit_ms": 1e3 * (leader["exited_at"] - killed),
+            "dead_reason": leader["dead_reason"],
+            "error_codes": sorted({e[0].get("code", "") for e in errors
+                                   if e})}
+        log(f"phase 15c (follower killed mid-decode): {out['c']}")
+        if any(len(e) != 1 for e in errors) or done:
+            fail(f"phase 15c: every in-flight session must get one error "
+                 f"frame: {[len(e) for e in errors]}, {len(done)} completed")
+        if leader["dead_reason"] is None \
+                or out["c"]["kill_to_cluster_dead_ms"] is None \
+                or out["c"]["kill_to_cluster_dead_ms"] > 2 * 2000 + 2000:
+            fail(f"phase 15c: the leader did not see the cluster dead "
+                 f"within 2 heartbeat intervals: {out['c']}")
+        if out["c"]["kill_to_exit_ms"] > 30000:
+            fail(f"phase 15c: the gateway took {out['c']['kill_to_exit_ms']}"
+                 " ms to shut down")
+        out["a_collectives"] = leader["collectives"]
+        out["a_process"] = leader["process"]
+    finally:
+        cluster.close()
+
+    # ---------------- (a) tinychat tp = 2, (b) tinychat sp = 2 ----------
+    def tiny_cluster(label, mesh_env, prompts, single, max_len) -> dict:
+        cl = Cluster(label, {
+            "LLM_MODEL": "tinychat", "MODEL_PATH": ASSETS,
+            "WEIGHT_QUANT": "int8", "TPU_DECODE_SLOTS": "4",
+            "TPU_MAX_MODEL_LEN": str(max_len),
+            "DEFAULT_CONTEXT_WINDOW": str(max_len), "TPU_SPEC_DECODE": "off",
+            "PHASE15_PROMPTS": json.dumps(prompts), **mesh_env}, "engine")
+        try:
+            res = cl.wait(0, 300)
+            cl.wait(1, 60)
+        finally:
+            cl.close()
+        log(f"phase {label}: greedy {res['texts']}; stats {res['stats']}; "
+            f"launches: leader {res['launches']}, follower "
+            f"{res['follower_launches']}")
+        if res["texts"] != single:
+            fail(f"phase {label}: the greedy texts part from the single-rank "
+                 f"engine's: {res['texts']} against {single}")
+        return res
+
+    a_tiny = tiny_cluster("15a tinychat tp=2", {"TPU_TP_SIZE": "2"},
+                          PHASE15_TINY_PROMPTS, tiny_single["a"], 512)
+    b_tiny = tiny_cluster("15b tinychat sp=2", {"TPU_SP_SIZE": "2"},
+                          [PHASE15_LONG, PHASE15_TINY_PROMPTS[0]],
+                          tiny_single["b"], 1536)
+    if b_tiny["stats"]["ring_prefill_calls"] < 1:
+        fail("phase 15b: the long fresh prompt took no ring prefill")
+    for label, res in (("15a tinychat", a_tiny), ("15b", b_tiny)):
+        if res["launches"]["int8_matmul"] <= 0 \
+                or res["launches"]["int8_matmul_t"] <= 0:
+            fail(f"phase {label}: the int8 kernels did not launch: "
+                 f"{res['launches']}")
+    if a_tiny["launches"]["decode_attend"] <= 0:
+        fail("phase 15a tinychat: decode_attend did not launch")
+    for label, res in (("15a tinychat", a_tiny), ("15b", b_tiny)):
+        for name in ("int8_matmul", "int8_matmul_t"):
+            if res["follower_launches"][name] != res["launches"][name]:
+                fail(f"phase {label}: the follower launched {name} "
+                     f"{res['follower_launches'][name]} times, the leader "
+                     f"{res['launches'][name]}")
+    out["a_tinychat"] = {"texts": a_tiny["texts"],
+                         "launches": a_tiny["launches"],
+                         "follower_launches": a_tiny["follower_launches"]}
+    out["b"] = {"texts": b_tiny["texts"], "stats": b_tiny["stats"],
+                "launches": b_tiny["launches"],
+                "follower_launches": b_tiny["follower_launches"]}
+    out["seconds"] = time.monotonic() - t15
+    log(f"phase 15 ran {out['seconds']:.6g} s")
+    return out
+
+
+def tinychat_single_texts(device: str = "cuda") -> dict:
+    """The single-rank port engine's greedy tinychat int8 texts that phase
+    15 holds its clusters to: (a) the short prompts at max_len 512, (b) the
+    long prompt and one short one at max_len 1536."""
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.utils.config import Config
+
+    out = {}
+    for key, prompts, max_len in (
+            ("a", PHASE15_TINY_PROMPTS, 512),
+            ("b", [PHASE15_LONG, PHASE15_TINY_PROMPTS[0]], 1536)):
+        engine = build_engine(Config(
+            model_name="tinychat", model_path=ASSETS, weight_quant="int8",
+            decode_slots=4, max_model_len=max_len,
+            default_context_window=max_len, spec_decode="off"),
+            device=device)
+        engine.start()
+        try:
+            async def run():
+                texts = []
+                for i, text in enumerate(prompts):
+                    got = ""
+                    async for ev in engine.generate(
+                            f"s{i}", f"s{i}",
+                            [{"role": "user", "content": text}],
+                            GenerationParams(max_tokens=48, temperature=0.0,
+                                             top_k=0, top_p=1.0)):
+                        if ev["type"] == "token":
+                            got += ev["text"]
+                        elif ev["type"] == "error":
+                            fail(f"phase 15 single-rank tinychat: {ev}")
+                    texts.append(got)
+                return texts
+            out[key] = asyncio.run(asyncio.wait_for(run(), 300))
+        finally:
+            engine.shutdown()
+        del engine
+    log(f"phase 15 single-rank tinychat greedy texts: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3585,6 +4443,8 @@ def main() -> int:
     p12 = phase12(counters)
     p13 = phase13(counters)
     p14 = phase14(counters, served)
+    check_shard_kernels(results)
+    p15 = phase15(counters, served, tinychat_single_texts())
 
     launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
                    "int8_matmul_t": st10["launches"]["int8_matmul_t"],
@@ -3647,6 +4507,17 @@ def main() -> int:
             "launches_phase14": {
                 part: p14[f"{part}_launches"][name]
                 for part in ("a", "b", "c", "d", "e")},
+            **({"launches_phase15": {
+                "a_leader": p15["a_launches"]["leader"][name],
+                "a_follower": p15["a_launches"]["follower"][name],
+                "a_tinychat_leader": p15["a_tinychat"]["launches"][name],
+                "a_tinychat_follower":
+                    p15["a_tinychat"]["follower_launches"][name],
+                "b_leader": p15["b"]["launches"][name],
+                "b_follower": p15["b"]["follower_launches"][name]},
+                "tp2": r["tp2"]}
+               if name in ("int8_matmul", "int8_matmul_t", "decode_attend")
+               else {}),
             "work": r["work"], "card": card})
     result = json.dumps({"kernels": kernels, "served": {
         label: {"sessions": x["sessions"], "tokens": x["tokens"],
@@ -3691,7 +4562,9 @@ def main() -> int:
                          if not k.startswith("launches_")}, "card": card},
         "fleet": {**{k: v for k, v in p14.items()
                      if not k.endswith("_launches")
-                     and not k.startswith("c_control")}, "card": card}})
+                     and not k.startswith("c_control")}, "card": card},
+        "multi_rank": {**{k: v for k, v in p15.items()
+                          if k != "memory_start"}, "card": card}})
     # The line runs past the tail a remote runner keeps: a copy to a file.
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w",
@@ -3705,6 +4578,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--nccl-probe":
+        sys.exit(nccl_probe_main(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[2], sys.argv[3]))
     try:
         code = main()
     except Exception:

@@ -6,7 +6,12 @@ launcher (serving/launcher.py): the engine from the environment
 TPU_MAX_MODEL_LEN, WEIGHT_QUANT, LLM_PORT, ...), the tool-calling agent
 around it unless ENABLE_PYDANTIC_AI or ENABLE_TOOLS is false, warm-up
 (TPU_WARMUP), the WebSocket protocol on ``/ws/llm``, the monitoring port
-and the restart supervisor, until SIGINT or SIGTERM.
+and the restart supervisor, until SIGINT or SIGTERM. A multi-rank port
+runs one such process per device, each with TPU_COORDINATOR_ADDR,
+TPU_NUM_PROCESSES, TPU_PROCESS_ID and the mesh sizes (TPU_TP_SIZE,
+TPU_DP_SIZE, TPU_SP_SIZE): rank 0 with TPU_SPMD_ROLE=leader serves the
+gateway, the others with TPU_SPMD_ROLE=follower replay its device calls
+(parallel/spmd_serving.py).
 
 ``python -m fasttalk_tpu_torch quantize --model tinychat --model-path
 fasttalk_tpu/assets [--group 128] [--calib corpus|FILE] [--calib-samples 16]
@@ -84,7 +89,8 @@ def quantize(args: argparse.Namespace) -> int:
 
     meta = cache_meta(model_cfg, dtype, "int4", ckpt, group=args.group)
     path = save_prepared(cast_plain(qparams), args.model_path, meta,
-                         extra={"quantize_manifest.json": manifest})
+                         extra={"quantize_manifest.json": manifest},
+                         block=True)
     if path is None:
         print("error: prepared-cache write failed", file=sys.stderr)
         return 1
@@ -100,8 +106,9 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="python -m fasttalk_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     ws = sub.add_parser("websocket", help="serve the WebSocket protocol")
-    ws.add_argument("--device", default="cuda",
-                    help="torch device to run on (default: cuda)")
+    ws.add_argument("--device", default=None,
+                    help="torch device to run on (default: cuda; a rank "
+                    "of a mesh takes its own card)")
     qz = sub.add_parser("quantize", help="quantize a checkpoint to int4 "
                         "(AWQ-calibrated by default) into the prepared cache")
     qz.add_argument("--model", default="tinychat",
@@ -127,10 +134,14 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "quantize":
         return quantize(args)
 
-    from fasttalk_tpu_torch.serving.launcher import ServerLauncher
+    from fasttalk_tpu_torch.serving.launcher import (ServerLauncher,
+                                                     run_spmd_follower)
     from fasttalk_tpu_torch.utils.config import Config
 
-    ServerLauncher(Config(), device=args.device).start()
+    config = Config()
+    if config.spmd_role == "follower":
+        return run_spmd_follower(config, device=args.device)
+    ServerLauncher(config, device=args.device).start()
     return 0
 
 

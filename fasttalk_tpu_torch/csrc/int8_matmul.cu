@@ -28,7 +28,10 @@
 // - Up to 4 m16 tiles (M <= 64) loop inside the block, so each weight
 //   tile is read from device memory once for all of them; larger M takes
 //   more groups of 64 rows on the grid.
-// - The scale is applied once in f32 after the dot, one cast to bf16.
+// - The scale is applied once in f32 after the dot, one cast to bf16; or
+//   no cast (out_f32): a tensor-parallel shard's partial product stays
+//   f32 until the sum over ranks, which then rounds once, as one rank's
+//   whole product does.
 //
 // int8_matmul (q [K, N], N contiguous): a block owns 128 columns and a K
 //   range (split-K on grid.y), 32 columns a warp. The [K, N] layout puts a
@@ -158,12 +161,12 @@ __device__ __forceinline__ void mm_load_stage(
   }
 }
 
-template <int MT, bool VEC>
+template <int MT, bool VEC, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 mm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
           const int8_t* __restrict__ q,          // [K, N]
           const float* __restrict__ s,           // [N]
-          __nv_bfloat16* __restrict__ y,         // [M, N]
+          OutT* __restrict__ y,                  // [M, N]
           int M, int K, int N, int k_per_split) {
   extern __shared__ __align__(16) uint8_t smem[];
   using L = MmLayout<MT>;
@@ -288,12 +291,21 @@ __device__ __forceinline__ void mt_load_stage(
   }
 }
 
-template <int MT, bool VEC>
+// Two adjacent outputs at an even column (a 4- or 8-byte aligned address).
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <int MT, bool VEC, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 mm_t_kernel(const __nv_bfloat16* __restrict__ x,   // [M, D]
             const int8_t* __restrict__ q,          // [V, D]
             const float* __restrict__ s,           // [V]
-            __nv_bfloat16* __restrict__ y,         // [M, V]
+            OutT* __restrict__ y,                  // [M, V]
             int M, int D, int V) {
   extern __shared__ __align__(16) uint8_t smem[];
   using L = MtLayout<MT>;
@@ -385,14 +397,14 @@ mm_t_kernel(const __nv_bfloat16* __restrict__ x,   // [M, D]
       for (int h = 0; h < 2; ++h) {
         const int r = mt * 16 + g + 8 * h;
         if (r >= mt_rows) continue;
-        __nv_bfloat16* out = y + (size_t)(m0 + r) * V + v;
-        const __nv_bfloat16 o0 = __float2bfloat16(acc[mt][nt][2 * h] * s0);
-        const __nv_bfloat16 o1 = __float2bfloat16(acc[mt][nt][2 * h + 1] * s1);
+        OutT* out = y + (size_t)(m0 + r) * V + v;
+        const float o0 = acc[mt][nt][2 * h] * s0;
+        const float o1 = acc[mt][nt][2 * h + 1] * s1;
         if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(out) = __halves2bfloat162(o0, o1);
+          store_pair(out, o0, o1);
         } else {
-          out[0] = o0;
-          if (v + 1 < V) out[1] = o1;
+          ft::store_out(out, o0);
+          if (v + 1 < V) ft::store_out(out + 1, o1);
         }
       }
     }
@@ -403,29 +415,30 @@ mm_t_kernel(const __nv_bfloat16* __restrict__ x,   // [M, D]
 // first call (outside any CUDA-graph capture that later calls make).
 
 // int8_matmul with its splits (grid.y) as one cluster per column tile.
-template <int MT, bool VEC>
+template <int MT, bool VEC, typename OutT>
 int launch_mm(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
-              const int8_t* q, const float* s, __nv_bfloat16* y, int M, int K,
+              const int8_t* q, const float* s, OutT* y, int M, int K,
               int N, int k_per_split) {
-  return ft::launch_split_clusters<mm_kernel<MT, VEC>>(
+  return ft::launch_split_clusters<mm_kernel<MT, VEC, OutT>>(
       grid, THREADS, MmLayout<MT>::SMEM, st, x, q, s, y, M, K, N,
       k_per_split);
 }
 
-template <int MT, bool VEC>
+template <int MT, bool VEC, typename OutT>
 int launch_mm_t(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
-                const int8_t* q, const float* s, __nv_bfloat16* y, int M,
+                const int8_t* q, const float* s, OutT* y, int M,
                 int D, int V) {
   static bool ready = false;
   constexpr int smem = MtLayout<MT>::SMEM;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mm_t_kernel<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        mm_t_kernel<MT, VEC, OutT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
-  mm_t_kernel<MT, VEC><<<grid, THREADS, smem, st>>>(x, q, s, y, M, D, V);
+  mm_t_kernel<MT, VEC, OutT><<<grid, THREADS, smem, st>>>(x, q, s, y, M, D,
+                                                           V);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,14 +452,50 @@ int m_tiles(int M) {
   return tiles < MAX_MT ? tiles : MAX_MT;
 }
 
+template <typename OutT>
+int dispatch_mm(int mt, bool vec, dim3 grid, cudaStream_t st,
+                const __nv_bfloat16* x, const int8_t* q, const float* s,
+                OutT* y, int M, int K, int N, int k_per_split) {
+#define FT_MM(MT)                                                          \
+  return vec ? launch_mm<MT, true>(grid, st, x, q, s, y, M, K, N,          \
+                                   k_per_split)                            \
+             : launch_mm<MT, false>(grid, st, x, q, s, y, M, K, N,         \
+                                    k_per_split)
+  switch (mt) {
+    case 1: FT_MM(1);
+    case 2: FT_MM(2);
+    case 3: FT_MM(3);
+    default: FT_MM(4);
+  }
+#undef FT_MM
+}
+
+template <typename OutT>
+int dispatch_mm_t(int mt, bool vec, dim3 grid, cudaStream_t st,
+                  const __nv_bfloat16* x, const int8_t* q, const float* s,
+                  OutT* y, int M, int D, int V) {
+#define FT_MT(MT)                                                          \
+  return vec ? launch_mm_t<MT, true>(grid, st, x, q, s, y, M, D, V)        \
+             : launch_mm_t<MT, false>(grid, st, x, q, s, y, M, D, V)
+  switch (mt) {
+    case 1: FT_MT(1);
+    case 2: FT_MT(2);
+    case 3: FT_MT(3);
+    default: FT_MT(4);
+  }
+#undef FT_MT
+}
+
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16, q [K, N] int8, s [N] f32 -> y [M, N] bf16, in
-// ceil(K / k_per_split) <= 16 splits (k_per_split a multiple of 64).
+// x [M, K] bf16, q [K, N] int8, s [N] f32 -> y [M, N] bf16 (f32 when
+// out_f32), in ceil(K / k_per_split) <= 16 splits (k_per_split a multiple
+// of 64).
 int ft_int8_matmul(const void* x, const void* q, const void* s, void* y,
-                   int M, int K, int N, int k_per_split, void* stream) {
+                   int M, int K, int N, int k_per_split, int out_f32,
+                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mt = m_tiles(M);
   const int splits = K > 0 ? (K + k_per_split - 1) / k_per_split : 1;
@@ -458,24 +507,17 @@ int ft_int8_matmul(const void* x, const void* q, const void* s, void* y,
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto qb = static_cast<const int8_t*>(q);
   auto sb = static_cast<const float*>(s);
-  auto yb = static_cast<__nv_bfloat16*>(y);
-#define FT_MM(MT)                                                       \
-  return vec ? launch_mm<MT, true>(grid, st, xb, qb, sb, yb, M, K, N,   \
-                                   k_per_split)                         \
-             : launch_mm<MT, false>(grid, st, xb, qb, sb, yb, M, K, N,  \
-                                    k_per_split)
-  switch (mt) {
-    case 1: FT_MM(1);
-    case 2: FT_MM(2);
-    case 3: FT_MM(3);
-    default: FT_MM(4);
-  }
-#undef FT_MM
+  return out_f32 ? dispatch_mm(mt, vec, grid, st, xb, qb, sb,
+                                static_cast<float*>(y), M, K, N, k_per_split)
+                 : dispatch_mm(mt, vec, grid, st, xb, qb, sb,
+                               static_cast<__nv_bfloat16*>(y), M, K, N,
+                               k_per_split);
 }
 
-// x [M, D] bf16, q [V, D] int8, s [V] f32 -> y [M, V] bf16.
+// x [M, D] bf16, q [V, D] int8, s [V] f32 -> y [M, V] bf16 (f32 when
+// out_f32).
 int ft_int8_matmul_t(const void* x, const void* q, const void* s, void* y,
-                     int M, int D, int V, void* stream) {
+                     int M, int D, int V, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mt = m_tiles(M);
   const dim3 grid((V + MT_BV - 1) / MT_BV, (M + mt * 16 - 1) / (mt * 16));
@@ -483,17 +525,10 @@ int ft_int8_matmul_t(const void* x, const void* q, const void* s, void* y,
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto qb = static_cast<const int8_t*>(q);
   auto sb = static_cast<const float*>(s);
-  auto yb = static_cast<__nv_bfloat16*>(y);
-#define FT_MT(MT)                                                           \
-  return vec ? launch_mm_t<MT, true>(grid, st, xb, qb, sb, yb, M, D, V)     \
-             : launch_mm_t<MT, false>(grid, st, xb, qb, sb, yb, M, D, V)
-  switch (mt) {
-    case 1: FT_MT(1);
-    case 2: FT_MT(2);
-    case 3: FT_MT(3);
-    default: FT_MT(4);
-  }
-#undef FT_MT
+  return out_f32 ? dispatch_mm_t(mt, vec, grid, st, xb, qb, sb,
+                                  static_cast<float*>(y), M, D, V)
+                 : dispatch_mm_t(mt, vec, grid, st, xb, qb, sb,
+                                 static_cast<__nv_bfloat16*>(y), M, D, V);
 }
 
 }  // extern "C"

@@ -101,6 +101,26 @@ __device__ __forceinline__ uint32_t bf16x2_rn(float a, float b) {
   return out;
 }
 
+// One output element: bf16 rounds to nearest even; float32 is the
+// accumulator itself (a row-parallel shard's partial sum, rounded once
+// after the sum over ranks).
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+
+// Eight consecutive outputs at a 16-byte aligned address.
+__device__ __forceinline__ void store_out8(__nv_bfloat16* p,
+                                           const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(
+      bf16x2_rn(v[0], v[1]), bf16x2_rn(v[2], v[3]), bf16x2_rn(v[4], v[5]),
+      bf16x2_rn(v[6], v[7]));
+}
+__device__ __forceinline__ void store_out8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // The first n (<= 4) bytes at p as one word, byte e at bits 8e; 0 past n.
 __device__ __forceinline__ uint32_t pack4(const void* p, int n) {
   const uint8_t* b = static_cast<const uint8_t*>(p);
@@ -140,9 +160,9 @@ __device__ __forceinline__ void zero_x_tail(uint8_t* smem, int stage_bytes,
 // sums 1/splits of the tile's float4 column groups over every block of the
 // cluster in split order and stores them, so the bits do not depend on
 // which block finishes first.
-template <int MT, int BN, int THREADS, int MAX_SPLITS>
+template <int MT, int BN, int THREADS, int MAX_SPLITS, typename OutT>
 __device__ __forceinline__ void splitk_epilogue(
-    uint8_t* smem, const float (&acc)[MT][4][4], __nv_bfloat16* y,
+    uint8_t* smem, const float (&acc)[MT][4][4], OutT* y,
     const float* s, int m0, int mt_rows, int N, int n_blk) {
   constexpr int PS = BN + 4;   // partial tile row stride in floats
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -169,15 +189,13 @@ __device__ __forceinline__ void splitk_epilogue(
           v[c] = acc[mt][c][2 * h] * sc[c];
           v[4 + c] = acc[mt][c][2 * h + 1] * sc[4 + c];
         }
-        __nv_bfloat16* out = y + (size_t)(m0 + r) * N + n_l;
+        OutT* out = y + (size_t)(m0 + r) * N + n_l;
         if (full8) {
-          *reinterpret_cast<uint4*>(out) = make_uint4(
-              bf16x2_rn(v[0], v[1]), bf16x2_rn(v[2], v[3]),
-              bf16x2_rn(v[4], v[5]), bf16x2_rn(v[6], v[7]));
+          store_out8(out, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            if (n_l + j < N) out[j] = __float2bfloat16(v[j]);
+            if (n_l + j < N) store_out(out + j, v[j]);
         }
       }
     }
@@ -218,12 +236,12 @@ __device__ __forceinline__ void splitk_epilogue(
         a.x += p[j].x; a.y += p[j].y; a.z += p[j].z; a.w += p[j].w;
       }
     const int n = n_blk + c;
-    __nv_bfloat16* out = y + (size_t)(m0 + r) * N + n;
+    OutT* out = y + (size_t)(m0 + r) * N + n;
     const float o[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (n + j < N)
-        out[j] = __float2bfloat16(o[j] * (s == nullptr ? 1.f : s[n + j]));
+        store_out(out + j, o[j] * (s == nullptr ? 1.f : s[n + j]));
   }
   cluster.sync();   // keep this block's sums until every reader is done
 }

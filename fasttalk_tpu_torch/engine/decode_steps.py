@@ -43,6 +43,7 @@ self-loop). Without tables the step is exactly the plain one.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -156,11 +157,14 @@ def plain_steps(params: dict, cfg: ModelConfig, cache: KVCache,
                 sample_vocab: int, method: str,
                 table: torch.Tensor | None = None,
                 block_size: int = 0,
-                fsm: FSMTables | None = None) -> torch.Tensor:
+                fsm: FSMTables | None = None,
+                mesh: Any = None) -> torch.Tensor:
     """``steps`` decode steps; returns the sampled tokens [K, S]. Keeps
     the draft history current when ``st.history`` exists (the JAX
     ``with_history`` variant). With ``fsm`` the steps are constrained
-    (JAX ``decode_fsm`` / ``decode_fsm_hist``) and ``st.fst`` advances."""
+    (JAX ``decode_fsm`` / ``decode_fsm_hist``) and ``st.fst`` advances.
+    On a ``mesh`` the state, cache and params are this rank's (its slots,
+    its shards) and the tokens are this rank's slots'."""
     toks = torch.empty((steps, st.cur.shape[0]), dtype=torch.int64,
                        device=st.cur.device)
     cur, pos, fst = st.cur, st.pos, st.fst
@@ -177,7 +181,7 @@ def plain_steps(params: dict, cfg: ModelConfig, cache: KVCache,
         st.counts.scatter_add_(1, cur[:, None], act.to(torch.int32)[:, None])
         logits, _ = forward_decode(params, cfg, cur, pos, cache, act,
                                    attn_len=kv_len, block_table=table,
-                                   block_size=block_size)
+                                   block_size=block_size, mesh=mesh)
         lg = apply_penalties(logits[:, :sample_vocab], st.counts, st.reps,
                              st.press, st.freqs)
         if fsm is not None:
@@ -243,7 +247,7 @@ def spec_steps(params: dict, cfg: ModelConfig, cache: KVCache,
                st: DecodeState, steps: int, kv_len: int, draft: int, *,
                sample_vocab: int, method: str,
                table: torch.Tensor | None = None,
-               block_size: int = 0) -> torch.Tensor:
+               block_size: int = 0, mesh: Any = None) -> torch.Tensor:
     """``steps`` speculative steps; returns [K, S, T + 1]: per step and
     slot the T sampled tokens and, last, ``n_out`` (the host consumes the
     first ``n_out`` tokens). Needs ``st.history``."""
@@ -263,7 +267,7 @@ def spec_steps(params: dict, cfg: ModelConfig, cache: KVCache,
         logits, _ = forward_decode_multi(
             params, cfg, torch.cat([cur[:, None], drafts], dim=1), pos,
             cache, act, attn_len=kv_len, block_table=table,
-            block_size=block_size)
+            block_size=block_size, mesh=mesh)
         lg = verify_penalties(logits[..., :sample_vocab].to(torch.float32),
                               st.counts, drafts, st.reps, st.press, st.freqs)
         samp = sample_tokens(

@@ -120,7 +120,27 @@ Counterpart of the main-path subset of ``fasttalk_tpu/engine/engine.py``
   own pool) and ``parked_kv_info`` / ``drop_parked_kv``. An imported
   prefix is donated to the radix tree when it is restored.
 
-A device mesh is not part of this engine.
+- **Multi-rank serving** (``mesh``, parallel/; JAX :427-740, :1760-1764,
+  :3602-3641): each rank holds its shards of the params (parallel/
+  sharding.py) and of the dense KV cache (slots over "dp", sequence over
+  "sp", KV heads over "tp") and the decode state of its own slots. Every
+  device call is one replayable ``_dc_<kind>`` method whose arguments are
+  host values (``decode``, ``spec``, ``batched_prefill``, ``prefill``,
+  ``ring_prefill``, ``sample_place``, ``prefix_copy``, ``patch``,
+  ``hist_patch``): ``_call`` publishes it to ``call_sink`` (an SPMD
+  leader's ``CallBroadcaster``, parallel/spmd_serving.py) and runs it, and
+  a follower runs the same methods in the same order, so every rank meets
+  the same collectives. The host mirrors and every decision stay global
+  and on the leader; a call maps the global slots it names onto the
+  rank's own, and sampled tokens are gathered over "dp". The layer
+  matmuls, the tied head and decode attention keep the hand-written
+  kernels at the shard shapes; "sp" > 1 decodes over the whole cache
+  length through ``decode_attention_sharded``, and a fresh prompt of at
+  least one rank's KV shard prefills through ring attention. The JAX
+  compatibility matrix holds with its messages: int4 weights, the int8 KV
+  tier, the paged layout and ``STRUCTURED_MODE=on`` are refused on a
+  mesh; shared prefixes and the host KV pool are turned off, and
+  structured decoding under "auto" is unavailable.
 """
 
 from __future__ import annotations
@@ -152,14 +172,15 @@ from fasttalk_tpu_torch.kvcache.offload import (KVOffloader, kv_bucket,
 from fasttalk_tpu_torch.kvcache.policy import RestorePolicy, kv_env_defaults
 from fasttalk_tpu_torch.kvcache.radix import RadixTree
 from fasttalk_tpu_torch.models.configs import ModelConfig
-from fasttalk_tpu_torch.models.llama import (KVCache, forward, init_cache,
-                                             init_paged_cache)
+from fasttalk_tpu_torch.models.llama import (KVCache, forward, forward_ring,
+                                             init_cache, init_paged_cache)
 from fasttalk_tpu_torch.observability.events import get_events
 from fasttalk_tpu_torch.observability.perf import (DeviceClock, get_perf,
                                                    program_key)
 from fasttalk_tpu_torch.observability.slo import get_slo
 from fasttalk_tpu_torch.observability.trace import get_tracer
 from fasttalk_tpu_torch.ops.attention import paged_gather_indices
+from fasttalk_tpu_torch.parallel import collectives
 from fasttalk_tpu_torch.ops.kv_quant import granule_dim
 from fasttalk_tpu_torch.ops.sampling import sample_tokens
 from fasttalk_tpu_torch.quantization.int4 import (group_size_of, is_int4,
@@ -508,7 +529,8 @@ class TorchEngine(EngineBase):
                  structured_state_budget: int = 16384,
                  structured_jf_min: int = 4,
                  structured_cache: int = 64,
-                 structured_json_depth: int = 3):
+                 structured_json_depth: int = 3,
+                 mesh: Any = None):
         self.device = resolve_device(device)
         # The card the tensors live on: "cuda" without an index is the
         # constructing thread's current device, which the engine's own
@@ -521,6 +543,19 @@ class TorchEngine(EngineBase):
         self.params = params
         self.tokenizer = tokenizer
         self.num_slots = num_slots
+        # This rank's place in the mesh (JAX :427): its slots are
+        # [_slot_lo, _slot_lo + local_slots) and its cache rows the
+        # positions [_seq_lo, _seq_lo + max_len / sp). The model gets the
+        # mesh only when there is more than one rank. ``call_sink`` is the
+        # SPMD leader's broadcaster (JAX :787).
+        self.mesh = mesh
+        self.call_sink: Any = None
+        self._dp, self._sp, self._tp = (
+            (mesh.shape["dp"], mesh.shape["sp"], mesh.shape["tp"])
+            if mesh is not None else (1, 1, 1))
+        self._mesh_arg = mesh if mesh is not None and mesh.size > 1 \
+            else None
+        self._last_logits: torch.Tensor | None = None
         # Cache length rounds up to the KV bucket granule, as in the JAX
         # engine; the request-visible limit stays the configured length.
         self.max_len = -(-max_len // _KV_BUCKETS[0]) * _KV_BUCKETS[0]
@@ -548,6 +583,13 @@ class TorchEngine(EngineBase):
         wq = params.get("layers", {}).get("wq")
         self.weight_quant_group = None
         if is_int4(params):
+            if mesh is not None:
+                raise ValueError(
+                    "WEIGHT_QUANT=int4 is single-device only in v1: the "
+                    "partition rules for {'q4','s'} leaves exist "
+                    "(parallel/sharding.py) but the sharded load/init "
+                    "path is unvalidated — set TPU_TP_SIZE=TPU_DP_SIZE="
+                    "TPU_SP_SIZE=1")
             self.weight_quant = "int4"
             self.weight_quant_group = group_size_of(wq)
             validate_group(model_cfg, self.weight_quant_group)
@@ -563,6 +605,10 @@ class TorchEngine(EngineBase):
             raise ValueError(f"spec_decode must be off|ngram|auto, "
                              f"got {spec_decode!r}")
         self.kv_quant = kv_quant == "int8"
+        if self.kv_quant and mesh is not None:
+            raise ValueError(
+                "KV_QUANT=int8 is single-device only: the per-row "
+                "scale arrays do not shard with the kv axis yet")
         if self.kv_quant and spec_decode != "off":
             raise ValueError(
                 "KV_QUANT=int8 is incompatible with speculative "
@@ -583,7 +629,9 @@ class TorchEngine(EngineBase):
         self._spec_probe_every = 16
         self._spec_probe_countdown = 1  # probe on the first call
         self._spec_ema = 1.0
-        self.shared_prefix = shared_prefix
+        # Shared prefixes copy rows across slots, which a "dp"-sharded
+        # slot axis does not hold on one rank (JAX :650).
+        self.shared_prefix = shared_prefix and mesh is None
         self.paged = kv_layout == "paged"
         self.kv_block_size = int(kv_block_size)
         self._kv_blocks: BlockAllocator | None = None
@@ -592,6 +640,11 @@ class TorchEngine(EngineBase):
             if bs < 8 or bs > _KV_BUCKETS[0] or bs & (bs - 1):
                 raise ValueError(f"KV_BLOCK_SIZE must be a power of two in "
                                  f"[8, {_KV_BUCKETS[0]}], got {bs}")
+            if mesh is not None:
+                raise ValueError(
+                    "KV_LAYOUT=paged is single-device only: the block "
+                    "pool and per-slot tables are host-orchestrated "
+                    "per chip (no tp/dp/sp mesh yet)")
             if kv_reserve_policy not in ("none", "fixed", "max_tokens"):
                 raise ValueError(f"kv_reserve_policy must be none|fixed|"
                                  f"max_tokens, got {kv_reserve_policy!r}")
@@ -603,6 +656,25 @@ class TorchEngine(EngineBase):
                 or num_slots * self.max_len // bs
             self._kv_blocks = BlockAllocator(self.kv_pool_blocks, bs,
                                              num_slots)
+        if mesh is not None:
+            from fasttalk_tpu_torch.parallel.sharding import (shard_params,
+                                                              validate_mesh)
+
+            validate_mesh(mesh, num_kv_heads=model_cfg.num_kv_heads,
+                          num_heads=model_cfg.num_heads,
+                          hidden=model_cfg.hidden_size,
+                          intermediate=model_cfg.intermediate_size,
+                          vocab=model_cfg.vocab_size,
+                          num_slots=num_slots, max_len=self.max_len)
+            if self._tp > 1 and self._params_full(params):
+                # Whole params in: cut to this rank's shards (the factory
+                # builds the shards directly).
+                self.params = params = shard_params(params, mesh)
+        self.local_slots = num_slots // self._dp
+        self._slot_lo = (mesh.coords["dp"] * self.local_slots
+                         if mesh is not None else 0)
+        self._seq_lo = (mesh.coords["sp"] * (self.max_len // self._sp)
+                        if mesh is not None else 0)
         self.cache: KVCache | None = self._make_cache()
         # Radix prefix cache (JAX :551-576): the tree owns pool blocks, so
         # it needs the paged layout (Config fails the same way).
@@ -625,9 +697,13 @@ class TorchEngine(EngineBase):
         # Host KV offload (JAX :725-750): unset knobs resolve from the KV_*
         # environment, as in the JAX engine (Config passes them).
         kvdef = kv_env_defaults()
+        budget_mb = kvdef["budget_mb"] if kv_host_budget_mb is None \
+            else kv_host_budget_mb
+        if mesh is not None:
+            # A sharded cache has no one host snapshot (JAX :728-733).
+            budget_mb = 0.0
         self._kv_pool = HostKVPool(
-            budget_mb=kvdef["budget_mb"] if kv_host_budget_mb is None
-            else kv_host_budget_mb,
+            budget_mb=budget_mb,
             ttl_s=kvdef["ttl_s"] if kv_park_ttl_s is None else kv_park_ttl_s)
         self._kv_policy = RestorePolicy(
             min_tokens=int(kvdef["min_tokens"]
@@ -642,14 +718,22 @@ class TorchEngine(EngineBase):
         self.slots = SlotManager(num_slots, self.max_len,
                                  on_evict=self._park_on_evict,
                                  on_unpin=self._on_slot_unpin)
-        # Structured decoding (JAX :651-690). The port has no device mesh,
-        # so "auto" and "on" both mean available; "off" gives the reason
-        # every constrained request is refused with.
+        # Structured decoding (JAX :651-690): unavailable on a mesh ("on"
+        # then fails to build); "off" gives the reason every constrained
+        # request is refused with.
         if structured not in ("auto", "on", "off"):
             raise ValueError(f"structured must be auto|on|off, "
                              f"got {structured!r}")
-        self.structured_reason: str | None = (
-            "disabled (STRUCTURED_MODE=off)" if structured == "off" else None)
+        reason: str | None = None
+        if mesh is not None:
+            reason = ("structured decoding is single-device only in "
+                      "v1 (no tp/dp/sp mesh — per-slot FSM state is "
+                      "not threaded through the sharded decode path)")
+        if structured == "on" and reason is not None:
+            raise ValueError(f"STRUCTURED_MODE=on: {reason}")
+        if structured == "off":
+            reason = "disabled (STRUCTURED_MODE=off)"
+        self.structured_reason = reason
         self._st_jf_min = max(0, structured_jf_min)
         self._st_cfg = {"max_states": structured_max_states,
                         "state_budget": structured_state_budget,
@@ -702,6 +786,7 @@ class TorchEngine(EngineBase):
         self.spec_constrained_calls = 0
         self.batched_prefill_calls = 0
         self.batched_prefill_rows = 0
+        self.ring_prefill_calls = 0
         self.prefix_tokens_shared = 0
         self.structured_calls = 0  # of the decode calls, constrained ones
         self.structured_steps = 0
@@ -789,9 +874,25 @@ class TorchEngine(EngineBase):
         self._devclock = DeviceClock(self.device)
         self._dev_pending: deque[tuple[str, Any, Any, dict]] = deque()
 
+    def _params_full(self, params: Any) -> bool:
+        """Whether ``params`` hold whole leaves (wq's output axis is the
+        model's q_dim) rather than a "tp" shard."""
+        wq = params["layers"]["wq"]
+        wq = wq["q"] if isinstance(wq, dict) else wq
+        return wq.shape[-1] == self.cfg.q_dim
+
     def _make_cache(self) -> KVCache:
         """A zeroed KV cache: the block pool (paged) or one region per slot
-        (dense)."""
+        (dense; on a mesh this rank's shard of it)."""
+        if self.mesh is not None:
+            from fasttalk_tpu_torch.parallel.sharding import \
+                cache_local_shape
+
+            _, slots, rows, heads, _ = cache_local_shape(
+                self.cfg.num_layers, self.num_slots, self.max_len,
+                self.cfg.num_kv_heads, self.cfg.head_dim, self.mesh)
+            return init_cache(replace(self.cfg, num_kv_heads=heads), slots,
+                              rows, self.dtype, self.device)
         if self.paged:
             return init_paged_cache(
                 self.cfg, self.kv_pool_blocks, self.kv_block_size, self.dtype,
@@ -813,10 +914,13 @@ class TorchEngine(EngineBase):
         self._freqs = np.zeros((s,), np.float32)
         # The device side: current tokens, positions, sampling parameters,
         # penalty counts (zeroed when a slot is patched), the generator and
-        # (speculative decoding) the draft history.
+        # (speculative decoding) the draft history. On a mesh it holds this
+        # rank's slots, and each "dp" group samples from its own seed.
+        dp_index = self.mesh.coords["dp"] if self.mesh is not None else 0
         self._dev = DecodeState.zeros(
-            s, self.sample_vocab, self.max_len if self.spec_draft else 0,
-            self.device, self.seed)
+            self.local_slots, self.sample_vocab,
+            self.max_len if self.spec_draft else 0, self.device,
+            self.seed + 1_000_003 * dp_index)
         self._dirty_slots: set[int] = set()
         # slot -> its tokens, to upload into the draft history.
         self._dirty_history: dict[int, list[int]] = {}
@@ -907,6 +1011,13 @@ class TorchEngine(EngineBase):
         with self._lifecycle_lock:
             if self._closed:
                 return False  # shutdown won; never resurrect past it
+            if self.call_sink is not None or self._mesh_arg is not None:
+                # Restart is this rank's device-state surgery and is not
+                # replicated; multi-rank recovery is a cluster restart
+                # (parallel/spmd_serving.py; JAX :1098-1104).
+                log.error("engine restart unsupported in multi-host "
+                          "SPMD serving mode")
+                return False
             if self.check_connection():
                 return True
             if self._thread is not None and self._thread.is_alive():
@@ -994,6 +1105,11 @@ class TorchEngine(EngineBase):
                              f"got {level!r}")
         if self._started:
             raise RuntimeError("warmup() must be called before start()")
+        if self._mesh_arg is not None:
+            # Warmup calls are not replicated: a follower would never meet
+            # their collectives (the JAX launcher forces warmup off).
+            log.info("warmup skipped on a multi-rank mesh")
+            return
         t0 = time.monotonic()
         kv_buckets = [b for b in _KV_BUCKETS if b <= self.max_len] \
             or [self.max_len]
@@ -1442,6 +1558,7 @@ class TorchEngine(EngineBase):
             "device": str(self.device),
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
+            "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
         }
 
     def get_stats(self) -> dict:
@@ -1470,6 +1587,7 @@ class TorchEngine(EngineBase):
                "decode_host_s": self.decode_host_s,
                "batched_prefill_calls": self.batched_prefill_calls,
                "batched_prefill_rows": self.batched_prefill_rows,
+               "ring_prefill_calls": self.ring_prefill_calls,
                "prefix_tokens_shared": self.prefix_tokens_shared,
                "spec": {"mode": self.spec_mode, "draft": self.spec_draft,
                         "ema_tokens_per_verify": self._spec_ema,
@@ -1737,9 +1855,13 @@ class TorchEngine(EngineBase):
                           None)
             if bucket is not None and len(todo) <= allowed \
                     and reused + bucket <= self.max_len \
-                    and not req.params.prefill_only:
+                    and not req.params.prefill_only \
+                    and not self._ring_prefill_eligible(reused, len(todo)):
                 batch.append((req, slot, reused, todo))
             else:
+                # Long prompts, and on an sp > 1 mesh fresh prompts of at
+                # least one rank's KV shard (ring prefill), take the
+                # single-slot path (JAX :4237-4247).
                 self._prefilling.append(_PrefillState(
                     req=req, slot=slot, start=reused, todo=todo))
         if batch:
@@ -1786,9 +1908,7 @@ class TorchEngine(EngineBase):
         (and their scale rows on the int8 tier) onto ``dst``. PyTorch has
         no executable family to bound, so one slice copy serves any length
         (JAX decomposes the share into power-of-two chunks, :2362-2379)."""
-        for part in self.cache:
-            if part is not None:
-                part[:, dst.index, :rows] = part[:, src.index, :rows]
+        self._call("prefix_copy", src=src.index, dst=dst.index, rows=rows)
 
     def _prefill_batched_shared(self, batch: list[_Item]) -> None:
         """Intra-burst shared prefix (JAX :4421): when fresh admissions of
@@ -1905,51 +2025,20 @@ class TorchEngine(EngineBase):
             sub = kept
             if not sub:
                 return
-        g, dev = len(sub), self.device
+        g = len(sub)
         m0 = self._dev_mark()
         tokens = np.zeros((g, bucket), np.int64)
         for j, (_, _, _, todo) in enumerate(sub):
             tokens[j, :len(todo)] = todo
         starts = [start for _, _, start, _ in sub]
         ctx = _kv_bucket(max(starts) + bucket, self.max_len)
-        starts_t = torch.tensor(starts, device=dev)
-        positions = starts_t[:, None] + torch.arange(bucket, device=dev)[None]
-        rows = torch.arange(g, device=dev)[:, None]
-        if self.paged:
-            read = torch.stack([self._paged_read_indices(slot.index, ctx)
-                                for _, slot, _, _ in sub])
-            view = KVCache(*(None if x is None else x[:, read]
-                             for x in self.cache))
-        else:
-            slot_idx = torch.tensor([slot.index for _, slot, _, _ in sub],
-                                    device=dev)
-            view = KVCache(*(None if x is None else x[:, slot_idx, :ctx]
-                             for x in self.cache))
-        logits, _ = forward(
-            self.params, self.cfg, torch.from_numpy(tokens).to(dev),
-            positions, view, starts_t, blockwise=True,
-            logits_indices=torch.tensor([len(todo) - 1
-                                         for _, _, _, todo in sub],
-                                        device=dev))
-        # Only the chunk's rows go back: the gathered copy holds the rest
-        # unchanged.
-        for part, full in zip(view, self.cache):
-            if full is None:
-                continue
-            new = part[:, rows, positions]
-            if self.paged:
-                full[:, read.gather(1, positions)] = new
-            else:
-                full[:, slot_idx[:, None], positions] = new
-        firsts = sample_tokens(
-            logits[:, 0, :self.sample_vocab], self._dev.gen,
-            torch.tensor([r.params.temperature for r, _, _, _ in sub],
-                         dtype=torch.float32, device=dev),
-            torch.tensor([r.params.top_k for r, _, _, _ in sub],
-                         dtype=torch.int64, device=dev),
-            torch.tensor([r.params.top_p for r, _, _, _ in sub],
-                         dtype=torch.float32, device=dev),
-            method=self.sampling_method)
+        # Per row: slot, start, last real index, temperature, top-k, top-p
+        # (JAX packs the same row config, :3700).
+        rowcfg = np.array([[slot.index, start, len(todo) - 1,
+                            req.params.temperature, req.params.top_k,
+                            req.params.top_p]
+                           for req, slot, start, todo in sub], np.float64)
+        firsts = self._call("batched_prefill", tokens=tokens, rowcfg=rowcfg)
         # One step record: g x bucket rows computed, the real prompt
         # tokens useful (the port pads no group rows).
         real = sum(len(todo) for _, _, _, todo in sub)
@@ -1965,7 +2054,6 @@ class TorchEngine(EngineBase):
         self.batched_prefill_rows += g
         entries = []
         for j, (req, slot, start, todo) in enumerate(sub):
-            self._dev.cur[slot.index] = firsts[j]
             slot.tokens.extend(todo)
             slot.kv_written = start + len(todo)
             self._activate(req, slot)
@@ -1995,37 +2083,52 @@ class TorchEngine(EngineBase):
                 _fp.fire("engine.prefill.dispatch",
                          request_id=req.request_id,
                          session_id=req.session_id)
-            take = min(len(st.todo), self.prefill_chunk)
-            bucket = next(b for b in _PREFILL_BUCKETS if b >= take)
-            # A padded bucket must not run past the cache end.
-            while st.start + bucket > self.max_len and take > 1:
-                bucket //= 2
-                take = min(take, bucket)
-            if st.start + bucket > self.max_len:
-                self._prefilling.pop(0)
-                self._finish(req, "error",
-                             error="KV cache exhausted during prefill")
-                return
-            if self.paged and not self._kv_blocks.ensure(
-                    slot.index, st.start + bucket):
-                # The padded bucket writes up to start + bucket: without
-                # its blocks the padding would land in another slot's.
-                self._prefilling.pop(0)
-                self._paged_exhausted_finish(
-                    req, "KV block pool exhausted during prefill")
-                return
+            ring = self._ring_prefill_eligible(st.start, len(st.todo))
+            if ring:
+                # The whole fresh prompt in one ring-attention call (JAX
+                # :4286-4300): per-rank attention memory O(T/sp).
+                take = len(st.todo)
+                padded = np.zeros((ring,), np.int64)
+                padded[:take] = st.todo
+                prog = program_key("ring_prefill", bucket=ring)
+                m0 = self._dev_mark()
+                st.last_logits = self._call("ring_prefill", tokens=padded,
+                                            slot=slot.index, last=take - 1)
+                self.ring_prefill_calls += 1
+                bucket = ring
+            else:
+                take = min(len(st.todo), self.prefill_chunk)
+                bucket = next(b for b in _PREFILL_BUCKETS if b >= take)
+                # A padded bucket must not run past the cache end.
+                while st.start + bucket > self.max_len and take > 1:
+                    bucket //= 2
+                    take = min(take, bucket)
+                if st.start + bucket > self.max_len:
+                    self._prefilling.pop(0)
+                    self._finish(req, "error",
+                                 error="KV cache exhausted during prefill")
+                    return
+                if self.paged and not self._kv_blocks.ensure(
+                        slot.index, st.start + bucket):
+                    # The padded bucket writes up to start + bucket:
+                    # without its blocks the padding would land in another
+                    # slot's.
+                    self._prefilling.pop(0)
+                    self._paged_exhausted_finish(
+                        req, "KV block pool exhausted during prefill")
+                    return
+                prog = self._prefill_program(st.start, bucket)
+                m0 = self._dev_mark()
+                st.last_logits = self._run_chunk_prefill(
+                    slot, st.todo[:take], st.start, bucket)
             chunk = st.todo[:take]
-            prog = self._prefill_program(st.start, bucket)
-            m0 = self._dev_mark()
-            st.last_logits = self._run_chunk_prefill(slot, chunk, st.start,
-                                                     bucket)
             slot.tokens.extend(chunk)
             st.start += take
             slot.kv_written = st.start
             st.todo = st.todo[take:]
             self._dev_record("engine_prefill", m0, bucket=bucket,
-                             tokens=take, rows=bucket, kind="chunk",
-                             program=prog,
+                             tokens=take, rows=bucket,
+                             kind="ring" if ring else "chunk", program=prog,
                              flops=self._perf.call_flops(take, st.start))
             # A chunk is forward progress for every request in the
             # prefill FIFO, not only the head (JAX :4362-4370).
@@ -2045,13 +2148,9 @@ class TorchEngine(EngineBase):
                 self._activate(req, slot)
                 self._st_sample_place(req, slot, st.last_logits)
                 return
-            first = sample_tokens(
-                st.last_logits[None, :self.sample_vocab], self._dev.gen,
-                self._dev_scalar(req.params.temperature, torch.float32),
-                self._dev_scalar(req.params.top_k, torch.int64),
-                self._dev_scalar(req.params.top_p, torch.float32),
-                method=self.sampling_method)
-            self._dev.cur[slot.index] = first[0]
+            first = self._call("sample_place", slot=slot.index,
+                               temp=req.params.temperature,
+                               topk=req.params.top_k, topp=req.params.top_p)
             self._activate(req, slot)
             self._defer_first(first, [(0, slot.index, req)])
         except Exception as e:
@@ -2065,35 +2164,243 @@ class TorchEngine(EngineBase):
         return torch.tensor([value], dtype=dtype, device=self.device)
 
     def _run_chunk_prefill(self, slot: Slot, chunk: list[int], start: int,
-                           bucket: int) -> torch.Tensor:
-        """One prompt chunk for one slot, written in place into the slot's
-        cache rows; returns the last real token's logits [V]. Attention
-        reads the slot's first ``ctx`` rows, a KV bucket covering the
-        chunk (the rows past it are masked for every query).
+                           bucket: int) -> torch.Tensor | None:
+        """One prompt chunk for one slot (``_dc_prefill``); returns the last
+        real token's logits [V] (None on a rank of another "dp" group)."""
+        padded = np.zeros((bucket,), np.int64)
+        padded[:len(chunk)] = chunk
+        return self._call("prefill", tokens=padded, start=start,
+                          slot=slot.index, last=len(chunk) - 1)
+
+    # ---------------- replayable device calls ----------------
+    # Each ``_dc_<kind>`` takes host values only and is the whole of one
+    # device call: the leader runs it through ``_call`` (which publishes
+    # it first), a follower runs it from the leader's stream
+    # (parallel/spmd_serving.py ``follower_loop``). Slots are global
+    # indices; each call works on the ones this rank holds.
+
+    def _call(self, kind: str, **payload: Any) -> Any:
+        """Publish one device call to the call sink (an SPMD leader's
+        followers replay it), then run it here (JAX ``_sink`` :1760)."""
+        if self.call_sink is not None:
+            self.call_sink(kind, payload)
+        return getattr(self, f"_dc_{kind}")(**payload)
+
+    def _local_rows(self, slots: Any) -> tuple[list[int], list[int]]:
+        """(positions in ``slots``, local slot indices) of the slots this
+        rank holds."""
+        lo, n = self._slot_lo, self.local_slots
+        pick, local = [], []
+        for j, s in enumerate(slots):
+            if lo <= int(s) < lo + n:
+                pick.append(j)
+                local.append(int(s) - lo)
+        return pick, local
+
+    def _gather_slots(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every "dp" group's slot rows of ``t``, in slot order."""
+        if self._dp == 1:
+            return t
+        return collectives.all_gather(t.contiguous(), self.mesh, "dp", dim)
+
+    def _seq_view(self, slot_idx: torch.Tensor, ctx: int) -> KVCache:
+        """A dense copy of the first ``ctx`` cache rows of local slots; with
+        sp > 1 each rank's sequence shard is gathered over "sp"."""
+        if self._sp == 1:
+            return KVCache(*(None if x is None else x[:, slot_idx, :ctx]
+                             for x in self.cache))
+        return KVCache(*(
+            None if x is None else collectives.all_gather(
+                x[:, slot_idx].contiguous(), self.mesh, "sp", dim=2)[:, :, :ctx]
+            for x in self.cache))
+
+    def _write_back(self, view: KVCache, slot_idx: torch.Tensor,
+                    positions: torch.Tensor) -> None:
+        """Scatter the rows at ``positions`` [g, T] of a gathered copy back
+        into the cache (with sp > 1, the positions this rank holds)."""
+        rows = torch.arange(positions.shape[0],
+                            device=positions.device)[:, None]
+        for part, full in zip(view, self.cache):
+            if full is None:
+                continue
+            new = part[:, rows, positions]
+            if self._sp > 1:
+                cols = positions - self._seq_lo
+                keep = (cols >= 0) & (cols < full.shape[2])
+                jj, tt = keep.nonzero(as_tuple=True)
+                full[:, slot_idx[jj], cols[jj, tt]] = new[:, jj, tt]
+            else:
+                full[:, slot_idx[:, None], positions] = new
+
+    def _ring_prefill_eligible(self, start: int, n_tokens: int) -> int:
+        """The power-of-two bucket of a fresh prompt that prefills through
+        ring attention, else 0 (JAX :3602-3622): an sp > 1 mesh, a fresh
+        slot, and at least one rank's KV shard of prompt."""
+        if self.mesh is None or start != 0 or self._sp <= 1:
+            return 0
+        if n_tokens < max(256, self.max_len // self._sp):
+            return 0
+        bucket = 1 << (n_tokens - 1).bit_length()
+        bucket = max(bucket, 2 * self._sp)
+        if bucket > self.max_len or bucket % self._sp:
+            return 0
+        return bucket
+
+    def _step_kw(self) -> dict:
+        return dict(sample_vocab=self.sample_vocab,
+                    method=self.sampling_method,
+                    block_size=self.kv_block_size if self.paged else 0,
+                    mesh=self._mesh_arg)
+
+    def _dc_decode(self, kv_len: int, steps: int,
+                   fsm: FSMTables | None = None) -> torch.Tensor:
+        """``steps`` plain decode steps; the tokens [K, S] of every slot."""
+        toks = plain_steps(self.params, self.cfg, self.cache, self._dev,
+                           steps, kv_len, table=self._decode_table(kv_len),
+                           fsm=fsm, **self._step_kw())
+        return self._gather_slots(toks, 1)
+
+    def _dc_spec(self, kv_len: int, steps: int) -> torch.Tensor:
+        """``steps`` speculative steps; [K, S, T + 1] of every slot."""
+        out = spec_steps(self.params, self.cfg, self.cache, self._dev, steps,
+                         kv_len, self.spec_draft,
+                         table=self._decode_table(kv_len), **self._step_kw())
+        return self._gather_slots(out, 1)
+
+    def _dc_patch(self, packed: np.ndarray, slots: np.ndarray) -> None:
+        """Slot state rows (position, active, sampling parameters) onto
+        the device; their penalty counts restart at 0."""
+        pick, local = self._local_rows(slots)
+        if not pick:
+            return
+        st = self._dev
+        vals = torch.from_numpy(packed[pick]).to(self.device)
+        ii = torch.as_tensor(local, device=self.device)
+        st.pos[ii] = vals[:, 0].to(torch.int64)
+        st.active[ii] = vals[:, 1] > 0.5
+        st.temps[ii] = vals[:, 2].to(torch.float32)
+        st.topks[ii] = vals[:, 3].to(torch.int64)
+        st.topps[ii] = vals[:, 4].to(torch.float32)
+        st.reps[ii] = vals[:, 5].to(torch.float32)
+        st.press[ii] = vals[:, 6].to(torch.float32)
+        st.freqs[ii] = vals[:, 7].to(torch.float32)
+        st.counts[ii] = 0
+
+    def _dc_hist_patch(self, rows: np.ndarray, slots: np.ndarray) -> None:
+        """Draft-history rows of newly activated slots."""
+        pick, local = self._local_rows(slots)
+        if not pick:
+            return
+        st = self._dev
+        ii = torch.as_tensor(local, device=self.device)
+        st.history[ii] = 0
+        st.history[ii, :rows.shape[1]] = torch.from_numpy(
+            np.ascontiguousarray(rows[pick])).to(self.device)
+
+    def _dc_prefix_copy(self, src: int, dst: int, rows: int) -> None:
+        """The source slot's leading ``rows`` rows (and scale rows) copied
+        onto ``dst`` (never on a "dp" mesh: shared prefixes are off)."""
+        pick, local = self._local_rows([src, dst])
+        if len(pick) < 2:
+            return
+        n = max(0, min(rows - self._seq_lo, self.max_len // self._sp))
+        for part in self.cache:
+            if part is not None:
+                part[:, local[1], :n] = part[:, local[0], :n]
+
+    def _dc_batched_prefill(self, tokens: np.ndarray,
+                            rowcfg: np.ndarray) -> torch.Tensor:
+        """One ``[group, bucket]`` forward and one first-token sample for
+        a same-bucket group (rows: slot, start, last, temperature, top-k,
+        top-p); the first tokens go into the slots' current tokens and are
+        returned [g]. Each "dp" group runs its own rows."""
+        g, bucket = tokens.shape
+        dev = self.device
+        slots = rowcfg[:, 0].astype(np.int64)
+        starts = rowcfg[:, 1].astype(np.int64)
+        ctx = _kv_bucket(int(starts.max()) + bucket, self.max_len)
+        pick, local = self._local_rows(slots)
+        firsts = None
+        if pick:
+            cfg = rowcfg[pick]
+            starts_t = torch.as_tensor(starts[pick], device=dev)
+            positions = starts_t[:, None] \
+                + torch.arange(bucket, device=dev)[None]
+            slot_idx = torch.as_tensor(local, device=dev)
+            if self.paged:
+                read = torch.stack([self._paged_read_indices(int(s), ctx)
+                                    for s in slots[pick]])
+                view = KVCache(*(None if x is None else x[:, read]
+                                 for x in self.cache))
+            else:
+                view = self._seq_view(slot_idx, ctx)
+            logits, _ = forward(
+                self.params, self.cfg,
+                torch.from_numpy(np.ascontiguousarray(tokens[pick])).to(dev),
+                positions, view, starts_t, blockwise=True,
+                logits_indices=torch.as_tensor(
+                    cfg[:, 2].astype(np.int64), device=dev),
+                mesh=self._mesh_arg)
+            # Only the chunk's rows go back: the gathered copy holds the
+            # rest unchanged.
+            if self.paged:
+                rows = torch.arange(len(pick), device=dev)[:, None]
+                for part, full in zip(view, self.cache):
+                    if full is not None:
+                        full[:, read.gather(1, positions)] = \
+                            part[:, rows, positions]
+            else:
+                self._write_back(view, slot_idx, positions)
+            firsts = sample_tokens(
+                logits[:, 0, :self.sample_vocab], self._dev.gen,
+                torch.as_tensor(cfg[:, 3], dtype=torch.float32, device=dev),
+                torch.as_tensor(cfg[:, 4].astype(np.int64), device=dev),
+                torch.as_tensor(cfg[:, 5], dtype=torch.float32, device=dev),
+                method=self.sampling_method)
+            self._dev.cur[slot_idx] = firsts
+        if self._dp > 1:
+            return self._gather_slots(self._dev.cur, 0)[
+                torch.as_tensor(slots, device=dev)]
+        return firsts
+
+    def _dc_prefill(self, tokens: np.ndarray, start: int, slot: int,
+                    last: int) -> torch.Tensor | None:
+        """One prompt chunk for one slot, written into the slot's cache
+        rows; keeps and returns the logits [V] of index ``last`` (None on
+        a rank of another "dp" group). Attention reads the slot's first
+        ``ctx`` rows, a KV bucket covering the chunk.
 
         Paged: the slot's logical rows 0..ctx are gathered out of the pool
         into a dense [L, 1, ctx, ...] copy, the unchanged dense ``forward``
         runs over it, and the chunk's rows start..start+bucket scatter
         back through the table (their blocks were ensured by the caller).
-        """
+        With sp > 1 the slot's rows are gathered over "sp" and the chunk's
+        rows go back to the ranks that hold them."""
+        pick, local = self._local_rows([slot])
+        self._last_logits = None
+        if not pick:
+            return None
+        dev = self.device
+        bucket = len(tokens)
         ctx = _kv_bucket(start + bucket, self.max_len)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :len(chunk)] = chunk
-        tokens = torch.from_numpy(padded).to(self.device)
-        positions = start + torch.arange(bucket, device=self.device)[None]
+        tok = torch.from_numpy(np.ascontiguousarray(tokens[None])).to(dev)
+        positions = start + torch.arange(bucket, device=dev)[None]
+        slot_idx = torch.as_tensor(local, device=dev)
         if self.paged:
-            read = self._paged_read_indices(slot.index, ctx)
+            read = self._paged_read_indices(slot, ctx)
             view = KVCache(*(None if x is None else x[:, read][:, None]
                              for x in self.cache))
+        elif self._sp > 1:
+            view = self._seq_view(slot_idx, ctx)
         else:
-            rows = slice(slot.index, slot.index + 1)
+            rows = slice(local[0], local[0] + 1)
             view = KVCache(*(None if x is None else x[:, rows, :ctx]
                              for x in self.cache))
         logits, _ = forward(
-            self.params, self.cfg, tokens, positions, view,
-            torch.tensor([start], device=self.device), blockwise=True,
-            logits_indices=torch.tensor([len(chunk) - 1],
-                                        device=self.device))
+            self.params, self.cfg, tok, positions, view,
+            torch.tensor([start], device=dev), blockwise=True,
+            logits_indices=torch.tensor([last], device=dev),
+            mesh=self._mesh_arg)
         if self.paged:
             # ctx >= start + bucket (the caller keeps the bucket inside
             # max_len), so the chunk's pool rows are a slice of the read's.
@@ -2101,7 +2408,46 @@ class TorchEngine(EngineBase):
             for pool, part in zip(self.cache, view):
                 if pool is not None:
                     pool[:, write] = part[:, 0, start:start + bucket]
-        return logits[0, 0]
+        elif self._sp > 1:
+            self._write_back(view, slot_idx, positions)
+        self._last_logits = logits[0, 0]
+        return self._last_logits
+
+    def _dc_ring_prefill(self, tokens: np.ndarray, slot: int,
+                         last: int) -> torch.Tensor | None:
+        """A fresh prompt (padded to a power-of-two bucket) through ring
+        attention into the slot's rows (``forward_ring``); keeps and
+        returns the logits [V] of index ``last``."""
+        pick, local = self._local_rows([slot])
+        self._last_logits = None
+        if not pick:
+            return None
+        s = local[0]
+        view = KVCache(*(None if x is None else x[:, s:s + 1]
+                         for x in self.cache))
+        self._last_logits = forward_ring(
+            self.params, self.cfg,
+            torch.from_numpy(np.ascontiguousarray(tokens[None])).to(
+                self.device), view, self.mesh, last)
+        return self._last_logits
+
+    def _dc_sample_place(self, slot: int, temp: float, topk: int,
+                         topp: float) -> torch.Tensor:
+        """The first token of a chunked or ring prefill, sampled from the
+        kept logits into the slot's current token; returned [1]."""
+        pick, local = self._local_rows([slot])
+        first = None
+        if pick:
+            first = sample_tokens(
+                self._last_logits[None, :self.sample_vocab], self._dev.gen,
+                self._dev_scalar(temp, torch.float32),
+                self._dev_scalar(topk, torch.int64),
+                self._dev_scalar(topp, torch.float32),
+                method=self.sampling_method)
+            self._dev.cur[local[0]] = first[0]
+        if self._dp > 1:
+            return self._gather_slots(self._dev.cur, 0)[slot:slot + 1]
+        return first
 
     def _activate(self, req: _Request, slot: Slot) -> None:
         s = slot.index
@@ -2205,10 +2551,8 @@ class TorchEngine(EngineBase):
                 toks = self._dirty_history[s]
                 rows[i, :len(toks)] = toks
             self._dirty_history.clear()
-            ii = torch.as_tensor(idx, device=self.device)
-            st.history[ii] = 0
-            st.history[ii, :rows.shape[1]] = torch.from_numpy(rows).to(
-                self.device)
+            self._call("hist_patch", rows=rows,
+                       slots=np.asarray(idx, np.int64))
         if not self._dirty_slots:
             return
         idx = sorted(self._dirty_slots)
@@ -2218,17 +2562,7 @@ class TorchEngine(EngineBase):
                            self._topps[idx], self._reps[idx],
                            self._press[idx], self._freqs[idx]],
                           axis=1).astype(np.float64)
-        vals = torch.from_numpy(packed).to(self.device)
-        ii = torch.as_tensor(idx, device=self.device)
-        st.pos[ii] = vals[:, 0].to(torch.int64)
-        st.active[ii] = vals[:, 1] > 0.5
-        st.temps[ii] = vals[:, 2].to(torch.float32)
-        st.topks[ii] = vals[:, 3].to(torch.int64)
-        st.topps[ii] = vals[:, 4].to(torch.float32)
-        st.reps[ii] = vals[:, 5].to(torch.float32)
-        st.press[ii] = vals[:, 6].to(torch.float32)
-        st.freqs[ii] = vals[:, 7].to(torch.float32)
-        st.counts[ii] = 0
+        self._call("patch", packed=packed, slots=np.asarray(idx, np.int64))
 
     def _spec_call_wanted(self) -> bool:
         """Per-call speculative/plain choice (JAX :4814): "ngram" always;
@@ -2265,8 +2599,6 @@ class TorchEngine(EngineBase):
         active = list(self._running)
         snapshot = list(self._running.items())
         top = int(self._positions[active].max())
-        kw = dict(sample_vocab=self.sample_vocab, method=self.sampling_method,
-                  block_size=self.kv_block_size if self.paged else 0)
         # A constrained slot running: the call is the constrained plain
         # call and no speculative call is made (JAX :4865-4871; the verify
         # block is not masked). With none running, today's call.
@@ -2283,12 +2615,12 @@ class TorchEngine(EngineBase):
             need = top + sum(c.advance for c in self._inflight) \
                 + max(exp_adv, t)
             if need <= self.max_len:
-                kv_len = _kv_bucket(need, self.max_len)
+                # sp > 1 attends the whole sharded cache (JAX :1856-1864).
+                kv_len = self.max_len if self._sp > 1 \
+                    else _kv_bucket(need, self.max_len)
                 t0 = time.perf_counter()
                 m0 = self._dev_mark()
-                toks = spec_steps(self.params, self.cfg, self.cache,
-                                  self._dev, steps, kv_len, self.spec_draft,
-                                  table=self._decode_table(kv_len), **kw)
+                toks = self._call("spec", kv_len=kv_len, steps=steps)
                 marks = None if m0 is None else (m0, self._devclock.mark())
                 dt = time.perf_counter() - t0
                 self.decode_host_s += dt
@@ -2312,14 +2644,16 @@ class TorchEngine(EngineBase):
                 return
         # A plain step emits a token for every slot, so its bucket must hold
         # the most the calls ahead of it can advance.
-        kv_len = _kv_bucket(top + sum(c.max_advance for c in self._inflight)
-                            + steps, self.max_len)
+        kv_len = self.max_len if self._sp > 1 else _kv_bucket(
+            top + sum(c.max_advance for c in self._inflight) + steps,
+            self.max_len)
         tables = self._st_call_tables() if st_on else None
         t0 = time.perf_counter()
         m0 = self._dev_mark()
-        toks = plain_steps(self.params, self.cfg, self.cache, self._dev,
-                           steps, kv_len, table=self._decode_table(kv_len),
-                           fsm=tables, **kw)
+        # The FSM tables ride only single-rank calls (structured decoding
+        # is unavailable on a mesh).
+        toks = self._call("decode", kv_len=kv_len, steps=steps,
+                          **({"fsm": tables} if st_on else {}))
         marks = None if m0 is None else (m0, self._devclock.mark())
         dt = time.perf_counter() - t0
         self.decode_host_s += dt

@@ -11,6 +11,13 @@ group-wise for the seven layer matmuls), load the tokenizer, and build the
 speculative decoding, shared-prefix reuse and the admission scheduler's
 settings (``fasttalk_tpu/engine/factory.py`` :395-402).
 
+A mesh (``TPU_TP_SIZE``/``TPU_DP_SIZE``/``TPU_SP_SIZE``, parallel/) is built
+after the process group comes up, as the JAX factory does (:258-283):
+``maybe_initialize`` then ``make_mesh``; the rank's device is its own card
+(``rank_device``) unless the caller names one, the budget is priced per
+rank, the weights are loaded or drawn straight into the rank's shards and
+the prepared cache is keyed by the mesh and the rank.
+
 ``LLM_PROVIDER`` selects the backend as the JAX factory does (:224-250):
 ``tpu`` is this in-tree engine, ``fake`` the in-memory ``FakeEngine``,
 ``vllm``/``openai`` and ``ollama`` the HTTP passthrough engines of
@@ -80,8 +87,21 @@ def weight_bytes_by_tier(m: ModelConfig, dsize: int,
     }
 
 
+def _effective_weight_quant(cfg: Config) -> str:
+    """The weight tier the build runs (``fasttalk_tpu/engine/factory.py``
+    :71). Config resolves WEIGHT_QUANT and the legacy TPU_QUANTIZE at
+    construction, but a caller that assigns ``cfg.quantize`` afterwards
+    bypasses that: the legacy attribute is honoured as the JAX factory
+    honours it."""
+    legacy = "off" if cfg.quantize in ("", "none", "off") else cfg.quantize
+    if cfg.weight_quant == "off" and legacy != "off":
+        return legacy
+    return cfg.weight_quant
+
+
 def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
-                     device: torch.device) -> dict:
+                     device: torch.device, tp: int = 1,
+                     kv_shards: int = 1) -> dict:
     """Account weights + KV cache against the card's memory before any
     allocation, so bad TPU_DECODE_SLOTS / TPU_MAX_MODEL_LEN / KV settings
     fail with a named message instead of an out-of-memory error mid-load.
@@ -101,7 +121,11 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
         row = 2 * m.num_kv_heads * m.head_dim * dsize
     row *= m.num_layers  # one token's K/V rows over all layers
     tiers = weight_bytes_by_tier(m, dsize, cfg.weight_quant_group)
-    wbytes = tiers[cfg.weight_quant]
+    tier = _effective_weight_quant(cfg)
+    wbytes = tiers[tier]
+    # One rank holds about 1/tp of the weights and 1/(dp*sp*tp) of the KV.
+    wbytes //= max(1, tp)
+    row //= max(1, kv_shards)
     dense_rows = cfg.decode_slots * cfg.max_model_len
     paged = cfg.kv_layout == "paged"
     bs = cfg.kv_block_size
@@ -131,7 +155,7 @@ def check_hbm_budget(m: ModelConfig, cfg: Config, dsize: int,
         acct["kv_cache_bytes"] = kv = pool_blocks * block_bytes
     need = wbytes + kv
     if need > budget:
-        tier_math = (f"Weight bytes by tier (WEIGHT_QUANT={cfg.weight_quant}"
+        tier_math = (f"Weight bytes by tier (WEIGHT_QUANT={tier}"
                      f"): off(bf16)={tiers['off'] / 2**30:.2f} GiB, "
                      f"int8={tiers['int8'] / 2**30:.2f} GiB, "
                      f"int4+scales={tiers['int4'] / 2**30:.2f} GiB "
@@ -186,22 +210,40 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
             max_inflight=cfg.remote_max_inflight,
             admission_timeout_s=cfg.sched_default_deadline_s,
             connect_retries=cfg.remote_connect_retries)
+    mesh = None
+    if cfg.mesh_size > 1 or cfg.spmd_role != "off":
+        # The process group first, then the mesh over its ranks (JAX
+        # :258-283); each rank drives its own card.
+        from fasttalk_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                             rank_device)
+        from fasttalk_tpu_torch.parallel.mesh import make_mesh
+
+        maybe_initialize()
+        if device is None:
+            device = rank_device()
+        if cfg.mesh_size > 1:
+            mesh = make_mesh(dp=cfg.dp_size, sp=cfg.sp_size, tp=cfg.tp_size)
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        # A rank's own card becomes the process's current device.
+        torch.cuda.set_device(dev)
     model_cfg = get_model_config(cfg.model_name, cfg.model_path)
     dtype = cfg.torch_dtype
-    tier, group = cfg.weight_quant, cfg.weight_quant_group
+    tier, group = _effective_weight_quant(cfg), cfg.weight_quant_group
     if tier == "int4":
         validate_group(model_cfg, group)
-    acct = check_hbm_budget(model_cfg, cfg, torch.finfo(dtype).bits // 8, dev)
+    acct = check_hbm_budget(model_cfg, cfg, torch.finfo(dtype).bits // 8, dev,
+                            tp=cfg.tp_size if mesh else 1,
+                            kv_shards=cfg.mesh_size if mesh else 1)
     ckpt = find_checkpoint_dir(cfg.model_path, model_cfg.name) \
         if cfg.model_path else None
     if ckpt:
         params = load_prepared(model_cfg, cfg.model_path, dtype, tier, ckpt,
-                               group=group, device=dev) \
+                               group=group, device=dev, mesh=mesh) \
             if prepared_cache else None
         if params is None:
             params = load_params(model_cfg, ckpt, dtype, dev, quantize=tier,
-                                 weight_quant_group=group)
+                                 weight_quant_group=group, mesh=mesh)
             if tier == "int4":
                 log.info(f"Quantized layer matmuls to int4 (group-wise "
                          f"symmetric, group={group}, data-free scales; "
@@ -214,12 +256,13 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
             if prepared_cache:
                 save_prepared(params, cfg.model_path,
                               cache_meta(model_cfg, dtype, tier, ckpt,
-                                         group=group))
+                                         group=group, mesh=mesh))
     else:
         log.warning(f"No checkpoint for {model_cfg.name!r} under "
                     f"{cfg.model_path!r}; using random-initialised weights")
         params = init_params_device(model_cfg, dtype, dev, quantize=tier,
-                                    seed=seed, weight_quant_group=group)
+                                    seed=seed, weight_quant_group=group,
+                                    mesh=mesh)
     tokenizer = load_tokenizer(cfg.model_path, cfg.model_name,
                                template=model_cfg.chat_template)
     if not ckpt and getattr(tokenizer, "vocab_size", 0) <= 512 \
@@ -240,7 +283,8 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
              f"spec_decode={cfg.spec_decode}, "
              f"kv_radix={cfg.kv_radix_enabled}, "
              f"kv_host_budget_mb={cfg.kv_host_budget_mb}, "
-             f"kv_cache={acct['kv_cache_bytes'] / 2**30:.3f} GiB")
+             f"kv_cache={acct['kv_cache_bytes'] / 2**30:.3f} GiB"
+             + (f", mesh={mesh.describe()}" if mesh is not None else ""))
     return TorchEngine(
         model_cfg, params, tokenizer, device=dev,
         num_slots=cfg.decode_slots, max_len=cfg.max_model_len,
@@ -273,4 +317,5 @@ def build_engine(cfg: Config, device: str | torch.device | None = None,
         structured_state_budget=cfg.structured_state_budget,
         structured_jf_min=cfg.structured_jf_min,
         structured_cache=cfg.structured_cache,
-        structured_json_depth=cfg.structured_json_depth)
+        structured_json_depth=cfg.structured_json_depth,
+        mesh=mesh)

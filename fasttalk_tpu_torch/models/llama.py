@@ -24,6 +24,22 @@ on write, the kernels dequantize after the load, the plain attention of
 prefill reads a dequantized copy. The paged tier (``KV_LAYOUT=paged``)
 keeps one flat row pool per layer, ``[L, P, Kv, H]``, that slots address
 through host-managed block tables (kvcache/blocks.py).
+
+On a mesh (``mesh``, parallel/mesh.py) each rank holds its shards
+(parallel/sharding.py) and the model sees local widths: its heads, its FFN
+columns, its KV heads, read from the leaves' shapes. The column-parallel
+wq/wk/wv/w_gate/w_up need no collective; the partial outputs of the
+row-parallel wo and w_down are summed over "tp" before the residual add;
+the embedding, sharded on its hidden axis, is gathered over "tp" after the
+lookup, and the tied head's partial logits are summed over "tp" (the row
+scale is replicated, so the sum is the full product). The partials are
+float32 and the sum is rounded once (ops/quant.py ``row_parallel``), where
+one rank rounds its whole product: a tp layout's activations equal one
+rank's but for the order of float32 additions. On "sp" the decode
+cache is this rank's sequence shard: a row is written only by the rank
+that holds its position, and attention folds the shard and combines the
+softmax statistics over "sp" (parallel/ring_attention.py).
+``forward_ring`` is the ring prefill of a fresh prompt.
 """
 
 from __future__ import annotations
@@ -38,9 +54,12 @@ from fasttalk_tpu_torch.ops.attention import attend, attend_blockwise
 from fasttalk_tpu_torch.ops.cuda_attention import (decode_attend,
                                                    decode_attend_paged)
 from fasttalk_tpu_torch.ops.kv_quant import kv_dequantize, kv_quantize
-from fasttalk_tpu_torch.ops.quant import embed_lookup, matmul_tied
+from fasttalk_tpu_torch.ops.quant import (embed_lookup, matmul_tied,
+                                          row_parallel)
 from fasttalk_tpu_torch.ops.quant import matmul as qmm
 from fasttalk_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from fasttalk_tpu_torch.parallel import collectives
+from fasttalk_tpu_torch.parallel.mesh import Mesh
 
 Params = dict[str, Any]
 
@@ -176,24 +195,49 @@ def _layer(params: Params, i: int) -> dict[str, Any]:
 def _write_rows(cache_layer: torch.Tensor, new: torch.Tensor,
                 cols: torch.Tensor, mask: torch.Tensor | None) -> None:
     """cache_layer [B, S, ...][b, cols[b, t]] = new[b, t] in place; rows
-    with ``mask`` False keep their contents (written back unchanged)."""
+    with ``mask`` False ([B], or [B, T] per element) keep their contents
+    (written back unchanged)."""
     b = cache_layer.shape[0]
     rows = torch.arange(b, device=cols.device)[:, None]
     cols = cols.clamp(0, cache_layer.shape[1] - 1)
     if mask is not None:
         cur = cache_layer[rows, cols]
-        keep = mask.view(b, *([1] * (new.dim() - 1)))
+        keep = mask.view(*mask.shape, *([1] * (new.dim() - mask.dim())))
         new = torch.where(keep, new.to(cache_layer.dtype), cur)
     cache_layer[rows, cols] = new.to(cache_layer.dtype)
 
 
+def _tp(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.shape["tp"] > 1
+
+
+def _row_parallel(x: torch.Tensor, w, mesh: Mesh | None,
+                  decode: bool = False, tied: bool = False) -> torch.Tensor:
+    """A row-parallel matmul (``wo``, ``w_down``, the tied head): on a "tp"
+    mesh the float32 partial products of the shards summed over "tp" and
+    rounded once (``row_parallel``), so the layout rounds where one rank
+    does; off a mesh the plain product."""
+    if not _tp(mesh):
+        return matmul_tied(x, w, decode) if tied else qmm(x, w, decode)
+    return row_parallel(
+        x, w, lambda p: collectives.all_reduce_sum(p, mesh, "tp"), decode,
+        tied=tied)
+
+
+def _embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
+           mesh: Mesh | None) -> torch.Tensor:
+    x = embed_lookup(params["embed"], tokens, dtype)
+    return collectives.all_gather(x, mesh, "tp", dim=-1) if _tp(mesh) else x
+
+
 def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig,
-         decode: bool = False) -> torch.Tensor:
+         decode: bool = False, mesh: Mesh | None = None) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
     gate = torch.nn.functional.silu(
         qmm(h, lp["w_gate"], decode).to(torch.float32))
     up = qmm(h, lp["w_up"], decode).to(torch.float32)
-    return x + qmm((gate * up).to(x.dtype), lp["w_down"], decode)
+    return x + _row_parallel((gate * up).to(x.dtype), lp["w_down"], mesh,
+                             decode)
 
 
 def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
@@ -204,19 +248,31 @@ def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
                qmm(h, lp["wv"], decode))
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    # Head counts from the widths: a "tp" shard holds its own heads.
+    q = q.reshape(b, t, -1, cfg.head_dim)
+    k = k.reshape(b, t, -1, cfg.head_dim)
+    v = v.reshape(b, t, -1, cfg.head_dim)
     return (apply_rope(q, positions, inv_freq),
             apply_rope(k, positions, inv_freq), v)
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor,
-          decode: bool = False) -> torch.Tensor:
+          decode: bool = False, mesh: Mesh | None = None) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if cfg.tie_embeddings:
+        if _tp(mesh):
+            # The table is sharded on D: this rank's columns of x against
+            # its columns of the table give partial logits.
+            d = x.shape[-1] // mesh.shape["tp"]
+            i = mesh.coords["tp"]
+            xs = x[..., i * d:(i + 1) * d].contiguous()
+            return _row_parallel(xs, params["embed"], mesh, decode,
+                                 tied=True).to(torch.float32)
         return matmul_tied(x, params["embed"], decode).to(torch.float32)
-    return qmm(x, params["lm_head"], decode).to(torch.float32)
+    logits = qmm(x, params["lm_head"], decode).to(torch.float32)
+    # An untied head is column-parallel over the vocabulary.
+    return collectives.all_gather(logits, mesh, "tp", dim=-1) \
+        if _tp(mesh) else logits
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -224,6 +280,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             write_start: torch.Tensor, *, blockwise: bool = False,
             write_mask: torch.Tensor | None = None,
             logits_indices: torch.Tensor | None = None,
+            mesh: Mesh | None = None,
             ) -> tuple[torch.Tensor, KVCache]:
     """Run the transformer over ``tokens`` [B, T], updating the dense
     ``cache`` in place (the caller may pass views of a larger cache, or a
@@ -236,12 +293,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the cache untouched. ``blockwise`` picks the flash-style attention.
     ``logits_indices`` [B] (optional): project the lm_head for one
     position per row (logits [B, 1, V]) — prefill only needs the last.
+    ``mesh``: the params and cache are this rank's "tp" shards (the cache
+    holds whole sequences: an "sp" caller gathers them first).
     Returns (float32 logits [B, T, V], cache).
     """
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                          str(tokens.device))
     dtype = params["final_norm"].dtype
-    x = embed_lookup(params["embed"], tokens, dtype)
+    x = _embed(params, tokens, dtype, mesh)
     b, t = tokens.shape
     cols = write_start[:, None] + torch.arange(t, device=tokens.device)[None]
     attn_fn = attend_blockwise if blockwise else attend
@@ -263,11 +322,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             ak, av = cache.k[i], cache.v[i]
         o = attn_fn(q, ak, av, positions)
-        x = x + qmm(o.reshape(b, t, cfg.q_dim), lp["wo"])
-        x = _mlp(x, lp, cfg)
+        x = x + _row_parallel(o.reshape(b, t, -1), lp["wo"], mesh)
+        x = _mlp(x, lp, cfg, mesh=mesh)
     if logits_indices is not None:
         x = x[torch.arange(b, device=x.device), logits_indices.long()][:, None]
-    return _head(params, cfg, x), cache
+    return _head(params, cfg, x, mesh=mesh), cache
 
 
 def forward_decode_multi(params: Params, cfg: ModelConfig,
@@ -276,6 +335,7 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
                          attn_len: int,
                          block_table: torch.Tensor | None = None,
                          block_size: int = 0,
+                         mesh: Mesh | None = None,
                          ) -> tuple[torch.Tensor, KVCache]:
     """Scatter-write decode over a short block: tokens [B, T] -> float32
     logits [B, T, V], cache updated in place.
@@ -294,22 +354,37 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
     into the pool's sink block (a masked slot's table entry may name
     another slot's block, and two writers to one row in one scatter give
     an undefined result).
+
+    ``mesh``: the params are this rank's "tp" shards and the dense cache
+    its shard; with "sp" > 1 the cache holds the rank's sequence shard,
+    ``attn_len`` is the full cache length, a position is written by the
+    rank that holds it, and attention is ``decode_attention_sharded``.
     """
     paged = block_table is not None
+    sp = mesh is not None and mesh.shape["sp"] > 1
+    if sp and (paged or cache.quantized):
+        raise ValueError("an sp-sharded cache is dense bf16 only")
     if paged:
         if block_table.shape[1] * block_size != attn_len:
             raise ValueError("the block table must cover exactly the "
                              f"attn_len {attn_len} bucket")
-    elif attn_len > cache.max_len:
+    elif attn_len > cache.max_len * (mesh.shape["sp"] if sp else 1):
         raise ValueError(f"attn_len {attn_len} exceeds the cache length "
                          f"{cache.max_len}")
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                          str(tokens.device))
     dtype = params["final_norm"].dtype
-    x = embed_lookup(params["embed"], tokens, dtype)
+    x = _embed(params, tokens, dtype, mesh)
     b, t = tokens.shape
     pos_mat = positions[:, None] + torch.arange(t, device=tokens.device)[None]
     lengths = (pos_mat[:, -1] + 1).to(torch.int32)
+    if sp:
+        # This rank holds positions [lo, lo + local): only it writes them.
+        local = cache.max_len
+        lo = mesh.coords["sp"] * local
+        write_cols = pos_mat - lo
+        write_keep = write_mask[:, None] & (write_cols >= 0) \
+            & (write_cols < local)
     kvq = cache.quantized
     if paged:
         blk = (pos_mat // block_size).clamp(max=block_table.shape[1] - 1)
@@ -338,6 +413,14 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
                 block_size=block_size,
                 k_scale=cache.k_scale[i] if kvq else None,
                 v_scale=cache.v_scale[i] if kvq else None)
+        elif sp:
+            from fasttalk_tpu_torch.parallel.ring_attention import \
+                decode_attention_sharded
+
+            _write_rows(cache.k[i], k, write_cols, write_keep)
+            _write_rows(cache.v[i], v, write_cols, write_keep)
+            o = decode_attention_sharded(q, cache.k[i], cache.v[i], pos_mat,
+                                         mesh)
         else:
             _write_rows(cache.k[i], k, pos_mat, write_mask)
             _write_rows(cache.v[i], v, pos_mat, write_mask)
@@ -349,19 +432,79 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
                 lengths,
                 k_scale=cache.k_scale[i][:, :attn_len] if kvq else None,
                 v_scale=cache.v_scale[i][:, :attn_len] if kvq else None)
-        x = x + qmm(o.reshape(b, t, cfg.q_dim), lp["wo"], decode=True)
-        x = _mlp(x, lp, cfg, decode=True)
-    return _head(params, cfg, x, decode=True), cache
+        x = x + _row_parallel(o.reshape(b, t, -1), lp["wo"], mesh,
+                              decode=True)
+        x = _mlp(x, lp, cfg, decode=True, mesh=mesh)
+    return _head(params, cfg, x, decode=True, mesh=mesh), cache
 
 
 def forward_decode(params: Params, cfg: ModelConfig, cur: torch.Tensor,
                    positions: torch.Tensor, cache: KVCache,
                    write_mask: torch.Tensor, *, attn_len: int,
                    block_table: torch.Tensor | None = None,
-                   block_size: int = 0) -> tuple[torch.Tensor, KVCache]:
+                   block_size: int = 0,
+                   mesh: Mesh | None = None) -> tuple[torch.Tensor, KVCache]:
     """One decode step [B] -> logits [B, V], cache updated in place."""
     logits, cache = forward_decode_multi(params, cfg, cur[:, None], positions,
                                          cache, write_mask, attn_len=attn_len,
                                          block_table=block_table,
-                                         block_size=block_size)
+                                         block_size=block_size, mesh=mesh)
     return logits[:, 0], cache
+
+
+def forward_ring(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache: KVCache, mesh: Mesh, last_index: int,
+                 ) -> torch.Tensor:
+    """Ring prefill of one fresh prompt (JAX ``_get_ring_prefill_fn``,
+    fasttalk_tpu/engine/engine.py:3624): ``tokens`` [1, bucket] is the
+    whole (padded) prompt; this rank runs the model over its contiguous
+    chunk of ``bucket / sp`` positions, attention through
+    ``ring_attention_sharded``, so per-rank attention memory is
+    O(bucket / sp). Every K/V chunk visits every rank on the ring, and a
+    rank writes the positions its cache shard holds from the chunks as
+    they pass (``cache`` is this rank's [L, 1, S/sp, Kv/tp, H] view of the
+    slot): no rank holds more than one chunk of K/V at a time. Returns
+    the float32 logits [V] at ``last_index``, the same on every rank."""
+    from fasttalk_tpu_torch.parallel.ring_attention import \
+        ring_attention_sharded
+
+    sp = mesh.shape["sp"]
+    bucket = tokens.shape[1]
+    chunk = bucket // sp
+    i0 = mesh.coords["sp"] * chunk
+    dev = tokens.device
+    inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                         str(dev))
+    dtype = params["final_norm"].dtype
+    positions = torch.arange(i0, i0 + chunk, device=dev)[None]
+    x = _embed(params, tokens[:, i0:i0 + chunk], dtype, mesh)
+    local = cache.max_len
+    lo = mesh.coords["sp"] * local
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+
+        def write(src: int, k: torch.Tensor, v: torch.Tensor,
+                  i: int = i) -> None:
+            # Chunk src holds positions [src * chunk, (src + 1) * chunk);
+            # this rank's shard holds [lo, lo + local).
+            c0 = src * chunk
+            w0, w1 = max(lo, c0), min(lo + local, c0 + chunk)
+            if w1 > w0:
+                cache.k[i][:, w0 - lo:w1 - lo] = k[:, w0 - c0:w1 - c0].to(
+                    cache.k.dtype)
+                cache.v[i][:, w0 - lo:w1 - lo] = v[:, w0 - c0:w1 - c0].to(
+                    cache.v.dtype)
+
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg, positions, inv_freq)
+        o = ring_attention_sharded(q, k.contiguous(), v.contiguous(),
+                                   positions, mesh, on_block=write)
+        x = x + _row_parallel(o.reshape(1, chunk, -1), lp["wo"], mesh)
+        x = _mlp(x, lp, cfg, mesh=mesh)
+    # The last real position's hidden row, from the rank whose chunk holds
+    # it (the others add zeros), then the head on every rank.
+    row = torch.zeros_like(x[:, 0])
+    if i0 <= last_index < i0 + chunk:
+        row = x[:, last_index - i0]
+    row = collectives.all_reduce_sum(row.contiguous(), mesh, "sp")
+    return _head(params, cfg, row[:, None], mesh=mesh)[0, 0]

@@ -11,6 +11,14 @@ quantization.
 ``quantize`` takes the WEIGHT_QUANT tier, "none"/"off" | "int8" | "int4",
 or the legacy ``True``/``False`` (int8/none), as the JAX loader does
 (``fasttalk_tpu/models/loader.py`` :166-168).
+
+Given a ``mesh`` (parallel/mesh.py), ``load_params`` and
+``init_params_device`` place each leaf straight into this rank's shard
+(parallel/sharding.py): a leaf, or one layer of it, is read or drawn
+whole, quantized whole, then cut, so the shard holds the same bytes as
+quantizing the whole model and cutting it afterwards (the JAX package's
+``param_put``; ``test_quantize_after_shard_matches_quantize_before``).
+Only one leaf's (one layer's) full copy exists at a time.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from fasttalk_tpu_torch.models.configs import ModelConfig
 from fasttalk_tpu_torch.models.llama import Params
 from fasttalk_tpu_torch.ops.quant import (QUANTIZED_LEAVES, quantize_math_out,
                                           quantize_math_row)
+from fasttalk_tpu_torch.parallel.sharding import shard_named
 from fasttalk_tpu_torch.quantization.int4 import (INT4_LEAVES, pack_int4,
                                                   quantize_math_group,
                                                   quantizing_put_int4)
@@ -103,8 +112,9 @@ def load_params(cfg: ModelConfig, ckpt_dir: str,
                 dtype: torch.dtype = torch.bfloat16,
                 device: torch.device | str = "cuda",
                 quantize: bool | str = False,
-                weight_quant_group: int = 128) -> Params:
-    """Load a HF Llama checkpoint into the stacked dict on ``device``.
+                weight_quant_group: int = 128, mesh: Any = None) -> Params:
+    """Load a HF Llama checkpoint into the stacked dict on ``device``
+    (with a ``mesh``, this rank's shards of it).
 
     Tensors are read as float32; a quantized tier converts the matmul
     weights and the embedding on the host, tensor by tensor, before they
@@ -137,8 +147,14 @@ def load_params(cfg: ModelConfig, ckpt_dir: str,
         return t.to(dtype).to(device)
 
     if tier == "int4":
+        if mesh is not None:
+            raise ValueError("the int4 tier is single-device only")
         put = quantizing_put_int4(put, lambda t: t.to(device),
                                   weight_quant_group)
+    whole_put = put
+
+    def put(t: torch.Tensor, name: str) -> Any:  # noqa: F811
+        return shard_named(whole_put(t, name), name, mesh)
 
     params: Params = {
         "embed": put(get("model.embed_tokens.weight"), "embed"),
@@ -158,9 +174,11 @@ def load_params(cfg: ModelConfig, ckpt_dir: str,
         head = get("lm_head.weight")  # [V, D]
         if quantize:
             qt, s = quantize_math_row(head)
-            params["lm_head"] = {"qt": qt.to(device), "s": s.to(device)}
+            params["lm_head"] = shard_named(
+                {"qt": qt.to(device), "s": s.to(device)}, "lm_head", mesh)
         else:
-            params["lm_head"] = head.T.to(dtype).to(device)
+            params["lm_head"] = shard_named(head.T.to(dtype).to(device),
+                                            "lm_head", mesh)
     handles.clear()
     log.info(f"Loaded checkpoint from {ckpt_dir}", model=cfg.name)
     return params
@@ -181,17 +199,40 @@ def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                        device: torch.device | str = "cuda",
                        quantize: bool | str = True, seed: int = 0,
                        rows_per_chunk: int = 16384,
-                       weight_quant_group: int = 128) -> Params:
+                       weight_quant_group: int = 128,
+                       mesh: Any = None) -> Params:
     """Architecture-faithful random init generated on ``device``, one layer
     (or one block of embedding rows) at a time: with a quantized tier each
     f32 slice becomes int8 (or, for "int4", the seven layer matmuls become
     nibble-packed groups of ``weight_quant_group`` rows) before the next is
     drawn, so neither an f32 nor a bf16 copy of the whole model ever
     exists. Each leaf draws from its own generator seeded by ``seed`` and a
-    CRC of its name; the f32 slices are the same whatever the tier."""
+    CRC of its name; the f32 slices are the same whatever the tier. With a
+    ``mesh`` each quantized slice is cut to this rank's shard before the
+    next is drawn: every rank draws the same numbers, and a shard holds the
+    bytes of the same slice of the single-device init."""
     tier = weight_tier(quantize)
     quantize = tier != "none"
     group = int(weight_quant_group)
+    if tier == "int4" and mesh is not None:
+        raise ValueError("the int4 tier is single-device only")
+
+    def cut(t: torch.Tensor, name: str, parent: str = "",
+            stacked: bool = False) -> torch.Tensor:
+        from fasttalk_tpu_torch.parallel.sharding import shard_leaf
+
+        return t if mesh is None else shard_leaf(t, name, parent, mesh,
+                                                 stacked)
+
+    def local_shape(shape: tuple, name: str, parent: str = "") -> tuple:
+        if mesh is None:
+            return tuple(shape)
+        from fasttalk_tpu_torch.parallel.sharding import (_spec_for,
+                                                          local_slices)
+
+        idx = local_slices(_spec_for(name, len(shape), shape, parent),
+                           shape, mesh)
+        return tuple(len(range(*i.indices(d))) for i, d in zip(idx, shape))
 
     def gen(name: str) -> torch.Generator:
         g = torch.Generator(device=device)
@@ -203,8 +244,8 @@ def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
     params: Params = {"layers": {}}
     for name, shape in _leaf_shapes(cfg).items():
         if name in ("bq", "bk", "bv"):
-            params["layers"][name] = torch.zeros(shape, dtype=dtype,
-                                                 device=device)
+            params["layers"][name] = torch.zeros(local_shape(shape, name),
+                                                 dtype=dtype, device=device)
             continue
         g = gen(f"layers/{name}")
         scale = shape[-2] ** -0.5
@@ -219,17 +260,21 @@ def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                 q4[i] = pack_int4(q)
             params["layers"][name] = {"q4": q4, "s": s}
         elif quantize:
-            q = torch.empty(shape, dtype=torch.int8, device=device)
-            s = torch.empty((n, shape[-1]), dtype=torch.float32, device=device)
+            q = torch.empty(local_shape(shape, "q", name), dtype=torch.int8,
+                            device=device)
+            s = torch.empty(local_shape((n, shape[-1]), "s", name),
+                            dtype=torch.float32, device=device)
             for i in range(n):
                 sl = torch.randn(shape[1:], generator=g, device=device) * scale
-                q[i], s[i] = quantize_math_out(sl)
+                qi, si = quantize_math_out(sl)
+                q[i], s[i] = cut(qi, "q", name), cut(si, "s", name)
             params["layers"][name] = {"q": q, "s": s}
         else:
-            w = torch.empty(shape, dtype=dtype, device=device)
+            w = torch.empty(local_shape(shape, name), dtype=dtype,
+                            device=device)
             for i in range(n):
-                w[i] = (torch.randn(shape[1:], generator=g, device=device)
-                        * scale).to(dtype)
+                w[i] = cut((torch.randn(shape[1:], generator=g, device=device)
+                            * scale).to(dtype), name)
             params["layers"][name] = w
     for name in ("attn_norm", "mlp_norm"):
         params["layers"][name] = torch.ones((n, d), dtype=dtype, device=device)
@@ -237,27 +282,30 @@ def init_params_device(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
 
     g = gen("embed")
     v = cfg.vocab_size
+    ed = local_shape((v, d), "embed")[1]
     if quantize:
-        eq = torch.empty((v, d), dtype=torch.int8, device=device)
+        eq = torch.empty((v, ed), dtype=torch.int8, device=device)
         es = torch.empty((v,), dtype=torch.float32, device=device)
     else:
-        eq = torch.empty((v, d), dtype=dtype, device=device)
+        eq = torch.empty((v, ed), dtype=dtype, device=device)
     for r0 in range(0, v, rows_per_chunk):
         r1 = min(v, r0 + rows_per_chunk)
         blk = torch.randn((r1 - r0, d), generator=g, device=device) * d ** -0.5
         if quantize:
-            eq[r0:r1], es[r0:r1] = quantize_math_row(blk)
+            bq, es[r0:r1] = quantize_math_row(blk)
+            eq[r0:r1] = cut(bq, "q", "embed", stacked=True)
         else:
-            eq[r0:r1] = blk.to(dtype)
+            eq[r0:r1] = cut(blk.to(dtype), "embed", stacked=True)
     params["embed"] = {"q": eq, "s": es} if quantize else eq
     if not cfg.tie_embeddings:
         g = gen("lm_head")
         head = torch.randn((d, v), generator=g, device=device) * d ** -0.5
         if quantize:
             qt, s = quantize_math_row(head.T)
-            params["lm_head"] = {"qt": qt.contiguous(), "s": s}
+            params["lm_head"] = shard_named({"qt": qt.contiguous(), "s": s},
+                                            "lm_head", mesh)
         else:
-            params["lm_head"] = head.to(dtype)
+            params["lm_head"] = shard_named(head.to(dtype), "lm_head", mesh)
     log.info(f"Random-initialised {cfg.name} on {device} "
              f"({tier if quantize else dtype})")
     return params

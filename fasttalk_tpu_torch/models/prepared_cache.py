@@ -19,6 +19,7 @@ weights into the same place, where the factory finds them first.
 A cache is written into a temporary directory (tensors first, the meta
 file last) and moved into place with ``os.replace``, so a reader never sees
 a partial cache and two writers of one checkpoint never mix their files.
+The write finishes on a background thread, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 from typing import Any
 
 import torch
@@ -73,7 +75,12 @@ def transform_version() -> str:
 
 
 def cache_meta(cfg: ModelConfig, dtype: torch.dtype, quantize: bool | str,
-               ckpt_dir: str | None = None, group: int = 128) -> dict:
+               ckpt_dir: str | None = None, group: int = 128,
+               mesh: Any = None) -> dict:
+    """The cache key. On a mesh each rank caches its own shards: the meta
+    names the mesh shape and the rank (JAX keys its cache by mesh shape,
+    fasttalk_tpu/models/prepared_cache.py:60), and a mesh that differs is
+    another cache."""
     tier = weight_tier(quantize)
     meta = {
         "format": 1,
@@ -86,6 +93,8 @@ def cache_meta(cfg: ModelConfig, dtype: torch.dtype, quantize: bool | str,
     if tier == "int4":
         # The group changes the scale shapes; only int4 metas carry it.
         meta["group"] = int(group)
+    if mesh is not None:
+        meta["mesh"] = {**mesh.shape, "rank": mesh.rank}
     return meta
 
 
@@ -93,8 +102,12 @@ def cache_dir(model_path: str, meta: dict) -> str:
     quant = meta["quantize"]
     if meta.get("group"):
         quant = f"{quant}-g{meta['group']}"
-    tag = "-".join([meta["model"].replace(":", "_").replace("/", "_"),
-                    meta["dtype"], quant])
+    parts = [meta["model"].replace(":", "_").replace("/", "_"),
+             meta["dtype"], quant]
+    if meta.get("mesh"):
+        m = meta["mesh"]
+        parts.append(f"dp{m['dp']}xsp{m['sp']}xtp{m['tp']}-r{m['rank']}")
+    tag = "-".join(parts)
     return os.path.join(model_path, ".prepared_torch", tag)
 
 
@@ -119,12 +132,19 @@ def _unflatten(flat: dict[str, torch.Tensor]) -> dict:
 
 
 def save_prepared(params: dict, model_path: str, meta: dict,
-                  extra: dict[str, Any] | None = None) -> str | None:
+                  extra: dict[str, Any] | None = None,
+                  block: bool = False) -> str | None:
     """Write the engine-ready dict (and ``extra`` JSON files, name ->
     object, beside it); best-effort: serving works without the cache.
-    Returns the cache directory, or None when nothing was written."""
-    from safetensors.torch import save_file
+    Returns the cache directory, or None when nothing can be written.
 
+    The write finishes on a ``prepared-cache-save`` thread unless ``block``
+    (JAX ``save_prepared``, fasttalk_tpu/models/prepared_cache.py:203): the
+    cache only helps the next start, so this one does not wait for it. The
+    thread is not a daemon, so a short-lived process joins it at exit
+    instead of leaving the cache unwritten. The finish stays atomic: the
+    tensors and the meta file go into a temporary directory that is moved
+    into place last, so a reader never sees a half-written cache."""
     path = cache_dir(model_path, meta)
     parent = os.path.dirname(path)
     try:
@@ -133,40 +153,54 @@ def save_prepared(params: dict, model_path: str, meta: dict,
     except OSError as e:
         log.warning(f"prepared cache dir not writable: {path} ({e})")
         return None
-    try:
-        save_file(_flatten(params), os.path.join(tmp, _TENSORS))
-        for name, obj in (extra or {}).items():
-            with open(os.path.join(tmp, name), "w", encoding="utf-8") as f:
-                json.dump(obj, f, indent=2)
-        with open(os.path.join(tmp, _META), "w", encoding="utf-8") as f:
-            json.dump(meta, f)
-        if os.path.isdir(path):
-            # Move the old cache aside first: os.replace cannot replace a
-            # non-empty directory.
-            old = tempfile.mkdtemp(prefix=".old-", dir=parent)
-            os.replace(path, os.path.join(old, "cache"))
-            shutil.rmtree(old, ignore_errors=True)
-        os.replace(tmp, path)
-        log.info(f"prepared-weight cache written: {path}")
-        return path
-    except OSError as e:
-        # Another writer put its cache in place between our steps; theirs
-        # holds the same weights.
-        log.warning(f"prepared cache save skipped ({e})")
-        return path if os.path.isfile(os.path.join(path, _META)) else None
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+    def finish() -> str | None:
+        from safetensors.torch import save_file
+
+        try:
+            save_file(_flatten(params), os.path.join(tmp, _TENSORS))
+            for name, obj in (extra or {}).items():
+                with open(os.path.join(tmp, name), "w",
+                          encoding="utf-8") as f:
+                    json.dump(obj, f, indent=2)
+            with open(os.path.join(tmp, _META), "w", encoding="utf-8") as f:
+                json.dump(meta, f)
+            if os.path.isdir(path):
+                # Move the old cache aside first: os.replace cannot
+                # replace a non-empty directory.
+                old = tempfile.mkdtemp(prefix=".old-", dir=parent)
+                os.replace(path, os.path.join(old, "cache"))
+                shutil.rmtree(old, ignore_errors=True)
+            os.replace(tmp, path)
+            log.info(f"prepared-weight cache written: {path}")
+            return path
+        except Exception as e:
+            # Another writer put its cache in place between our steps
+            # (theirs holds the same weights), or the disk failed.
+            log.warning(f"prepared cache save skipped ({e})")
+            return path if os.path.isfile(os.path.join(path, _META)) \
+                else None
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    if block:
+        return finish()
+    threading.Thread(target=finish, name="prepared-cache-save",
+                     daemon=False).start()
+    return path
 
 
 def load_prepared(cfg: ModelConfig, model_path: str, dtype: torch.dtype,
                   quantize: bool | str, ckpt_dir: str | None = None,
                   group: int = 128,
-                  device: torch.device | str = "cuda") -> dict | None:
-    """The engine-ready dict on ``device``, or None when the cache is
-    absent, mismatched or unreadable."""
+                  device: torch.device | str = "cuda",
+                  mesh: Any = None) -> dict | None:
+    """The engine-ready dict on ``device`` (on a mesh, this rank's
+    shards), or None when the cache is absent, mismatched or unreadable."""
     from safetensors.torch import load_file
 
-    meta = cache_meta(cfg, dtype, quantize, ckpt_dir, group=group)
+    meta = cache_meta(cfg, dtype, quantize, ckpt_dir, group=group,
+                      mesh=mesh)
     path = cache_dir(model_path, meta)
     meta_file = os.path.join(path, _META)
     if not os.path.isfile(meta_file):

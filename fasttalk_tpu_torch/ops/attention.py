@@ -70,6 +70,50 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, q.shape[2], q.shape[3])
 
 
+def online_softmax_fold(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_positions: torch.Tensor, key_pos: torch.Tensor,
+                        carry: tuple) -> tuple:
+    """Fold one K/V block into the online-softmax state (JAX
+    ``online_softmax_fold``), shared by the ring and the sharded decode
+    attention of parallel/ring_attention.py.
+
+    qg [B, Tq, K, G, D] float32; k/v [B, Tk, K, D] any dtype;
+    q_positions [B, Tq] and key_pos [Tk] absolute positions;
+    carry = (m [B,Tq,K,G], l [B,Tq,K,G], acc [B,Tq,K,G,D]), float32."""
+    m, l, acc = carry
+    scale = qg.shape[-1] ** -0.5
+    scores = torch.einsum("btkgd,bskd->btkgs", qg,
+                          k.to(torch.float32)) * scale
+    mask = key_pos[None, None, :] <= q_positions[:, :, None]
+    scores = torch.where(mask[:, :, None, None, :], scores,
+                         torch.full_like(scores, _NEG_INF))
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    correction = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    l_new = l * correction + p.sum(dim=-1)
+    acc_new = acc * correction[..., None] + torch.einsum(
+        "btkgs,bskd->btkgd", p, v.to(torch.float32))
+    return m_new, l_new, acc_new
+
+
+def fold_init(b: int, t: int, nkv: int, g: int, d: int,
+              device: torch.device | str) -> tuple:
+    """The initial (m, l, acc) of ``online_softmax_fold``."""
+    return (torch.full((b, t, nkv, g), _NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((b, t, nkv, g), dtype=torch.float32, device=device),
+            torch.zeros((b, t, nkv, g, d), dtype=torch.float32,
+                        device=device))
+
+
+def fold_finish(carry: tuple, out_dtype: torch.dtype) -> torch.Tensor:
+    """The folded state normalised into the [B, T, Nq, D] output."""
+    _, l, acc = carry
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    b, t, nkv, g, d = acc.shape
+    return out.reshape(b, t, nkv * g, d).to(out_dtype)
+
+
 def attend_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_positions: torch.Tensor, block_size: int = 512,
                      ) -> torch.Tensor:

@@ -7,7 +7,9 @@ mappings are written out in ``ops/mma_layout.py``):
 
 - ``int8_matmul`` replaces ``fasttalk_tpu/ops/pallas_int8.py::int8_matmul``
   (:89): ``y[M,N] = (x[M,K] @ q[K,N]) * s[N]``, f32 accumulation, the
-  scale applied once in f32 and a single cast to x's dtype. It runs the
+  scale applied once in f32 and a single cast to x's dtype (or none:
+  ``out_dtype=torch.float32`` gives a tensor-parallel shard's unrounded
+  partial product, which the sum over ranks rounds once). It runs the
   seven per-layer matmuls of a decode step (112 launches per step for
   Llama-3.2-1B). Bound: the weight bytes (a [2048, 8192] ``w_gate`` is
   16.8 MB, about 5 us at 3.35 TB/s); the multiply-adds run on the bf16
@@ -59,9 +61,10 @@ def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("int8_matmul")
-        lib.ft_int8_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.ft_int8_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P]
         lib.ft_int8_matmul.restype = _I
-        lib.ft_int8_matmul_t.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        lib.ft_int8_matmul_t.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.ft_int8_matmul_t.restype = _I
         _lib_handle = lib
     return _lib_handle
@@ -106,31 +109,45 @@ def _check_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{what}: x, q and s must be contiguous")
 
 
-def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
-                      s: torch.Tensor) -> torch.Tensor:
+def _out_dtype(x: torch.Tensor, out_dtype: torch.dtype | None,
+               what: str) -> torch.dtype:
+    out = x.dtype if out_dtype is None else out_dtype
+    if out not in (x.dtype, torch.float32):
+        raise ValueError(f"{what}: out_dtype must be x's dtype or float32, "
+                         f"got {out}")
+    return out
+
+
+def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version: x [M, K] @ dequant(q [K, N], s [N]) -> [M, N]."""
     acc = x.to(torch.float32) @ q.to(torch.float32)
-    return (acc * s.to(torch.float32)[None, :]).to(x.dtype)
+    out = _out_dtype(x, out_dtype, "int8_matmul")
+    return (acc * s.to(torch.float32)[None, :]).to(out)
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor,
-                s: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ dequant(q [K, N] int8, s [N]) -> [M, N] (x dtype)."""
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x [M, K] @ dequant(q [K, N] int8, s [N]) -> [M, N] in x's dtype, or
+    in float32 unrounded (``out_dtype=torch.float32``: a tensor-parallel
+    shard's partial product, rounded once after the sum over ranks)."""
     if x.dim() != 2 or q.dim() != 2 or s.dim() != 1 \
             or x.shape[1] != q.shape[0] or s.shape[0] != q.shape[1]:
         raise ValueError(f"int8_matmul: bad shapes x{tuple(x.shape)} "
                          f"q{tuple(q.shape)} s{tuple(s.shape)}")
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, s)
+        return int8_matmul_plain(x, q, s, out_dtype)
     _check_cuda(x, q, s, "int8_matmul")
     m, k = x.shape
     n = q.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = _out_dtype(x, out_dtype, "int8_matmul")
+    y = torch.empty((m, n), dtype=out, device=x.device)
     tiles = _cdiv(n, _MM_COLS) * _cdiv(m, _M_TILE)
     k_per_split = _split_rows(k, tiles, _sm_count(x.device))
     err = _lib().ft_int8_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, k, n,
-        k_per_split, torch.cuda.current_stream(x.device).cuda_stream)
+        k_per_split, int(out == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return y
@@ -139,28 +156,32 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
 int8_matmul.launches = 0
 
 
-def int8_matmul_t_plain(x: torch.Tensor, q: torch.Tensor,
-                        s: torch.Tensor) -> torch.Tensor:
+def int8_matmul_t_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version: x [M, D] @ dequant(q [V, D], s [V]).T -> [M, V]."""
     acc = x.to(torch.float32) @ q.to(torch.float32).T
-    return (acc * s.to(torch.float32)[None, :]).to(x.dtype)
+    out = _out_dtype(x, out_dtype, "int8_matmul_t")
+    return (acc * s.to(torch.float32)[None, :]).to(out)
 
 
-def int8_matmul_t(x: torch.Tensor, q: torch.Tensor,
-                  s: torch.Tensor) -> torch.Tensor:
-    """x [M, D] @ dequant(q [V, D] int8, s [V]).T -> [M, V] (x dtype)."""
+def int8_matmul_t(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x [M, D] @ dequant(q [V, D] int8, s [V]).T -> [M, V] in x's dtype,
+    or in float32 unrounded (``out_dtype``, as ``int8_matmul``'s)."""
     if x.dim() != 2 or q.dim() != 2 or s.dim() != 1 \
             or x.shape[1] != q.shape[1] or s.shape[0] != q.shape[0]:
         raise ValueError(f"int8_matmul_t: bad shapes x{tuple(x.shape)} "
                          f"q{tuple(q.shape)} s{tuple(s.shape)}")
     if x.device.type == "cpu":
-        return int8_matmul_t_plain(x, q, s)
+        return int8_matmul_t_plain(x, q, s, out_dtype)
     _check_cuda(x, q, s, "int8_matmul_t")
     m, d = x.shape
     v = q.shape[0]
-    y = torch.empty((m, v), dtype=x.dtype, device=x.device)
+    out = _out_dtype(x, out_dtype, "int8_matmul_t")
+    y = torch.empty((m, v), dtype=out, device=x.device)
     err = _lib().ft_int8_matmul_t(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, d, v,
+        int(out == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_matmul_t")
     int8_matmul_t.launches += 1

@@ -15,6 +15,7 @@ Decode matmuls (a T=1 step, and the speculative verify block, whose
 hand-written kernels of ``ops/cuda_int8.py`` and ``ops/cuda_int4.py``;
 prefill (T>1) stays ``(x @ q.to(x.dtype)) * s`` (int8) or the dequantized
 product (int4) via ``torch.matmul``, as the JAX package leaves it to XLA.
+On a "tp" mesh the row-parallel matmuls take ``row_parallel``.
 """
 
 from __future__ import annotations
@@ -123,6 +124,34 @@ def matmul(x: torch.Tensor, w: Any, decode: bool = False) -> torch.Tensor:
             return out * w["s"].to(x.dtype)
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
+
+
+def row_parallel(x: torch.Tensor, w: Any, reduce, decode: bool = False,
+                 tied: bool = False) -> torch.Tensor:
+    """A row-parallel shard's product summed over the ranks, rounded as
+    the unsharded product is. ``x`` [B, T, in/tp] holds this rank's
+    columns of the activations and ``w`` its rows of a plain or int8 layer
+    weight (``tied``: its columns of the [V, D] embedding table). Each
+    partial product stays float32 (the int8 kernels' ``out_dtype``),
+    ``reduce`` sums the partials over the ranks, and the sum is rounded
+    where ``matmul``/``matmul_tied`` round one rank's whole product: the
+    two differ only by the order of float32 additions."""
+    f32 = torch.float32
+    if not isinstance(w, dict):
+        wf = w.to(f32)
+        return reduce(x.to(f32) @ (wf.T if tied else wf)).to(x.dtype)
+    if "q" not in w:
+        raise ValueError("row_parallel: int8 leaves only (int4 and an "
+                         "untied head are not row-parallel on a mesh)")
+    if _decode_route(x, decode):
+        b, t = x.shape[:2]
+        rows = x.reshape(b * t, x.shape[-1]).contiguous()
+        kernel = int8_matmul_t if tied else int8_matmul
+        part = kernel(rows, w["q"], w["s"], out_dtype=f32)
+        return reduce(part).to(x.dtype).view(b, t, -1)
+    q = w["q"].to(f32)
+    part = x.to(f32) @ (q.T if tied else q)
+    return reduce(part).to(x.dtype) * w["s"].to(x.dtype)
 
 
 def embed_lookup(emb: Any, tokens: torch.Tensor,

@@ -1,9 +1,15 @@
 """Service lifecycle: build the engine, verify it, serve, shut down cleanly.
 
-The port's counterpart of ``fasttalk_tpu/serving/launcher.py`` without the
-multi-host SPMD branch (Config refuses ``TPU_SPMD_ROLE`` by name).
+The port's counterpart of ``fasttalk_tpu/serving/launcher.py``.
 ``python -m fasttalk_tpu_torch websocket`` runs
-``ServerLauncher(Config()).start()``:
+``ServerLauncher(Config()).start()``, or with ``TPU_SPMD_ROLE=follower``
+``run_spmd_follower`` (no gateway: the rank replays the leader's device
+calls). With ``TPU_SPMD_ROLE=leader`` the engine publishes every device
+call to a ``CallBroadcaster`` its followers connect to, warmup is forced
+off (its calls are not replicated), a dead engine thread or a dead
+cluster brings the gateway down for a cluster restart instead of an
+in-place restart, and the broadcaster closes after the engine (JAX
+:40-60, :118-134, :226-239, :356-360). Otherwise:
 
 - the engine from ``build_engine`` (``LLM_PROVIDER`` picks the in-tree
   engine, the fake one or a remote provider), or with ``ROUTER_ENABLED``
@@ -49,6 +55,24 @@ from fasttalk_tpu_torch.utils.logger import get_logger
 from fasttalk_tpu_torch.utils.metrics import get_metrics
 
 log = get_logger("serving.launcher")
+
+
+def run_spmd_follower(config: Config,
+                      device: str | torch.device | None = None) -> int:
+    """Multi-rank SPMD serving, follower role (``TPU_SPMD_ROLE=follower``):
+    build the identical engine over the mesh and replay the leader's
+    device-call stream against this rank's shards. No gateway, no engine
+    thread: the leader is the cluster's only decision-maker
+    (parallel/spmd_serving.py). Returns 0 after the leader's stop frame;
+    a dead leader or an abort frame raises."""
+    from fasttalk_tpu_torch.parallel.spmd_serving import follower_loop
+
+    engine = build_engine(config, device=device)
+    host, port = config.spmd_addr.rsplit(":", 1)
+    log.info(f"SPMD follower: replaying leader calls from {host}:{port}")
+    follower_loop(engine, host, int(port),
+                  hb_timeout_s=config.spmd_hb_timeout_s)
+    return 0
 
 
 def build_agent(config: Config, engine: EngineBase):
@@ -122,6 +146,24 @@ class ServerLauncher:
                  watchdog_interval_s: float = 5.0):
         self.config = config
         self.device = device
+        self._spmd_sink = None
+        if config.spmd_role == "leader" and engine is None:
+            # Followers replay every serving-time device call, so the sink
+            # attaches before any traffic, and warmup (not published) is
+            # off for the whole cluster.
+            from fasttalk_tpu_torch.parallel.spmd_serving import \
+                CallBroadcaster
+
+            if config.warmup not in ("off", "", "none"):
+                log.info("SPMD leader: forcing TPU_WARMUP=off "
+                         "(warmup calls are not replicated)")
+                config.warmup = "off"
+            engine = build_engine(config, device=device)
+            host, port = config.spmd_addr.rsplit(":", 1)
+            self._spmd_sink = CallBroadcaster(
+                host, int(port), config.spmd_followers,
+                hb_interval_s=config.spmd_hb_interval_s)
+            engine.call_sink = self._spmd_sink
         if engine is None and config.router_enabled:
             # Router-backed mode: the "engine" is a FleetRouter fronting N
             # replicas; the serving stack above speaks the same seam.
@@ -204,8 +246,27 @@ class ServerLauncher:
             await asyncio.sleep(interval)
             if self._stop.is_set():
                 return
+            if self._spmd_sink is not None \
+                    and self._spmd_sink.dead_reason is not None:
+                # A dead follower killed the cluster (spmd_serving
+                # ``_fatal``): even with the engine thread idling, the
+                # gateway comes down for a cluster restart.
+                log.critical("SPMD cluster dead "
+                             f"({self._spmd_sink.dead_reason}); "
+                             "shutting the gateway down")
+                self._stop.set()
+                return
             if self.engine.check_connection():
                 continue
+            if self._spmd_sink is not None:
+                # An in-place restart is this rank's state surgery and is
+                # not replicated: an SPMD engine death ends the process so
+                # the cluster restarts.
+                log.critical("engine thread died in multi-host SPMD "
+                             "serving; shutting the gateway down for a "
+                             "cluster restart")
+                self._stop.set()
+                return
             restart = getattr(self.engine, "restart", None)
             if restart is None or not self.config.engine_auto_restart:
                 continue
@@ -306,6 +367,10 @@ class ServerLauncher:
                 # The search backend's HTTP session.
                 await self.agent.aclose()
             self.engine.shutdown()
+            if self._spmd_sink is not None:
+                # After the engine stopped publishing: the stop frame is
+                # the stream's clean tail.
+                self._spmd_sink.close()
 
     def start(self) -> None:
         """Blocking entry point (signal-driven shutdown)."""

@@ -24,8 +24,7 @@ Structured decoding reads ``STRUCTURED_MODE`` (auto|on|off),
 ``STRUCTURED_MAX_STATES``, ``STRUCTURED_STATE_BUDGET``,
 ``STRUCTURED_JF_MIN``, ``STRUCTURED_CACHE`` and ``STRUCTURED_JSON_DEPTH``
 under the same names, defaults and messages (``fasttalk_tpu/utils/
-config.py`` :613-649, :1161-1181); the port has no mesh, so ``on`` has
-nothing to reject.
+config.py`` :613-649, :1161-1181).
 The session host-offload tier (``KV_HOST_BUDGET_MB``, ``KV_PARK_TTL_S``,
 ``KV_PARK_IDLE_S``, ``KV_RESTORE_MIN_TOKENS``) and the radix prefix cache
 (``KV_RADIX_ENABLED``, ``KV_RADIX_MIN_BLOCKS``, ``KV_RADIX_EVICT_POLICY``)
@@ -51,9 +50,17 @@ The fleet settings (``ROUTER_*``, ``FLEET_*``, ``KV_MIGRATE_HTTP``,
 defaults and messages (``fasttalk_tpu/utils/config.py`` :400-505,
 :780-799, :982-1072, :1261-1271), but for ``FLEET_FLIGHT_DIR``, whose
 default is the port's own directory.
-A device mesh and multi-host SPMD serving (``TPU_SPMD_ROLE``), which the
-port does not carry yet, are rejected with a named error when their
-variable asks for them; they are never silently ignored.
+The mesh and multi-rank SPMD settings (``TPU_TP_SIZE``, ``TPU_DP_SIZE``,
+``TPU_SP_SIZE``, ``TPU_SPMD_ROLE``, ``TPU_SPMD_ADDR``,
+``TPU_SPMD_FOLLOWERS``, ``SPMD_HB_INTERVAL_S``, ``SPMD_HB_TIMEOUT_S``)
+have the JAX names, defaults, checks and messages
+(``fasttalk_tpu/utils/config.py`` :222-251, :862-887), and so do the
+refusals of int4, int8 KV, the paged layout and ``STRUCTURED_MODE=on`` on
+a mesh (:954-965, :1088-1099, :1128-1137, :1185-1196) and of the router
+under SPMD. The port runs one rank per device: a mesh or an SPMD role
+without the process group's settings (``TPU_COORDINATOR_ADDR``,
+``TPU_NUM_PROCESSES``) is refused with how to launch it, where the JAX
+package can drive every local device from one process.
 
 The device is not configuration: it is an argument of the entry points
 (``resolve_device``), ``cuda`` unless the caller asks for the CPU.
@@ -124,6 +131,30 @@ class Config:
     model_name: str = field(default_factory=lambda: _env_str("LLM_MODEL", "llama3.2:1b"))
     model_path: str = field(default_factory=lambda: _env_str("MODEL_PATH", "/app/models"))
     decode_slots: int = field(default_factory=lambda: _env_int("TPU_DECODE_SLOTS", 16))
+    # The mesh (parallel/mesh.py): tensor, data and sequence parallel.
+    tp_size: int = field(default_factory=lambda: _env_int("TPU_TP_SIZE", 1))
+    dp_size: int = field(default_factory=lambda: _env_int("TPU_DP_SIZE", 1))
+    sp_size: int = field(default_factory=lambda: _env_int("TPU_SP_SIZE", 1))
+    # Multi-rank SPMD serving (parallel/spmd_serving.py): "off" | "leader"
+    # (serves the gateway and publishes every device call to the
+    # followers over TPU_SPMD_ADDR) | "follower" (replays the leader's
+    # calls against this rank's shards; no gateway). The process group
+    # itself comes from TPU_COORDINATOR_ADDR / TPU_NUM_PROCESSES /
+    # TPU_PROCESS_ID (parallel/distributed.py).
+    spmd_role: str = field(
+        default_factory=lambda: _env_str("TPU_SPMD_ROLE", "off"))
+    spmd_addr: str = field(
+        default_factory=lambda: _env_str("TPU_SPMD_ADDR",
+                                         "127.0.0.1:8890"))
+    spmd_followers: int = field(
+        default_factory=lambda: _env_int("TPU_SPMD_FOLLOWERS", 1))
+    # Cluster liveness: the leader heartbeats every interval (0 disables
+    # the beacon), and a follower treats a leader silent past the timeout
+    # as dead.
+    spmd_hb_interval_s: float = field(
+        default_factory=lambda: _env_float("SPMD_HB_INTERVAL_S", 2.0))
+    spmd_hb_timeout_s: float = field(
+        default_factory=lambda: _env_float("SPMD_HB_TIMEOUT_S", 8.0))
     max_model_len: int = field(default_factory=lambda: _env_int("TPU_MAX_MODEL_LEN", 8192))
     prefill_chunk: int = field(default_factory=lambda: _env_int("TPU_PREFILL_CHUNK", 512))
     decode_steps_per_call: int = field(
@@ -644,14 +675,45 @@ class Config:
             self.quantize = {"off": "none"}.get(self.weight_quant,
                                                 self.weight_quant)
         errs: list[str] = []
-        for name in ("TPU_TP_SIZE", "TPU_DP_SIZE", "TPU_SP_SIZE"):
-            if _env_int(name, 1) != 1:
-                errs.append(f"{name}>1 asks for a device mesh: not "
-                            "implemented yet in fasttalk_tpu_torch")
-        spmd_role = _env_str("TPU_SPMD_ROLE", "off")
-        if spmd_role != "off":
-            errs.append("TPU_SPMD_ROLE asks for multi-host SPMD serving: "
-                        "not implemented yet in fasttalk_tpu_torch")
+        if self.tp_size <= 0 or self.dp_size <= 0 or self.sp_size <= 0:
+            errs.append("tp_size, dp_size and sp_size must be >= 1")
+        if self.spmd_role not in ("off", "leader", "follower"):
+            errs.append("spmd_role must be off|leader|follower")
+        if self.spmd_role != "off":
+            if ":" not in self.spmd_addr:
+                errs.append("spmd_addr must be host:port")
+            if self.spmd_followers <= 0:
+                errs.append("spmd_followers must be >= 1")
+        if self.spmd_hb_interval_s < 0:
+            errs.append("spmd_hb_interval_s must be >= 0 (0 disables "
+                        "the leader heartbeat beacon)")
+        if self.spmd_hb_timeout_s < 0:
+            errs.append("spmd_hb_timeout_s must be >= 0 (0 disables "
+                        "the follower recv deadline)")
+        if self.spmd_hb_interval_s > 0 and self.spmd_hb_timeout_s > 0 \
+                and self.spmd_hb_timeout_s <= self.spmd_hb_interval_s:
+            errs.append(
+                "spmd_hb_timeout_s must exceed spmd_hb_interval_s "
+                "(a deadline shorter than the beacon period declares "
+                "a healthy leader dead)")
+        if self.spmd_hb_interval_s == 0 and self.spmd_hb_timeout_s > 0:
+            errs.append(
+                "SPMD_HB_INTERVAL_S=0 (heartbeats off) requires "
+                "SPMD_HB_TIMEOUT_S=0: a follower recv deadline with "
+                "no heartbeats on the wire declares a healthy idle "
+                "leader dead")
+        if (self.mesh_size > 1 or self.spmd_role != "off") \
+                and (not self.process_group_configured()
+                     or self.spmd_role == "off"):
+            errs.append(
+                "TPU_TP_SIZE/TPU_DP_SIZE/TPU_SP_SIZE > 1 and TPU_SPMD_ROLE "
+                "need one process per device under torch.distributed "
+                "(fasttalk_tpu_torch has no single-process multi-device "
+                "mode): start tp*dp*sp ranks, each with "
+                "TPU_COORDINATOR_ADDR=<rank 0 host:port>, "
+                "TPU_NUM_PROCESSES=<ranks> and TPU_PROCESS_ID=<its rank>, "
+                "rank 0 with TPU_SPMD_ROLE=leader and the others with "
+                "TPU_SPMD_ROLE=follower (TPU_SPMD_FOLLOWERS=<ranks - 1>)")
         if self.llm_provider not in VALID_PROVIDERS:
             errs.append(f"llm_provider must be one of {VALID_PROVIDERS}")
         if self.fleet_replicas < 0:
@@ -739,7 +801,7 @@ class Config:
             if self.fleet_replicas + n_remote < 1:
                 errs.append("router_enabled needs at least one replica "
                             "(FLEET_REPLICAS >= 1 or ROUTER_BACKENDS)")
-            if spmd_role != "off":
+            if self.spmd_role != "off":
                 errs.append("router_enabled is incompatible with "
                             "multi-host SPMD serving (spmd_role must "
                             "be 'off'; an SPMD cluster is ONE logical "
@@ -790,6 +852,18 @@ class Config:
             errs.append(
                 "TPU_USE_PALLAS_INT4=true requires WEIGHT_QUANT=int4 "
                 "(the kernel reads nibble-packed {'q4','s'} leaves)")
+        if self.weight_quant == "int4":
+            if self.mesh_size > 1:
+                errs.append(
+                    "WEIGHT_QUANT=int4 is single-device only in v1 "
+                    "(partition rules for the q4/scale leaves exist — "
+                    "parallel/sharding.py — but the sharded load/init "
+                    "path is unvalidated); set TPU_TP_SIZE=TPU_DP_SIZE="
+                    "TPU_SP_SIZE=1")
+            if self.spmd_role != "off":
+                errs.append("WEIGHT_QUANT=int4 is incompatible with "
+                            "multi-host SPMD serving; set "
+                            "TPU_SPMD_ROLE=off")
         if self.dtype not in ("bfloat16", "float32", "float16"):
             errs.append(f"TPU_DTYPE must be bfloat16|float32|float16, "
                         f"got {self.dtype!r}")
@@ -845,6 +919,16 @@ class Config:
             errs.append("kv_quant must be 'none' or 'int8'")
         if self.kv_quant_granule not in ("token", "head"):
             errs.append("kv_quant_granule must be 'token' or 'head'")
+        if self.kv_quant == "int8":
+            if self.mesh_size > 1:
+                errs.append(
+                    "KV_QUANT=int8 is single-device only (the per-row "
+                    "scale arrays do not shard with the kv axis yet); "
+                    "set TPU_TP_SIZE=TPU_DP_SIZE=TPU_SP_SIZE=1")
+            if self.spmd_role != "off":
+                errs.append("KV_QUANT=int8 is incompatible with "
+                            "multi-host SPMD serving (sharded cache); "
+                            "set TPU_SPMD_ROLE=off")
         if self.kv_quant == "int8" and self.spec_decode != "off":
             errs.append(
                 "KV_QUANT=int8 is incompatible with speculative "
@@ -866,6 +950,17 @@ class Config:
                         f"max_tokens, got {self.kv_reserve_policy!r}")
         if self.kv_reserve_tokens < 0:
             errs.append("kv_reserve_tokens must be >= 0")
+        if self.kv_layout == "paged":
+            if self.mesh_size > 1:
+                errs.append(
+                    "KV_LAYOUT=paged is single-device only (the block "
+                    "pool and per-slot tables are host-orchestrated "
+                    "per chip); set TPU_TP_SIZE=TPU_DP_SIZE="
+                    "TPU_SP_SIZE=1")
+            if self.spmd_role != "off":
+                errs.append("KV_LAYOUT=paged is incompatible with "
+                            "multi-host SPMD serving; set "
+                            "TPU_SPMD_ROLE=off")
         if self.kv_layout == "paged" \
                 and self.kv_block_size > self.max_model_len:
             errs.append(f"kv_block_size ({self.kv_block_size}) must not "
@@ -900,6 +995,18 @@ class Config:
         if self.structured_mode not in ("auto", "on", "off"):
             errs.append(f"structured_mode must be auto|on|off, "
                         f"got {self.structured_mode!r}")
+        if self.structured_mode == "on":
+            if self.mesh_size > 1:
+                errs.append(
+                    "STRUCTURED_MODE=on is single-device only in v1 "
+                    "(per-slot FSM state is not threaded through the "
+                    "sharded decode path); set "
+                    "TPU_TP_SIZE=TPU_DP_SIZE=TPU_SP_SIZE=1 or "
+                    "STRUCTURED_MODE=auto")
+            if self.spmd_role != "off":
+                errs.append("STRUCTURED_MODE=on is incompatible with "
+                            "multi-host SPMD serving; set "
+                            "TPU_SPMD_ROLE=off")
         if self.structured_max_states < 16:
             errs.append(f"structured_max_states must be >= 16, "
                         f"got {self.structured_max_states}")
@@ -999,6 +1106,19 @@ class Config:
                         self.kv_host_budget_mb, total_mb)
             except Exception:
                 pass
+
+    @property
+    def mesh_size(self) -> int:
+        """Ranks the mesh spans (tp x dp x sp)."""
+        return max(1, self.tp_size) * max(1, self.dp_size) \
+            * max(1, self.sp_size)
+
+    @staticmethod
+    def process_group_configured() -> bool:
+        """Whether the environment configures the process group
+        (parallel/distributed.py ``maybe_initialize``)."""
+        return bool(os.environ.get("TPU_COORDINATOR_ADDR")
+                    and os.environ.get("TPU_NUM_PROCESSES"))
 
     def to_dict(self) -> dict[str, Any]:
         return {f.name: getattr(self, f.name) for f in fields(self)}

@@ -405,7 +405,11 @@ def test_port_sources_import_no_jax_and_no_jax_package():
             "serving/openai_api.py", "router/__init__.py",
             "router/replica.py", "router/policy.py", "router/migrate.py",
             "router/disagg.py", "router/router.py", "router/elastic.py",
-            "observability/fleetflight.py"} <= scanned
+            "observability/fleetflight.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/distributed.py",
+            "parallel/collectives.py", "parallel/sharding.py",
+            "parallel/ring_attention.py", "parallel/spmd_serving.py"} \
+        <= scanned
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -433,6 +437,9 @@ def test_importing_the_port_loads_no_jax_module():
         "import fasttalk_tpu_torch.observability.flight\n"
         "import fasttalk_tpu_torch.router\n"
         "import fasttalk_tpu_torch.observability.fleetflight\n"
+        "import fasttalk_tpu_torch.parallel.spmd_serving\n"
+        "import fasttalk_tpu_torch.parallel.ring_attention\n"
+        "import fasttalk_tpu_torch.parallel.distributed\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -470,12 +477,16 @@ def _default_device_engine():
 @pytest.mark.parametrize("env", [
     {"TPU_TP_SIZE": "2"}, {"WEIGHT_QUANT": "int4", "TPU_TP_SIZE": "2"}])
 def test_config_rejects_features_outside_the_slice(monkeypatch, env):
+    """A mesh without the process group of one rank per device is refused
+    with how to launch one; int4 on a mesh also gets the JAX message."""
     from fasttalk_tpu_torch.utils.config import Config
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match="not implemented yet"):
+    with pytest.raises(ValueError, match="one process per device") as err:
         Config()
+    if "WEIGHT_QUANT" in env:
+        assert "WEIGHT_QUANT=int4 is single-device only" in str(err.value)
 
 
 @pytest.mark.parametrize("env", [

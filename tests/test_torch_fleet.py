@@ -457,13 +457,20 @@ async def _fleet_surface(launcher, entry_bytes: bytes) -> dict:
                     return
 
         tasks = [asyncio.ensure_future(pump(0))]
-        for _ in range(2000):
-            if any(f["type"] == "token" for f in frames[0]):
-                break
+        # The kill lands at one fixed point in both packages' runs: once
+        # stream 0 has its first token and the router its route, and with
+        # the event loop held until the engine is down. The router then
+        # handles the aborted stream against a backend that is already
+        # unreachable, so the replica is marked dead on that failure in
+        # every run (shutting down from an executor let a loaded run see
+        # the backend still up and leave the replica alive).
+        deadline = time.monotonic() + 120
+        while not (any(f["type"] == "token" for f in frames[0])
+                   and router._routes):
+            assert time.monotonic() < deadline, "stream 0 never started"
             await asyncio.sleep(0.005)
         victim = next(h for _, h in router._routes.values())
-        await asyncio.get_running_loop().run_in_executor(
-            None, victim.engine.shutdown)
+        victim.engine.shutdown()
         tasks.append(asyncio.ensure_future(pump(1)))
         await asyncio.gather(*tasks)
         out["frames"] = [_runs([f["type"] for f in fr]) for fr in frames]

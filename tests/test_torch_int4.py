@@ -785,7 +785,7 @@ def test_prepared_cache_round_trip_and_meta_mismatches(tmp_path):
     meta = cache_meta(cfg, torch.bfloat16, "int4", str(ckpt), group=32)
     assert meta["group"] == 32
     assert "group" not in cache_meta(cfg, torch.bfloat16, "int8", str(ckpt))
-    path = save_prepared(params, str(tmp_path), meta)
+    path = save_prepared(params, str(tmp_path), meta, block=True)
     assert path == cache_dir(str(tmp_path), meta)
     assert path.endswith(os.path.join(".prepared_torch",
                                       "test-tiny-bfloat16-int4-g32"))
@@ -796,7 +796,7 @@ def test_prepared_cache_round_trip_and_meta_mismatches(tmp_path):
     for k, t in want.items():
         assert got[k].dtype == t.dtype and torch.equal(got[k], t), k
     # A second write replaces the first in place.
-    assert save_prepared(params, str(tmp_path), meta) == path
+    assert save_prepared(params, str(tmp_path), meta, block=True) == path
     assert sorted(os.listdir(os.path.dirname(path))) == [
         os.path.basename(path)]
     # Another group, dtype or tier is another cache; a changed source

@@ -81,7 +81,12 @@ def _int8(shape, gen, device):
     # N not a multiple of the 128-column tile (16-aligned and not), K not
     # a multiple of 16 (and K < 16), K over many splits.
     (16, 512, 208), (16, 512, 200), (16, 24, 512), (3, 7, 40),
-    (16, 1000, 384), (64, 8192, 256)])
+    (16, 1000, 384), (64, 8192, 256),
+    # A tp = 2 rank's shards of the Llama-3.2-1B layer (TPU_TP_SIZE=2):
+    # column-parallel wq, wk/wv, w_gate/w_up at N/2, row-parallel wo and
+    # w_down at K/2.
+    (16, 2048, 1024), (16, 2048, 256), (16, 2048, 4096), (16, 1024, 2048),
+    (16, 4096, 2048), (8, 2048, 256), (8, 1024, 2048)])
 def test_int8_matmul_matches_plain(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m * k + n)
     q = _int8((k, n), g, cuda)
@@ -101,7 +106,9 @@ def test_int8_matmul_matches_plain(cuda, m, k, n):
     # a multiple of the 128-row tile (and odd); D not a multiple of 16 (and
     # D < 16) or of the 128-byte stage.
     (17, 1000, 256), (40, 300, 2048), (64, 129, 512), (70, 256, 128),
-    (16, 77, 8), (16, 1001, 200), (16, 500, 1040)])
+    (16, 77, 8), (16, 1001, 200), (16, 500, 1040),
+    # A tp = 2 rank's tied head: the table's D/2 columns (partial logits).
+    (16, 128256, 1024), (8, 128256, 1024), (1, 128256, 1024)])
 def test_int8_matmul_t_matches_plain(cuda, m, v, d):
     g = torch.Generator(device=cuda).manual_seed(m * v + d)
     q = _int8((v, d), g, cuda)
@@ -110,6 +117,36 @@ def test_int8_matmul_t_matches_plain(cuda, m, v, d):
     before = int8_matmul_t.launches
     _close(int8_matmul_t(x, q, s), int8_matmul_t_plain(x, q, s))
     assert int8_matmul_t.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,m,k,n", [
+    # A tp = 2 rank's row-parallel shards of Llama-3.2-1B: wo and w_down at
+    # K/2, the tied head over D/2 of the [128256, 2048] table; and shapes
+    # the unaligned path and split-K take.
+    ("mm", 16, 1024, 2048), ("mm", 16, 4096, 2048), ("mm", 8, 1024, 2048),
+    ("mm", 8, 4096, 2048), ("mm", 1, 4096, 2048), ("mm", 17, 1000, 384),
+    ("mm", 3, 7, 40), ("mm_t", 8, 128256, 1024), ("mm_t", 1, 128256, 1024),
+    ("mm_t", 3, 77, 40), ("mm_t", 16, 1001, 200)])
+def test_int8_matmuls_give_float32_partials(cuda, kind, m, k, n):
+    """``out_dtype=torch.float32`` stores the f32 value the bf16 output
+    rounds: rounding it gives the bf16 output bit for bit, and it matches
+    the plain version's f32 product."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    fn, plain = ((int8_matmul, int8_matmul_plain) if kind == "mm"
+                 else (int8_matmul_t, int8_matmul_t_plain))
+    # mm: q [K, N], s [N]; mm_t: q [V, D] = [k, n], s [V].
+    q = _int8((k, n), g, cuda)
+    s = torch.rand((n if kind == "mm" else k,), generator=g,
+                   device=cuda) * 0.02
+    x = torch.randn((m, k if kind == "mm" else n), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    before = fn.launches
+    y32 = fn(x, q, s, out_dtype=torch.float32)
+    assert y32.dtype == torch.float32 and fn.launches == before + 1
+    assert torch.equal(y32.to(torch.bfloat16), fn(x, q, s))
+    ref = plain(x, q, s, out_dtype=torch.float32)
+    assert (y32 - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 def _int4_case(m, k, n, group, gen, device):
@@ -190,7 +227,9 @@ def test_int4_matmul_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("t,nq,nkv,d", [(1, 32, 8, 64), (3, 8, 2, 32),
                                         (4, 32, 8, 64), (1, 16, 2, 128),
-                                        (2, 4, 4, 16), (8, 32, 8, 64)])
+                                        (2, 4, 4, 16), (8, 32, 8, 64),
+                                        # a tp = 2 rank's 4 of 8 KV heads
+                                        (1, 16, 4, 64), (8, 16, 4, 64)])
 def test_decode_attend_matches_plain(cuda, t, nq, nkv, d):
     g = torch.Generator(device=cuda).manual_seed(t * nq + d)
     b, s_full, s = 6, 1024, 512
@@ -490,6 +529,22 @@ def test_cpu_tensors_take_the_plain_version():
     assert counts == (int8_matmul.launches, int8_matmul_t.launches,
                       decode_attend.launches)
     assert decode_attend_paged.launches == 0
+
+
+def test_float32_partials_on_the_cpu():
+    """The plain versions' ``out_dtype=torch.float32`` is the unrounded
+    product that their default output rounds; any other dtype is
+    refused."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 64), generator=g).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (64, 32), generator=g, dtype=torch.int8)
+    s = torch.rand((32,), generator=g)
+    for fn, qq in ((int8_matmul, q), (int8_matmul_t, q.T.contiguous())):
+        y32 = fn(x, qq, s, out_dtype=torch.float32)
+        assert y32.dtype == torch.float32
+        assert torch.equal(y32.to(torch.bfloat16), fn(x, qq, s))
+        with pytest.raises(ValueError, match="out_dtype"):
+            fn(x, qq, s, out_dtype=torch.float16)
 
 
 def test_int4_matmul_on_the_cpu_is_its_plain_version():

@@ -530,16 +530,18 @@ def test_bad_slice_settings_fail_as_in_jax(monkeypatch, env, message):
     {"ROUTER_ENABLED": "true", "TPU_SPMD_ROLE": "leader"}])
 def test_router_and_spmd_settings_are_refused_by_name(monkeypatch, env):
     """The fleet settings are accepted or refused as the JAX Config does,
-    with its messages; multi-host SPMD (``TPU_SPMD_ROLE``) stays refused by
-    name, and beside ``ROUTER_ENABLED`` the port also gives JAX's router x
-    SPMD message."""
+    with its messages; multi-host SPMD (``TPU_SPMD_ROLE``) without the
+    process group's settings is refused by name with how to launch it, and
+    beside ``ROUTER_ENABLED`` the port also gives JAX's router x SPMD
+    message."""
     from fasttalk_tpu.utils.config import Config as JaxConfig
     from fasttalk_tpu_torch.utils.config import Config
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if "TPU_SPMD_ROLE" in env:
-        with pytest.raises(ValueError, match="not implemented yet") as err:
+        with pytest.raises(ValueError,
+                           match="one process per device") as err:
             Config()
         assert "TPU_SPMD_ROLE" in str(err.value)
         if "ROUTER_ENABLED" in env:
