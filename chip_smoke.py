@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive fasttalk_tpu_torch's serving path on one NVIDIA GPU and check it.
+"""Drive fasttalk_tpu_torch's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -128,7 +129,20 @@ no result line):
    through ring prefill, against the single-rank engine's greedy texts;
    (c) (a)'s follower killed mid-decode: one error frame per in-flight
    session, the cluster dead within two heartbeat intervals, the gateway
-   down.
+   down;
+16. training (``phase16``; none of the five kernels is on its path, as
+   JAX trains through XLA): (a) llama3.2:1b at full width and depth,
+   random bf16 weights from the seed, 8 ``make_train_step`` steps on one
+   fixed batch of 4 x 513 tokens: step 0's loss equal to ``eval_step``'s
+   within 1e-3, the loss falling, step ms, tokens a second and peak memory
+   logged; (b) the committed tinychat, 50 ``make_sampled_train_step``
+   steps on corpus rows at lr 1e-5, ``export_checkpoint``, ``build_engine``
+   on the export: its greedy reply to one prompt equal to
+   ``greedy_generate``'s on the trained params, token for token; (c) two
+   ranks on the card over gloo (``Cluster``): one tinychat float32 step at
+   tp = 2 and one at sp = 2 through ring attention, against one rank's
+   step: loss within 1e-5 relative, gradients within 1e-4 of each leaf's
+   largest magnitude, updated params within 1e-5.
 
 In phases 5-14 the kernels' launch counts are zeroed just before the
 sessions and read just after; every kernel of the served path must have
@@ -3565,7 +3579,8 @@ class Cluster:
     0, SIGUSR1 writes them to its file. ``close`` (and a failure) kills
     what is left."""
 
-    def __init__(self, label: str, env: dict, leader_role: str):
+    def __init__(self, label: str, env: dict, leader_role: str,
+                 follower_role: str = "follower"):
         import signal as _signal
 
         self.label, self._signal = label, _signal
@@ -3584,7 +3599,7 @@ class Cluster:
                     "ENABLE_PYDANTIC_AI": "false", "PROF_ENABLED": "false",
                     "FLIGHT_DIR": os.path.join(self.dir, "flight"), **env}
         self.procs = []
-        for rank, role in ((0, leader_role), (1, "follower")):
+        for rank, role in ((0, leader_role), (1, follower_role)):
             e = dict(self.env, TPU_PROCESS_ID=str(rank),
                      TPU_SPMD_ROLE="leader" if rank == 0 else "follower")
             logf = open(os.path.join(self.dir, f"rank{rank}.log"), "w")
@@ -3638,7 +3653,9 @@ class Cluster:
             self.signal(rank, self._signal.SIGUSR2)
         time.sleep(0.2)
 
-    def wait(self, rank: int, timeout: float) -> dict:
+    def wait(self, rank: int, timeout: float, load: bool = True) -> dict:
+        """Rank ``rank``'s exit (code 0 required) and, with ``load``, the
+        JSON it wrote."""
         p, _ = self.procs[rank]
         try:
             p.wait(timeout=timeout)
@@ -3648,6 +3665,8 @@ class Cluster:
         if p.returncode != 0:
             fail(f"phase 15 {self.label}: rank {rank} exited "
                  f"{p.returncode}:\n{self.tail(rank)}")
+        if not load:
+            return {}
         with open(os.path.join(self.dir, f"rank{rank}.json"),
                   encoding="utf-8") as f:
             return json.load(f)
@@ -3676,6 +3695,8 @@ def rank_main(role: str, out: str) -> int:
     its end."""
     import signal as _signal
 
+    if role == "train":
+        return train_rank_main(out)
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     from fasttalk_tpu_torch.ops.cuda_attention import decode_attend
@@ -4146,6 +4167,424 @@ def tinychat_single_texts(device: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 16: training
+
+# 16a: Llama-3.2-1B at full width and depth, random bf16 weights from the
+# seed, 8 steps on one fixed batch of 4 rows of 512 inputs.
+PHASE16_SEED = 16
+PHASE16_BATCH, PHASE16_SEQ, PHASE16_STEPS = 4, 512, 8
+PHASE16_LR = 3e-4
+# 16b: 50 sampled steps on the committed tinychat at a low rate.
+PHASE16_TINY_STEPS, PHASE16_TINY_LR, PHASE16_TINY_CONVS = 50, 1e-5, 2000
+PHASE16_PROMPT = "what color is the sky?"
+# 16c: one tinychat step (float32) at tp = 2 and at sp = 2 (forced ring)
+# against one rank, at the CPU tests' bounds (tests/test_torch_train.py).
+# Adam's first update is lr g / (|g| + eps): +-lr wherever |g| >> eps,
+# whatever the gradient's error, and anywhere in (-lr, lr) where |g| is
+# below the error of a sum taken in another order (1e-8 against 1e-2
+# gradients), which tinychat's 3.7M elements always hold some of (9.1e-6
+# apart at lr 1e-5 on the CPU). The params bound (1e-5) is thus about the
+# update itself and holds at 5e-6 for every element; what holds the step
+# are its own gradients, read off its Adam moments (mu = 0.1 g, nu =
+# 1e-3 g^2; 1e-4 of each leaf's largest magnitude), and each param's move
+# from its start on the elements whose |g| is above HELD_GRAD (1e3 eps,
+# where the update is within 1e-3 of +-lr): within UPDATE_TOL of the rate
+# (and the float32 spacing of the param it lands on), which a skipped or
+# sign-flipped update misses by the rate itself.
+PHASE16_RANK_LR = 5e-6
+LOSS_RTOL, GRAD_TOL, PARAM_ATOL = 1e-5, 1e-4, 1e-5
+UPDATE_TOL, HELD_GRAD = 1e-2, 1e-5
+
+
+def phase16a(card: str) -> dict:
+    """Full-width training: ``init_sharded_training`` and
+    ``make_train_step`` on Llama-3.2-1B; step 0's loss against
+    ``eval_step`` on the same batch (1e-3), the loss falling over the
+    steps; step ms (host clock around each synchronized step), tokens a
+    second and peak memory."""
+    from fasttalk_tpu_torch.models.configs import get_model_config
+    from fasttalk_tpu_torch.models.llama import init_params
+    from fasttalk_tpu_torch.parallel.train import (eval_step,
+                                                   init_sharded_training,
+                                                   make_train_step)
+    from fasttalk_tpu_torch.training.trainer import single_device_mesh
+
+    cfg = get_model_config("llama3.2:1b")
+    gen = torch.Generator(device="cuda").manual_seed(PHASE16_SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = single_device_mesh()
+    whole = init_params(cfg, gen, torch.bfloat16, "cuda")
+    params, state, opt = init_sharded_training(cfg, whole, mesh, PHASE16_LR)
+    del whole
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PHASE16_BATCH, PHASE16_SEQ + 1), generator=gen,
+                           device="cuda")
+    eval_loss = float(eval_step(cfg, mesh)(params, tokens))
+    step = make_train_step(cfg, opt, mesh)
+    losses, ms = [], []
+    for _ in range(PHASE16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    warm = sorted(ms[1:])
+    step_ms = warm[len(warm) // 2]
+    out = {"model": "llama3.2:1b", "dtype": "bfloat16",
+           "batch": [PHASE16_BATCH, PHASE16_SEQ + 1], "lr": PHASE16_LR,
+           "losses": losses, "eval_loss": eval_loss, "step_ms": ms,
+           "step_ms_median": step_ms,
+           "tokens_per_s": PHASE16_BATCH * PHASE16_SEQ / step_ms * 1e3,
+           "peak_gb": peak / 1e9, "peak_over_start_gb": (peak - base) / 1e9,
+           "card": card}
+    log(f"phase 16a (llama3.2:1b bf16 training, {PHASE16_BATCH} x "
+        f"{PHASE16_SEQ} tokens a step, lr {PHASE16_LR}): losses {losses}; "
+        f"eval_step before the steps {eval_loss}; step ms {ms} (median of "
+        f"steps 1-{PHASE16_STEPS - 1}: {step_ms:.6g} ms, "
+        f"{out['tokens_per_s']:.6g} tokens/s); peak memory "
+        f"{out['peak_gb']:.6g} GB ({out['peak_over_start_gb']:.6g} GB over "
+        f"the phase's start); card: {card}")
+    del params, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 16a: a loss is not finite: {losses}")
+    if abs(losses[0] - eval_loss) > 1e-3:
+        fail(f"phase 16a: step 0's loss {losses[0]} differs from eval_step "
+             f"{eval_loss} by more than 1e-3")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 16a: the loss did not fall over {PHASE16_STEPS} steps: "
+             f"{losses}")
+    return out
+
+
+def phase16b() -> dict:
+    """Tinychat: ``make_sampled_train_step`` for 50 steps (float32, low
+    rate) on the corpus, ``export_checkpoint`` to a temporary directory,
+    ``build_engine`` on it (bf16, float weights), one greedy prompt: the
+    engine's reply must be ``greedy_generate``'s on the trained params as
+    exported (bf16), token for token."""
+    import tempfile
+
+    from tokenizers import Tokenizer
+
+    from fasttalk_tpu_torch.engine.engine import GenerationParams
+    from fasttalk_tpu_torch.engine.factory import build_engine
+    from fasttalk_tpu_torch.models.configs import get_model_config
+    from fasttalk_tpu_torch.models.loader import load_params
+    from fasttalk_tpu_torch.parallel.train import init_sharded_training
+    from fasttalk_tpu_torch.training.corpus import (CHAT_TEMPLATE_JINJA,
+                                                    render)
+    from fasttalk_tpu_torch.training.export import export_checkpoint
+    from fasttalk_tpu_torch.training.tinychat import BATCH, build_data
+    from fasttalk_tpu_torch.training.trainer import (greedy_generate,
+                                                     make_eval_loss,
+                                                     make_sampled_train_step,
+                                                     single_device_mesh)
+    from fasttalk_tpu_torch.utils.config import Config
+
+    ckpt = os.path.join(ASSETS, "tinychat")
+    cfg = get_model_config("tinychat", ASSETS)
+    tok = Tokenizer.from_file(os.path.join(ckpt, "tokenizer.json"))
+    eot = tok.token_to_id("<|eot|>")
+    data = torch.as_tensor(build_data(tok, PHASE16_TINY_CONVS, 0),
+                           device="cuda").long()
+    held = torch.as_tensor(build_data(tok, 64, 1)[:BATCH],
+                           device="cuda").long()
+    mesh = single_device_mesh()
+    params, state, opt = init_sharded_training(
+        cfg, load_params(cfg, ckpt, torch.float32, "cuda"), mesh,
+        PHASE16_TINY_LR)
+    evl = make_eval_loss(cfg)
+    held_before = float(evl(params, held))
+    step = make_sampled_train_step(cfg, opt, mesh, BATCH)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(PHASE16_TINY_STEPS):
+        params, state, loss = step(params, state, data, i)
+        losses.append(float(loss))
+    train_s = time.perf_counter() - t0
+    held_after = float(evl(params, held))
+    ids = tok.encode(render([{"role": "user", "content": PHASE16_PROMPT}],
+                            add_generation_prompt=True),
+                     add_special_tokens=False).ids
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        out_dir = os.path.join(d, "tinychat")
+        export_checkpoint(params, cfg, out_dir,
+                          chat_template=CHAT_TEMPLATE_JINJA,
+                          eos_token="<|eot|>", bos_token="<|bos|>",
+                          tokenizer_json=os.path.join(ckpt, "tokenizer.json"))
+        exported = {k: v.to(torch.bfloat16) for k, v in params.items()
+                    if not isinstance(v, dict)}
+        exported["layers"] = {k: v.to(torch.bfloat16)
+                              for k, v in params["layers"].items()}
+        gen = greedy_generate(exported, cfg, ids, max_new=48, eos_id=eot)
+        back = load_params(get_model_config("tinychat", d), out_dir,
+                           torch.bfloat16, "cuda")
+        same = all(torch.equal(back["layers"][k], v)
+                   for k, v in exported["layers"].items()) \
+            and torch.equal(back["embed"], exported["embed"])
+        engine = build_engine(Config(
+            model_name="tinychat", model_path=d, weight_quant="off",
+            dtype="bfloat16", decode_slots=2, max_model_len=512,
+            default_context_window=512, spec_decode="off",
+            shared_prefix=False), device="cuda", prepared_cache=False)
+        engine.start()
+        try:
+            async def ask():
+                text, final = "", None
+                async for ev in engine.generate(
+                        "p16", "p16",
+                        [{"role": "user", "content": PHASE16_PROMPT}],
+                        GenerationParams(max_tokens=48, temperature=0.0,
+                                         top_k=0, top_p=1.0)):
+                    if ev["type"] == "token":
+                        text += ev["text"]
+                    else:
+                        final = ev
+                return text, final
+            text, final = asyncio.run(asyncio.wait_for(ask(), 120))
+        finally:
+            engine.shutdown()
+        del engine
+    want = tok.decode(gen, skip_special_tokens=True)
+    generated = len(gen) - (1 if gen and gen[-1] == eot else 0)
+    out = {"steps": PHASE16_TINY_STEPS, "lr": PHASE16_TINY_LR,
+           "rows": int(data.shape[0]), "first_losses": losses[:3],
+           "last_losses": losses[-3:], "train_s": train_s,
+           "held_out_before": held_before, "held_out_after": held_after,
+           "greedy": want, "greedy_tokens": len(gen), "served": text,
+           "served_final": final}
+    log(f"phase 16b (tinychat, {PHASE16_TINY_STEPS} sampled steps of "
+        f"{BATCH} x 257 on {data.shape[0]} rows at lr {PHASE16_TINY_LR} in "
+        f"{train_s:.6g} s): losses {losses[:3]} ... {losses[-3:]}, held-out "
+        f"{held_before:.6g} -> {held_after:.6g}; greedy_generate {want!r} "
+        f"({len(gen)} tokens); served after export {text!r} ({final})")
+    del params, state, opt, exported, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same:
+        fail("phase 16b: the exported checkpoint did not load back as the "
+             "trained params in bf16")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 16b: a loss is not finite: {losses}")
+    if final is None or final.get("type") != "done" or text != want \
+            or final["stats"]["tokens_generated"] != generated:
+        fail(f"phase 16b: the served reply {text!r} ({final}) is not "
+             f"greedy_generate's {want!r} ({generated} tokens)")
+    return out
+
+
+def phase16c_batch(device) -> torch.Tensor:
+    """Phase 16c's batch: the first 4 packed rows of 257 tokens of 64
+    corpus conversations."""
+    from tokenizers import Tokenizer
+
+    from fasttalk_tpu_torch.training.tinychat import build_data
+
+    tok = Tokenizer.from_file(os.path.join(ASSETS, "tinychat",
+                                           "tokenizer.json"))
+    return torch.as_tensor(build_data(tok, 64, 0)[:4], device=device).long()
+
+
+def train_step_parts(cfg, whole: dict, mesh, ring: bool,
+                     tokens: torch.Tensor) -> dict:
+    """One train step of ``whole`` cut to this rank's shards on ``mesh``
+    (``ring``: ring attention at any length), as host arrays keyed
+    ``<what>/<leaf path>``: the step's Adam moments (``mu``, ``nu``: its
+    own synced gradients), the updated shards (``param``) and their moves
+    from the start (``move``); and the loss."""
+    from fasttalk_tpu_torch.parallel.train import (init_sharded_training,
+                                                   make_train_step)
+
+    def flat(tree: dict):
+        for k, t in tree.items():
+            for name, leaf in (t.items() if isinstance(t, dict)
+                               else [(None, t)]):
+                yield (k if name is None else f"{k}/{name}"), leaf
+
+    params, state, opt = init_sharded_training(cfg, whole, mesh,
+                                               PHASE16_RANK_LR)
+    before = {k: t.clone() for k, t in flat(params)}
+    step = make_train_step(cfg, opt, mesh, ring_min_seq=0 if ring else 4096)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, tokens)
+    out = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3}
+    for what, tree in (("param", params), ("mu", state["mu"]),
+                       ("nu", state["nu"])):
+        for key, t in flat(tree):
+            out[f"{what}/{key}"] = t.cpu().numpy()
+    for key, t in flat(params):
+        out[f"move/{key}"] = (t - before[key]).cpu().numpy()
+    return out
+
+
+def train_rank_main(out: str) -> int:
+    """One rank of phase 16c (``chip_smoke.py --rank train OUT``): tinychat
+    in float32 on this rank's card, one train step at tp = 2, then one at
+    sp = 2 through ring attention (``train_step_parts``); writes what each
+    gave beside ``OUT``, as ``.npz`` in place of ``.json``."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fasttalk_tpu_torch.models.configs import get_model_config
+    from fasttalk_tpu_torch.models.loader import load_params
+    from fasttalk_tpu_torch.parallel import collectives
+    from fasttalk_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                         rank_device,
+                                                         shutdown)
+    from fasttalk_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    maybe_initialize()
+    dev = rank_device()
+    cfg = get_model_config("tinychat", ASSETS)
+    whole = load_params(cfg, os.path.join(ASSETS, "tinychat"),
+                        torch.float32, dev)
+    tokens = phase16c_batch(dev)
+    res: dict = {}
+    for label, spec, ring in (("tp2", MeshSpec(tp=2), False),
+                              ("sp2", MeshSpec(sp=2), True)):
+        parts = train_step_parts(cfg, whole, make_mesh(spec), ring, tokens)
+        res.update({f"{label}/{k}": np.asarray(v) for k, v in parts.items()})
+    res["staged_bytes"] = np.array(collectives.stats()["staged_bytes"])
+    shutdown()
+    np.savez(out.replace(".json", ".npz"), **res)
+    return 0
+
+
+def phase16c() -> dict:
+    """Two ranks on the one card (gloo), each a process of its own: one
+    tinychat train step at tp = 2 and one at sp = 2 through ring attention,
+    held to the single-rank step on the same corpus batch: the loss within
+    1e-5 relative, every shard of the step's Adam moments within 1e-4 of
+    its leaf's largest magnitude, every updated shard within 1e-5, and
+    every move of a param whose |g| is above ``HELD_GRAD`` within
+    ``UPDATE_TOL`` of the rate (plus the param's float32 spacing)."""
+    import numpy as np
+
+    from fasttalk_tpu_torch.models.configs import get_model_config
+    from fasttalk_tpu_torch.models.loader import load_params
+    from fasttalk_tpu_torch.parallel.mesh import Mesh, MeshSpec
+    from fasttalk_tpu_torch.parallel.sharding import shard_params
+    from fasttalk_tpu_torch.training.trainer import single_device_mesh
+
+    t16c = time.monotonic()
+    cluster = Cluster("phase16c", {}, "train", follower_role="train")
+    try:
+        cfg = get_model_config("tinychat", ASSETS)
+        whole = load_params(cfg, os.path.join(ASSETS, "tinychat"),
+                            torch.float32, "cuda")
+        single = train_step_parts(cfg, whole, single_device_mesh(), False,
+                                  phase16c_batch("cuda"))
+        ranks = []
+        for rank in range(2):
+            cluster.wait(rank, 300, load=False)
+            ranks.append(dict(np.load(os.path.join(cluster.dir,
+                                                   f"rank{rank}.npz"))))
+    finally:
+        cluster.close()
+
+    def tree(prefix: str, flat: dict) -> dict:
+        nested: dict = {}
+        for key, v in flat.items():
+            if key.startswith(prefix):
+                *parents, leaf = key[len(prefix):].split("/")
+                node = nested
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = torch.from_numpy(np.asarray(v))
+        return nested
+
+    out = {"single_loss": single["loss"], "single_ms": single["ms"],
+           "seconds": time.monotonic() - t16c}
+    def leaves(nested: dict):
+        for k, v in nested.items():
+            yield from ([(k, v)] if not isinstance(v, dict) else
+                        ((f"{k}/{n}", t) for n, t in v.items()))
+
+    for label, spec in (("tp2", MeshSpec(tp=2)), ("sp2", MeshSpec(sp=2))):
+        # mu and nu: of each leaf's largest magnitude; param: absolute;
+        # move: of UPDATE_TOL x lr plus the param's spacing (at most 1).
+        gaps = {"mu": 0.0, "nu": 0.0, "param": 0.0, "move": 0.0}
+        held = total = 0
+        losses = []
+        for rank in range(2):
+            got = {k[len(label) + 1:]: v for k, v in ranks[rank].items()
+                   if k.startswith(label + "/")}
+            losses.append(float(got["loss"]))
+            cut = {what: dict(leaves(shard_params(tree(f"{what}/", single),
+                                                  Mesh(spec, rank))))
+                   for what in gaps}
+            for what in ("mu", "nu", "param"):
+                full = dict(leaves(tree(f"{what}/", single)))
+                mine = dict(leaves(tree(f"{what}/", got)))
+                for key, w in cut[what].items():
+                    scale = 1.0 if what == "param" \
+                        else float(full[key].abs().max())
+                    gaps[what] = max(gaps[what], float(
+                        (mine[key] - w).abs().max()) / scale)
+            mine = dict(leaves(tree("move/", got)))
+            for key, w in cut["move"].items():
+                # One step: sqrt(nu_hat) = |g|, nu_hat = nu / (1 - b2).
+                mask = (cut["nu"][key] / (1 - np.float32(0.999))).sqrt() \
+                    > HELD_GRAD
+                tol = UPDATE_TOL * PHASE16_RANK_LR + torch.from_numpy(
+                    np.spacing(cut["param"][key].abs().numpy()))
+                ratio = ((mine[key] - w).abs() / tol)[mask]
+                if ratio.numel():
+                    gaps["move"] = max(gaps["move"], float(ratio.max()))
+                held += int(mask.sum())
+                total += mask.numel()
+        out[label] = {"losses": losses, "mu_gap_of_max": gaps["mu"],
+                      "nu_gap_of_max": gaps["nu"],
+                      "param_max_abs_diff": gaps["param"],
+                      "move_gap_of_tol": gaps["move"],
+                      "moves_held": [held, total],
+                      "rank_ms": [float(r[f"{label}/ms"]) for r in ranks]}
+        log(f"phase 16c ({label}, two ranks on one card over gloo): losses "
+            f"{losses} against one rank's {single['loss']}; Adam moments "
+            f"mu / nu within {gaps['mu']:.6g} / {gaps['nu']:.6g} of each "
+            f"leaf's largest magnitude; updated params within "
+            f"{gaps['param']:.6g}; moves of {held} of {total} elements "
+            f"(|g| > {HELD_GRAD}) within {gaps['move']:.6g} of their "
+            f"tolerance ({UPDATE_TOL} x lr {PHASE16_RANK_LR} + spacing); "
+            f"rank step ms {out[label]['rank_ms']} (one rank: "
+            f"{single['ms']:.6g})")
+        if any(abs(x - single["loss"]) > LOSS_RTOL * abs(single["loss"])
+               for x in losses):
+            fail(f"phase 16c ({label}): losses {losses} against one rank's "
+                 f"{single['loss']}")
+        if max(gaps["mu"], gaps["nu"]) > GRAD_TOL \
+                or gaps["param"] > PARAM_ATOL or gaps["move"] > 1.0 \
+                or held < total // 2:
+            fail(f"phase 16c ({label}): moments {gaps['mu']} / "
+                 f"{gaps['nu']} of the leaves' largest magnitude, params "
+                 f"{gaps['param']} from one rank's, moves {gaps['move']} "
+                 f"of their tolerance on {held} of {total} elements")
+    out["staged_bytes"] = [int(r["staged_bytes"]) for r in ranks]
+    log(f"phase 16c: {out['seconds']:.6g} s")
+    return out
+
+
+def phase16(card: str) -> dict:
+    """Phase 16: training on the card (16a full width, 16b tinychat with
+    the export and a served reply, 16c two ranks). The training path runs
+    none of the five kernels (JAX trains through XLA); 16b's engine serves
+    its reply through ``decode_attend``."""
+    t16 = time.monotonic()
+    out = {"a": phase16a(card), "b": phase16b(), "c": phase16c()}
+    out["seconds"] = time.monotonic() - t16
+    log(f"phase 16 ran {out['seconds']:.6g} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4445,6 +4884,7 @@ def main() -> int:
     p14 = phase14(counters, served)
     check_shard_kernels(results)
     p15 = phase15(counters, served, tinychat_single_texts())
+    p16 = phase16(card)
 
     launches_st = {"int8_matmul": st10["launches"]["int8_matmul"],
                    "int8_matmul_t": st10["launches"]["int8_matmul_t"],
@@ -4564,7 +5004,8 @@ def main() -> int:
                      if not k.endswith("_launches")
                      and not k.startswith("c_control")}, "card": card},
         "multi_rank": {**{k: v for k, v in p15.items()
-                          if k != "memory_start"}, "card": card}})
+                          if k != "memory_start"}, "card": card},
+        "training": {**p16, "card": card}})
     # The line runs past the tail a remote runner keeps: a copy to a file.
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w",

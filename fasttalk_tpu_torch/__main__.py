@@ -23,6 +23,12 @@ cache (``<MODEL_PATH>/.prepared_torch/``) with ``quantize_manifest.json``
 beside it; a server started afterwards with WEIGHT_QUANT=int4 and the same
 group and dtype restores it. The counterpart of
 ``scripts/quantize_checkpoint.py``.
+
+``python -m fasttalk_tpu_torch train [--steps 6000] [--convs 40000] [--out
+build/tinychat] [--seed 0] [--force-export] [--device cuda|cpu]`` trains
+the tinychat model on the synthetic chat corpus and exports it as an HF
+checkpoint when its recall probe passes (training/tinychat.py, the
+counterpart of ``scripts/train_tiny_chat.py``).
 """
 
 from __future__ import annotations
@@ -130,9 +136,16 @@ def main(argv: list[str] | None = None) -> int:
     qz.add_argument("--seed", type=int, default=0)
     qz.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
+    tr = sub.add_parser("train", help="train the tinychat model and "
+                        "export it as an HF checkpoint")
+    from fasttalk_tpu_torch.training import tinychat
+
+    tinychat.add_arguments(tr)
     args = parser.parse_args(argv)
     if args.command == "quantize":
         return quantize(args)
+    if args.command == "train":
+        return tinychat.train(args)
 
     from fasttalk_tpu_torch.serving.launcher import (ServerLauncher,
                                                      run_spmd_follower)

@@ -40,12 +40,19 @@ cache is this rank's sequence shard: a row is written only by the rank
 that holds its position, and attention folds the shard and combines the
 softmax statistics over "sp" (parallel/ring_attention.py).
 ``forward_ring`` is the ring prefill of a fresh prompt.
+
+Training differentiates ``forward`` without a cache (parallel/train.py).
+The collectives carry their backwards (parallel/collectives.py): the
+replicated input of every column-parallel product (wq/wk/wv, w_gate/w_up,
+the head) sums its gradient over "tp", the row-parallel sums pass theirs
+through, the embedding's gather hands each rank its slice. Without grad
+these are the serving path's own calls.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -230,9 +237,15 @@ def _embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
     return collectives.all_gather(x, mesh, "tp", dim=-1) if _tp(mesh) else x
 
 
+def _column_input(h: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The replicated input of the column-parallel products: on a "tp"
+    mesh its gradient sums every rank's (identity without grad)."""
+    return collectives.replicated_input(h, mesh, "tp") if _tp(mesh) else h
+
+
 def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig,
          decode: bool = False, mesh: Mesh | None = None) -> torch.Tensor:
-    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    h = _column_input(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), mesh)
     gate = torch.nn.functional.silu(
         qmm(h, lp["w_gate"], decode).to(torch.float32))
     up = qmm(h, lp["w_up"], decode).to(torch.float32)
@@ -241,9 +254,10 @@ def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig,
 
 
 def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
-         inv_freq: torch.Tensor,
-         decode: bool = False) -> tuple[torch.Tensor, ...]:
+         inv_freq: torch.Tensor, decode: bool = False,
+         mesh: Mesh | None = None) -> tuple[torch.Tensor, ...]:
     b, t = h.shape[:2]
+    h = _column_input(h, mesh)
     q, k, v = (qmm(h, lp["wq"], decode), qmm(h, lp["wk"], decode),
                qmm(h, lp["wv"], decode))
     if cfg.qkv_bias:
@@ -258,7 +272,7 @@ def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig, positions: torch.Tensor,
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor,
           decode: bool = False, mesh: Mesh | None = None) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = _column_input(rms_norm(x, params["final_norm"], cfg.rms_eps), mesh)
     if cfg.tie_embeddings:
         if _tp(mesh):
             # The table is sharded on D: this rank's columns of x against
@@ -276,12 +290,13 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: torch.Tensor, cache: KVCache,
-            write_start: torch.Tensor, *, blockwise: bool = False,
+            positions: torch.Tensor, cache: KVCache | None,
+            write_start: torch.Tensor | None, *, blockwise: bool = False,
             write_mask: torch.Tensor | None = None,
             logits_indices: torch.Tensor | None = None,
             mesh: Mesh | None = None,
-            ) -> tuple[torch.Tensor, KVCache]:
+            attn_override: Callable | None = None,
+            ) -> tuple[torch.Tensor, KVCache | None]:
     """Run the transformer over ``tokens`` [B, T], updating the dense
     ``cache`` in place (the caller may pass views of a larger cache, or a
     gathered copy of paged rows). On the int8 tier the fresh rows quantize
@@ -295,6 +310,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     position per row (logits [B, 1, V]) — prefill only needs the last.
     ``mesh``: the params and cache are this rank's "tp" shards (the cache
     holds whole sequences: an "sp" caller gathers them first).
+
+    ``cache=None`` (training, ``greedy_generate``): attention reads the
+    block's own K/V and nothing is written. ``attn_override`` (JAX
+    ``attn_override``): ``fn(q, k, v, positions) -> o`` over the block's
+    fresh q/k/v replaces the attention, and the cache is neither written
+    nor read (the gathered and ring attention of parallel/train.py over an
+    "sp"-sharded sequence). A gradient survives only these routes: each
+    layer's cache write bumps the version of the one buffer every layer's
+    view shares, which invalidates what earlier layers saved for backward.
     Returns (float32 logits [B, T, V], cache).
     """
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
@@ -302,26 +326,32 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     dtype = params["final_norm"].dtype
     x = _embed(params, tokens, dtype, mesh)
     b, t = tokens.shape
-    cols = write_start[:, None] + torch.arange(t, device=tokens.device)[None]
     attn_fn = attend_blockwise if blockwise else attend
-    kvq = cache.quantized
+    fresh = cache is None or attn_override is not None
+    if not fresh:
+        cols = write_start[:, None] \
+            + torch.arange(t, device=tokens.device)[None]
+    kvq = not fresh and cache.quantized
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, positions, inv_freq)
-        if kvq:
-            g = cache.k_scale.shape[-1]
-            (k, sk), (v, sv) = kv_quantize(k, g), kv_quantize(v, g)
-            _write_rows(cache.k_scale[i], sk, cols, write_mask)
-            _write_rows(cache.v_scale[i], sv, cols, write_mask)
-        _write_rows(cache.k[i], k, cols, write_mask)
-        _write_rows(cache.v[i], v, cols, write_mask)
-        if kvq:
-            ak = kv_dequantize(cache.k[i], cache.k_scale[i], x.dtype)
-            av = kv_dequantize(cache.v[i], cache.v_scale[i], x.dtype)
+        q, k, v = _qkv(h, lp, cfg, positions, inv_freq, mesh=mesh)
+        if fresh:
+            o = (attn_override or attn_fn)(q, k, v, positions)
         else:
-            ak, av = cache.k[i], cache.v[i]
-        o = attn_fn(q, ak, av, positions)
+            if kvq:
+                g = cache.k_scale.shape[-1]
+                (k, sk), (v, sv) = kv_quantize(k, g), kv_quantize(v, g)
+                _write_rows(cache.k_scale[i], sk, cols, write_mask)
+                _write_rows(cache.v_scale[i], sv, cols, write_mask)
+            _write_rows(cache.k[i], k, cols, write_mask)
+            _write_rows(cache.v[i], v, cols, write_mask)
+            if kvq:
+                ak = kv_dequantize(cache.k[i], cache.k_scale[i], x.dtype)
+                av = kv_dequantize(cache.v[i], cache.v_scale[i], x.dtype)
+            else:
+                ak, av = cache.k[i], cache.v[i]
+            o = attn_fn(q, ak, av, positions)
         x = x + _row_parallel(o.reshape(b, t, -1), lp["wo"], mesh)
         x = _mlp(x, lp, cfg, mesh=mesh)
     if logits_indices is not None:
@@ -397,7 +427,8 @@ def forward_decode_multi(params: Params, cfg: ModelConfig,
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, pos_mat, inv_freq, decode=True)
+        q, k, v = _qkv(h, lp, cfg, pos_mat, inv_freq, decode=True,
+                       mesh=mesh)
         sk = sv = None
         if kvq:
             g = cache.k_scale.shape[-1]
@@ -496,7 +527,7 @@ def forward_ring(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     cache.v.dtype)
 
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, positions, inv_freq)
+        q, k, v = _qkv(h, lp, cfg, positions, inv_freq, mesh=mesh)
         o = ring_attention_sharded(q, k.contiguous(), v.contiguous(),
                                    positions, mesh, on_block=write)
         x = x + _row_parallel(o.reshape(1, chunk, -1), lp["wo"], mesh)

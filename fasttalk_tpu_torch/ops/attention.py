@@ -61,9 +61,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("btkgd,bskd->btkgs", qg,
                           k.to(torch.float32)) * scale
     key_pos = torch.arange(k.shape[1], device=k.device)
-    mask = key_pos[None, None, :] <= q_positions[:, :, None]  # [B,T,S]
-    scores = torch.where(mask[:, :, None, None, :], scores,
-                         torch.full_like(scores, _NEG_INF))
+    hidden = key_pos[None, None, :] > q_positions[:, :, None]  # [B,T,S]
+    scores = scores.masked_fill(hidden[:, :, None, None, :], _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("btkgs,bskd->btkgd", probs.to(v.dtype), v)
     b, t = q.shape[:2]
@@ -87,7 +86,9 @@ def online_softmax_fold(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = key_pos[None, None, :] <= q_positions[:, :, None]
     scores = torch.where(mask[:, :, None, None, :], scores,
                          torch.full_like(scores, _NEG_INF))
-    m_new = torch.maximum(m, scores.amax(dim=-1))
+    # The running max only keeps the exponentials in range: the result
+    # does not depend on it, so it carries no gradient.
+    m_new = torch.maximum(m, scores.detach().amax(dim=-1))
     correction = torch.exp(m - m_new)
     p = torch.exp(scores - m_new[..., None])
     l_new = l * correction + p.sum(dim=-1)

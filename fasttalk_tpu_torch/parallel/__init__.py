@@ -1,5 +1,6 @@
-"""Multi-rank serving over ``torch.distributed``: meshes, sharding rules,
-collectives, ring attention and the SPMD leader/follower protocol.
+"""Multi-rank serving and training over ``torch.distributed``: meshes,
+sharding rules, collectives, ring attention, the SPMD leader/follower
+protocol and the sharded train step.
 
 Counterpart of ``fasttalk_tpu/parallel/``. The JAX package lays a mesh
 over devices and lets GSPMD emit the collectives; the port runs one rank
@@ -13,11 +14,13 @@ collectives itself:
 - ``sharding``       — the partition rules and the local shards of the
                        params and the KV cache;
 - ``collectives``    — the sums, gathers and ring hops, staged through
-                       pinned host memory on gloo;
+                       pinned host memory on gloo, each with the backward
+                       training differentiates it by;
 - ``ring_attention`` — ring prefill and the sharded decode attention
                        over "sp";
 - ``spmd_serving``   — the leader's call broadcaster and the follower's
-                       replay loop.
+                       replay loop;
+- ``train``          — the causal-LM loss and the sharded AdamW train step.
 """
 
 from fasttalk_tpu_torch.parallel.mesh import (AXES, Mesh, MeshSpec,

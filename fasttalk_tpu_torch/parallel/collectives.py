@@ -17,6 +17,25 @@ adds them from rank 0 up, so the result is the same on every rank and from
 run to run (a greedy stream on a mesh must not depend on which reduction
 algorithm the backend picked).
 
+Training differentiates through them (parallel/train.py), where GSPMD
+derives each backward for the JAX package. Each function is a
+``torch.autograd.Function`` whose forward is the plain collective, so
+serving's calls under ``no_grad`` compute the same bits and record
+nothing. The backwards follow how the training forward consumes each
+output (Megatron's *f* and *g*):
+
+- ``all_reduce_sum`` (the row-parallel sum, consumed replicated):
+  identity;
+- ``replicated_input`` (identity forward: the replicated input of a
+  column-parallel product, each rank reading it for its own shard): the
+  sum of the input gradients over the axis;
+- ``all_gather`` consumed replicated (the embedding over "tp", the untied
+  head's logits): this rank's slice of the gradient; consumed differently
+  by each rank (``varied``: the K/V of the gathered "sp" attention, each
+  rank with its own queries): a reduce-scatter, this rank's slice of the
+  gradients' sum over the axis;
+- ``ring_shift``: the reverse hop.
+
 Gloo moves host tensors only. When a group's backend is gloo, a CUDA
 tensor goes through a pinned host buffer and back; this is the one place
 that happens, and ``stats()`` counts the staged bytes. NCCL takes the
@@ -77,10 +96,8 @@ def _to_wire(group, t: torch.Tensor) -> tuple[torch.Tensor, int]:
     return host, t.numel() * t.element_size()
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
-               dim: int = 0) -> torch.Tensor:
-    """``x`` of every rank along ``axis``, concatenated on ``dim`` in axis
-    order (every rank's ``x`` has the same shape)."""
+def _all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
+                dim: int = 0) -> torch.Tensor:
     import torch.distributed as dist
 
     n = mesh.shape[axis]
@@ -100,13 +117,11 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
 
 def _gather_parts(x: torch.Tensor, mesh: Mesh, axis: str) -> list:
     n = mesh.shape[axis]
-    stacked = all_gather(x[None], mesh, axis, dim=0)
+    stacked = _all_gather(x[None], mesh, axis, dim=0)
     return [stacked[i] for i in range(n)]
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The sum over ``axis`` of every rank's ``x``, added in rank order
-    (the same bits on every rank)."""
+def _all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return x
     parts = _gather_parts(x, mesh, axis)
@@ -114,6 +129,76 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + p
     return acc
+
+
+def _own_slice(g: torch.Tensor, mesh: Mesh, axis: str,
+               dim: int) -> torch.Tensor:
+    w = g.shape[dim] // mesh.shape[axis]
+    return g.narrow(dim, mesh.coords[axis] * w, w).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, varied):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.varied = mesh, axis, dim, varied
+        return _all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.varied:
+            g = _all_reduce_sum(g.contiguous(), ctx.mesh, ctx.axis)
+        return (_own_slice(g, ctx.mesh, ctx.axis, ctx.dim),
+                None, None, None, None)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce_sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0,
+               varied: bool = False) -> torch.Tensor:
+    """``x`` of every rank along ``axis``, concatenated on ``dim`` in axis
+    order (every rank's ``x`` has the same shape). Its gradient is this
+    rank's slice of the output's; with ``varied`` (each rank consumes the
+    output its own way) the slice of the gradients' sum over ``axis``."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllGather.apply(x, mesh, axis, dim, varied)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``x``, added in rank order
+    (the same bits on every rank). The output is consumed replicated: its
+    gradient passes through unchanged."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllReduceSum.apply(x, mesh, axis)
+
+
+def replicated_input(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` itself, entering a product sharded over ``axis``: its gradient
+    is the sum over ``axis`` of every rank's (each rank's shard contributes
+    its own part)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _ReplicatedInput.apply(x, mesh, axis)
 
 
 def all_reduce_max(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -127,21 +212,15 @@ def all_reduce_max(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return acc
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh,
-               axis: str = "sp") -> list[torch.Tensor]:
-    """One hop of the ring: each rank sends ``tensors`` to the next rank
-    along ``axis`` and returns the ones of the previous rank (JAX's
-    ``ppermute`` with ``perm = [(i, (i + 1) % n)]``), through
-    ``batch_isend_irecv``."""
+def _ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+                hop: int) -> list[torch.Tensor]:
     import torch.distributed as dist
 
     n = mesh.shape[axis]
-    if n == 1:
-        return list(tensors)
     group = _group(mesh, axis)
     ranks = mesh.axis_ranks(axis)
     i = mesh.coords[axis]
-    nxt, prv = ranks[(i + 1) % n], ranks[(i - 1) % n]
+    nxt, prv = ranks[(i + hop) % n], ranks[(i - hop) % n]
     wires, ops, outs, staged = [], [], [], 0
     for t in tensors:
         wire, s = _to_wire(group, t)
@@ -161,3 +240,37 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh,
         out.append(recv)
     _count(staged)
     return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *tensors):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.floats = [i for i, t in enumerate(tensors)
+                      if t.is_floating_point()]
+        out = _ring_shift(tensors, mesh, axis, 1)
+        ctx.mark_non_differentiable(*(o for i, o in enumerate(out)
+                                      if i not in ctx.floats))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # The gradient of what this rank received goes back to its sender.
+        back = _ring_shift([grads[i].contiguous() for i in ctx.floats],
+                           ctx.mesh, ctx.axis, -1)
+        out: list = [None] * len(grads)
+        for i, g in zip(ctx.floats, back):
+            out[i] = g
+        return (None, None, *out)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh,
+               axis: str = "sp") -> list[torch.Tensor]:
+    """One hop of the ring: each rank sends ``tensors`` to the next rank
+    along ``axis`` and returns the ones of the previous rank (JAX's
+    ``ppermute`` with ``perm = [(i, (i + 1) % n)]``), through
+    ``batch_isend_irecv``. The gradients of the floating-point tensors hop
+    back to the previous rank."""
+    if mesh.shape[axis] == 1:
+        return list(tensors)
+    return list(_RingShift.apply(mesh, axis, *tensors))

@@ -19,7 +19,10 @@ Scenarios:
   4-rank world (tests/test_torch_parallel.py);
 - ``serve``: the SPMD leader over the port's engine or its launcher; a
   follower is ``python -m fasttalk_tpu_torch websocket`` with
-  ``TPU_SPMD_ROLE=follower`` (tests/test_torch_spmd.py).
+  ``TPU_SPMD_ROLE=follower`` (tests/test_torch_spmd.py);
+- ``train``: sharded train steps over several meshes of the 4-rank world
+  in turn, and a tp = 2 forward with and without grad
+  (tests/test_torch_train.py).
 """
 
 from __future__ import annotations
@@ -390,6 +393,88 @@ def _serve(outdir: str) -> None:
         json.dump(result, f)
 
 
+# The train scenario's cases: (name, mesh (dp, sp, tp), params, ring).
+TRAIN_CASES = (("dp2tp2", (2, 1, 2), "tied", False),
+               ("tp4", (1, 1, 4), "untied", False),
+               ("sp2", (1, 2, 1), "tied", False),
+               ("sp2_ring", (1, 2, 1), "tied", True),
+               ("dp2sp2", (2, 2, 1), "untied", False))
+TRAIN_LR = 1e-5
+TRAIN_STEPS = 1
+
+
+def _train(outdir: str) -> None:
+    """Each case of ``TRAIN_CASES`` in turn on its mesh (ranks outside it
+    wait): from the JAX init of ``inputs.npz``, the synced gradient of the
+    first batch (this rank's shards), then ``TRAIN_STEPS`` steps of
+    ``make_train_step`` (lr ``TRAIN_LR``; ``ring_min_seq=0`` for a ring
+    case): the losses, the eval loss before the steps, and the params and
+    the Adam moments (``mu``, ``nu``: the steps' own gradients) after.
+    Then test-tiny's tp = 2 forward under ``no_grad`` and with grad on."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fasttalk_tpu_torch.models import llama
+    from fasttalk_tpu_torch.models.configs import ModelConfig
+    from fasttalk_tpu_torch.parallel.mesh import MeshSpec
+    from fasttalk_tpu_torch.parallel.sharding import shard_params
+    from fasttalk_tpu_torch.parallel.train import (_ring_or_none,
+                                                   causal_lm_loss, eval_step,
+                                                   init_sharded_training,
+                                                   make_train_step,
+                                                   sum_batch_grads,
+                                                   value_and_grad)
+
+    rank = dist.get_rank()
+    inp = dict(np.load(os.path.join(outdir, "inputs.npz")))
+    with open(os.path.join(outdir, "configs.json"), encoding="utf-8") as f:
+        cfgs = {k: ModelConfig(**v) for k, v in json.load(f).items()}
+    tokens = torch.from_numpy(inp["tokens"]).long()
+    out: dict[str, np.ndarray] = {}
+    for name, (dp, sp, tp), kind, ring in TRAIN_CASES:
+        mesh = _mesh_or_none(MeshSpec(dp=dp, sp=sp, tp=tp))
+        if mesh is None:
+            continue
+        cfg = cfgs[kind]
+        params, state, opt = init_sharded_training(
+            cfg, _unflatten(inp, f"{kind}/"), mesh, TRAIN_LR)
+        min_seq = 0 if ring else 4096
+        override = _ring_or_none(mesh, min_seq, tokens.shape[1] - 1)
+        _, grads = value_and_grad(
+            lambda p: causal_lm_loss(p, cfg, tokens, None, override,
+                                     mesh=mesh), params)
+        for path, g in sum_batch_grads(grads, mesh).items():
+            out[f"{name}/grad/{'/'.join(path)}"] = g.numpy()
+        out[f"{name}/eval"] = eval_step(cfg, mesh, min_seq)(
+            params, tokens).numpy()
+        step = make_train_step(cfg, opt, mesh, ring_min_seq=min_seq)
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            params, state, loss = step(params, state, tokens)
+            losses.append(float(loss))
+        out[f"{name}/loss"] = np.array(losses)
+        for what, tree in (("param", params), ("mu", state["mu"]),
+                           ("nu", state["nu"])):
+            for key, t in _flat_items(tree):
+                out[f"{name}/{what}/{key}"] = t.numpy()
+    mesh = _mesh_or_none(MeshSpec(tp=2))
+    if mesh is not None:
+        cfg = cfgs["tied"]
+        params = shard_params(_unflatten(inp, "tied/"), mesh)
+        b, t = tokens.shape
+        pos = torch.arange(t)[None].expand(b, t)
+        with torch.no_grad():
+            out["tp2/nograd"] = llama.forward(
+                params, cfg, tokens, pos, None, None, mesh=mesh)[0].numpy()
+        live = {k: v.requires_grad_() for k, v in _flat_items(params)}
+        logits = llama.forward(_nest(live), cfg, tokens, pos, None, None,
+                               mesh=mesh)[0]
+        assert logits.requires_grad
+        out["tp2/grad"] = logits.detach().numpy()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+
+
 def main() -> int:
     import torch
 
@@ -400,7 +485,7 @@ def main() -> int:
 
     maybe_initialize()
     try:
-        {"model": _model, "serve": _serve}[scenario](outdir)
+        {"model": _model, "serve": _serve, "train": _train}[scenario](outdir)
     finally:
         shutdown()
     bad = [m for m in sys.modules

@@ -408,7 +408,10 @@ def test_port_sources_import_no_jax_and_no_jax_package():
             "observability/fleetflight.py", "parallel/__init__.py",
             "parallel/mesh.py", "parallel/distributed.py",
             "parallel/collectives.py", "parallel/sharding.py",
-            "parallel/ring_attention.py", "parallel/spmd_serving.py"} \
+            "parallel/ring_attention.py", "parallel/spmd_serving.py",
+            "parallel/train.py", "training/__init__.py",
+            "training/trainer.py", "training/export.py",
+            "training/optim.py", "training/tinychat.py"} \
         <= scanned
     for path in files:
         for name in _imported_names(path):
@@ -440,6 +443,9 @@ def test_importing_the_port_loads_no_jax_module():
         "import fasttalk_tpu_torch.parallel.spmd_serving\n"
         "import fasttalk_tpu_torch.parallel.ring_attention\n"
         "import fasttalk_tpu_torch.parallel.distributed\n"
+        "import fasttalk_tpu_torch.parallel.train\n"
+        "import fasttalk_tpu_torch.training\n"
+        "import fasttalk_tpu_torch.training.tinychat\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -510,6 +510,21 @@ async def _fleet_surface(launcher, entry_bytes: bytes) -> dict:
     return out
 
 
+def _forget_router_families(registry) -> None:
+    """Drop the ``router_*`` registrations that earlier tests of this
+    process left in a package's process-wide registry: its reset zeroes
+    every metric but keeps it registered, so an ``ElasticScaler`` built
+    by another test file on the same worker (tests/test_disagg.py,
+    tests/test_fleet_fabric.py) leaves ``router_scale_*`` behind in one
+    package's ``/fleet/metrics`` and not the other's. Router metrics
+    belong to router and scaler instances (none is cached by a module),
+    so each launcher built here registers its own afresh."""
+    with registry._lock:
+        for name in [n for n in registry._metrics
+                     if n.startswith("router_")]:
+            del registry._metrics[name]
+
+
 def test_fleet_launchers_serve_the_same_surface_as_jax(monkeypatch,
                                                        tmp_path):
     from fasttalk_tpu.serving.launcher import ServerLauncher as JaxLauncher
@@ -533,10 +548,15 @@ def test_fleet_launchers_serve_the_same_surface_as_jax(monkeypatch,
         monkeypatch.setenv(k, v)
     entry = serialize_parked(_synthetic("torch"))
     entry = entry.replace(b'"session_id": "S"', b'"session_id": "x"')
+    from fasttalk_tpu.utils.metrics import get_metrics as jax_metrics
+    from fasttalk_tpu_torch.utils.metrics import get_metrics
+
     got = {}
-    for pkg, launcher in (("jax", lambda: JaxLauncher(JaxConfig())),
-                          ("torch", lambda: ServerLauncher(
-                              Config(), device="cpu"))):
+    for pkg, registry, launcher in (
+            ("jax", jax_metrics, lambda: JaxLauncher(JaxConfig())),
+            ("torch", get_metrics,
+             lambda: ServerLauncher(Config(), device="cpu"))):
+        _forget_router_families(registry())
         lau = launcher()
         assert type(lau.engine).__name__ == "FleetRouter"
         assert lau.agent is None
